@@ -1,0 +1,37 @@
+"""Carry the JAX package's parameters into the port.
+
+The reference draws its weights from ``jax.random``, whose bits torch
+cannot reproduce, so the tests hold the two packages against each other on
+the SAME weights: ``params_from_jax`` maps a nested dict of arrays (numpy,
+or anything ``np.asarray`` accepts, such as the reference's own jax
+arrays) to torch tensors of the same shapes under the same keys.  bfloat16
+crosses exactly, bit for bit, through an int16 view.  This module imports
+numpy and torch only.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve
+
+
+def to_torch(a, device, dtype=None) -> torch.Tensor:
+    """One array -> tensor on ``device`` (a copy; bf16 bit-exact)."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree, device=DEFAULT_DEVICE, dtype=None):
+    """Tree-map a nested dict of arrays to torch tensors on ``device``,
+    optionally cast to ``dtype``."""
+    dev = resolve(device)
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, dev, dtype) for k, v in tree.items()}
+    return to_torch(tree, dev, dtype)

@@ -1,0 +1,58 @@
+"""Model API over the ported families (the dense decoder-only LM so far).
+
+``build(cfg, device)`` returns a ``ModelAPI`` bound to one device:
+  init(generator)                        -> params
+  prefill(params, batch, max_len, lens)  -> (logits, cache)
+  decode_paged(params, token, pcache)    -> (logits, pcache)
+  init_cache(batch, max_len)             -> dense cache dict
+
+The port's counterpart of ``repro.models.api._build_lm``; the loss,
+forward, dense-slab ``decode`` and the shape-spec helpers wait for their
+slices (ROADMAP.md, Queue 1 items 13 and 15).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DEFAULT_DEVICE, resolve
+
+from . import transformer as TF
+
+
+@dataclass
+class ModelAPI:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable
+    prefill: Callable
+    decode_paged: Callable
+    init_cache: Callable
+
+
+def build(cfg: ModelConfig, device=DEFAULT_DEVICE) -> ModelAPI:
+    if cfg.family == "encdec":
+        raise NotImplementedError("enc-dec models are not ported yet "
+                                  "(ROADMAP.md, Queue 1 item 11)")
+    return _build_lm(cfg, resolve(device))
+
+
+def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+    TF._check_family(cfg)
+
+    def init(generator: torch.Generator):
+        return TF.init_lm(cfg, generator, device)
+
+    def prefill(params, batch, max_len=None, lens=None):
+        return TF.prefill(params, cfg, batch, max_len, lens=lens)
+
+    def decode_paged(params, token, pcache):
+        return TF.decode_step_paged(params, cfg, token, pcache)
+
+    def init_cache(batch, max_len):
+        return TF.init_cache(cfg, batch, max_len, device=device)
+
+    return ModelAPI(cfg, device, init, prefill, decode_paged, init_cache)

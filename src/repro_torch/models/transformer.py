@@ -1,0 +1,194 @@
+"""Decoder-only LM in PyTorch: the dense family of the reference's
+``repro/models/transformer.py``.
+
+Parameters are the reference's pytree as nested dicts of layer-stacked
+tensors (per-layer parameters carry a leading ``L`` axis), with the same
+keys and shapes as ``repro.models.transformer.init_lm``, so weights cross
+between the packages by a tree map (``repro_torch.bridge``).  Where the
+reference scans over the stack, the port runs a Python loop over layers.
+
+Public entry points
+-------------------
+init_lm(cfg, generator, device)                -> params
+init_cache(cfg, batch, max_len, device=...)    -> dense cache dict
+prefill(params, cfg, batch, max_len, lens)     -> (logits_last, cache)
+decode_step_paged(params, cfg, token, pcache)  -> (logits, pcache)
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import DEFAULT_DEVICE, resolve
+from repro_torch.kernels.matmul.ops import matmul
+
+from . import layers as L
+
+
+def layer_windows(cfg) -> np.ndarray:
+    """(L,) int32; 0 => full attention, >0 => sliding window."""
+    w = np.zeros((cfg.n_layers,), np.int32)
+    if cfg.attn_window > 0:
+        w[:] = cfg.attn_window
+        for i in cfg.global_layers:
+            w[i % cfg.n_layers] = 0
+    return w
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _check_family(cfg) -> None:
+    if cfg.family != "dense" or cfg.n_meta_tokens or cfg.n_img_tokens:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet: only the dense "
+            "decoder-only family is (ROADMAP.md, Queue 1 items 10-11)")
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked parameter tree (views, no copies)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _head(params, cfg):
+    return params["embed"].T.contiguous() if cfg.tie_embeddings \
+        else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_lm(cfg, generator: torch.Generator, device=DEFAULT_DEVICE):
+    """Random parameters drawn from the reference's distributions
+    (normal / sqrt(d_in) weights, 0.02-scaled embeddings, zero qkv biases,
+    unit norms) with ``generator``, which must live on ``device``."""
+    _check_family(cfg)
+    dev = resolve(device)
+    dt = _dtype(cfg)
+    d, n = cfg.d_model, cfg.n_layers
+    blocks = {"ln1": torch.ones((n, d), dtype=dt, device=dev),
+              "attn": L.init_attention(generator, cfg, dt, dev, n)}
+    if cfg.d_ff > 0:
+        blocks["ln2"] = torch.ones((n, d), dtype=dt, device=dev)
+        blocks["mlp"] = L.init_mlp(generator, d, cfg.d_ff, cfg.act, dt, dev, n)
+    params = {
+        "embed": L.embed_init(generator, cfg.vocab, d, dt, dev),
+        "blocks": blocks,
+        "ln_f": torch.ones((d,), dtype=dt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, (d, cfg.vocab), dt, dev)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# KV cache, prefill, paged decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch, max_len, dtype=None, *, device=DEFAULT_DEVICE):
+    """Dense cache stacked over layers, with a per-slot (B,) ``len``."""
+    _check_family(cfg)
+    dev = resolve(device)
+    dt = dtype or _dtype(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"len": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _mlp_residual(bp, cfg, x):
+    if "mlp" not in bp:
+        return x
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp_block(bp["mlp"], h, cfg.act)
+
+
+def prefill(params, cfg, batch, max_len=None, lens=None):
+    """Run the prompt through the model, building a dense decode cache.
+
+    ``batch["tokens"]``: (B, S) integer tensor.  ``lens`` (optional, (B,)
+    int): per-slot valid token counts for a ragged wave — prompts shorter
+    than the padded width take their logits at their own final token
+    (causal masking hides the pad after a slot's length), and the cache
+    ``len`` vector records each slot's true context.  Returns
+    (last-position logits (B, V) f32, cache with k/v (L, B, max_len, Hkv, D)).
+    """
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()]
+    B, S, _ = x.shape
+    max_len = max_len or S
+    if max_len < S:
+        raise ValueError(f"max_len={max_len} is shorter than the prompt "
+                         f"width {S}")
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    windows = layer_windows(cfg)
+    ks, vs = [], []
+    for li in range(cfg.n_layers):
+        bp = _layer(params["blocks"], li)
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        a_out, (k, v) = L.attention_block(bp["attn"], cfg, h,
+                                          window=int(windows[li]),
+                                          positions=positions)
+        x = _mlp_residual(bp, cfg, x + a_out)
+        pad = (0, 0, 0, 0, 0, max_len - S)
+        ks.append(F.pad(k, pad))
+        vs.append(F.pad(v, pad))
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    head = _head(params, cfg)
+    if lens is None:
+        last = x[:, -1]
+        len_vec = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    else:
+        lens = torch.as_tensor(lens, dtype=torch.int32, device=x.device)
+        idx = (lens - 1).clamp(0, S - 1).long()
+        last = x[torch.arange(B, device=x.device), idx]
+        len_vec = lens
+    logits = matmul(last.contiguous(), head).float()
+    dt = _dtype(cfg)
+    cache = {"len": len_vec, "k": torch.stack(ks).to(dt),
+             "v": torch.stack(vs).to(dt)}
+    return logits, cache
+
+
+def decode_step_paged(params, cfg, token, pcache):
+    """One decode step against a paged (block-table) KV pool.
+
+    token: (B, 1) int.  pcache:
+      k_pages/v_pages : (L, N, bs, Hkv, D) shared block pool (float layout)
+      tables          : (B, T) int32 per-slot block chains (null-padded)
+      lens            : (B,) int32 per-slot write positions
+    Same math as the reference's ``decode_step_paged`` on a float pool.
+    The pool is updated IN PLACE: each layer writes the slots' new K/V rows
+    into ``k_pages``/``v_pages`` before attending (this stands where the
+    reference has ``donate_argnums`` on the jitted step: the caller's pool
+    tensors are the step's output).  Returns (logits (B, 1, V) f32, new
+    pcache dict holding the same pool tensors) with every ``lens`` advanced
+    by one (the engine overrides lengths for inactive slots from host
+    bookkeeping).
+    """
+    _check_family(cfg)
+    x = params["embed"][token.long()]                 # (B, 1, d)
+    B = x.shape[0]
+    pos = pcache["lens"].to(torch.int32)
+    tables = pcache["tables"].to(torch.int32).contiguous()
+    kp_all, vp_all = pcache["k_pages"], pcache["v_pages"]
+    windows = layer_windows(cfg)
+    for li in range(cfg.n_layers):
+        bp = _layer(params["blocks"], li)
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        a_out, _ = L.attention_decode_paged(
+            bp["attn"], cfg, h, kp_all[li], vp_all[li], tables, pos,
+            window=int(windows[li]))
+        x = _mlp_residual(bp, cfg, x + a_out)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = matmul(x.reshape(B, -1), _head(params, cfg)).float()
+    new_pcache = dict(pcache)
+    new_pcache["lens"] = pos + 1
+    return logits.reshape(B, 1, -1), new_pcache
