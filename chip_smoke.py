@@ -67,11 +67,16 @@ def fail(msg: str) -> None:
 def time_ms(torch, fn, n_args: int, iters: int = 20) -> float:
     """Mean device ms of ``fn(i)`` over ``iters`` launches cycling over
     ``n_args`` input sets (distinct buffers keep the L2 cold, as on the
-    serving path where each layer's weights are read once per step)."""
+    serving path where each layer's weights are read once per step).
+    The card first spins for ~10 ms so that the host has queued every
+    launch before the start event fires: the events then bracket device
+    work only, not the wrappers' host cost (tens of microseconds a call,
+    more than some of these kernels take)."""
     fn(0)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     t0.record()
     for i in range(iters):
         fn(i % n_args)
@@ -165,7 +170,7 @@ def phase_kernels(torch, cfg):
         lib += calls * t_l
         bnd += calls * b_ms
         del a, bs
-    for K, N, _ in proj:   # the prefill wave's widths, for the record
+    for K, N, _ in proj[:-1]:   # a prefill wave's projections, for the record
         a = rnd((SLOTS * PROMPT, K), torch.bfloat16)
         b = rnd((K, N), torch.bfloat16, 1 / math.sqrt(K))
         t_k = time_ms(torch, lambda i: mm_ops.matmul(a, b), 1, 5)

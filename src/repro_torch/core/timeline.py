@@ -18,7 +18,7 @@ issues the next span, which the next re-allocation picks up.  Time only
 moves inside ``step()``; callbacks never see a half-advanced clock.
 
 This module is the single timing substrate for every evaluation path
-(before PR 3 each path had its own loop; they are one clock now, which is
+(each path once had its own loop; they are one clock now, which is
 what makes simulated and live numbers directly comparable):
 
   * ``core.shaping_sim.simulate`` / ``simulate_tasks`` — the paper's

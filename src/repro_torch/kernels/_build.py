@@ -11,7 +11,7 @@ source is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.  Every C entry point returns
 ``cudaGetLastError()`` after its launch; ``check`` raises when it is not
-``cudaSuccess`` (a launch the driver refuses never runs, and a later
+``cudaSuccess`` (a launch the runtime refuses never runs, and a later
 ``torch.cuda.synchronize()`` would not report it).
 """
 from __future__ import annotations

@@ -1,5 +1,6 @@
 // Prefill flash attention: causal + sliding-window + GQA, online softmax.
 // q (B, Sq, Hq, D), k / v (B, Skv, Hkv, D), out (B, Sq, Hq, D), bf16 or f32;
+// query i attends to keys j <= i (and i - j < window when window > 0);
 // scores, running max m, running sum l and the accumulator in f32.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::
@@ -40,7 +41,7 @@ template <typename T, int DPL>         // DPL = ceil(D / 32): row elements per l
 __global__ void __launch_bounds__(WARPS * 32)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv, int Hq,
-          int Hkv, int D, int BQ, int causal, int window, float scale) {
+          int Hkv, int D, int BQ, int window, float scale) {
   extern __shared__ float smem[];
   const int DP = D + 1;                // padded rows: lanes read distinct banks
   float* qs = smem;                    // [ROWS][DP]
@@ -75,7 +76,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int k_lo = 0;
   if (window > 0) k_lo = max(0, q0 - window + 1);   // earlier keys: masked for every row
   k_lo = (k_lo / BK) * BK;
-  const int k_hi = causal ? min(Skv, q_last + 1) : Skv;   // later keys: masked for every row
+  const int k_hi = min(Skv, q_last + 1);   // later keys: masked for every row
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();   // the previous tile is consumed (and q is staged)
@@ -103,8 +104,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float dot = 0.f;
       for (int d = 0; d < D; ++d) dot += qs[r * DP + d] * ks[lane * DP + d];
       float s = dot * scale;
-      const bool ok = exists && (!causal || qi >= kj) &&
-                      (window <= 0 || qi - kj < window);
+      const bool ok = exists && qi >= kj && (window <= 0 || qi - kj < window);
       if (!ok) s = NEG;
       const float m_new = fmaxf(m[i], warp_max(exists ? s : -INFINITY));
       const float p = exists ? expf(s - m_new) : 0.f;
@@ -142,7 +142,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DPL>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int Hq, int Hkv, int D, int causal, int window,
+           int Skv, int Hq, int Hkv, int D, int window,
            cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int BQ = ROWS / G;
@@ -152,17 +152,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   fa_kernel<T, DPL><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, D, BQ,
-      causal, window, 1.f / sqrtf((float)D));
+      window, 1.f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
+               int Sq, int Skv, int Hq, int Hkv, int D, int window,
                cudaStream_t s) {
-  if (D <= 32) return launch<T, 1>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, s);
-  if (D <= 64) return launch<T, 2>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, s);
-  return launch<T, 4>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, s);
+  if (D <= 32) return launch<T, 1>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
+  if (D <= 64) return launch<T, 2>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
+  return launch<T, 4>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
 }
 
 }  // namespace
@@ -171,13 +171,13 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 // Hq / Hkv <= 16.  window <= 0 means no window.
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                         int causal, int window, int dtype, void* stream) {
+                         int window, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 128 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32)
-    return dispatch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, s);
+    return dispatch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
   if (dtype == DT_BF16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

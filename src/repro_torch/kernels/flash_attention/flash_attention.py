@@ -16,15 +16,15 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"fa_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P]}
+SIGNATURES = {"fa_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P]}
 MAX_D = 128
 MAX_GROUP = 16
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), CUDA, contiguous, one
-    dtype.  window <= 0 means no window.  Returns (B, Sq, Hq, D)."""
+def flash_attention_cuda(q, k, v, *, window: int = 0) -> torch.Tensor:
+    """Causal attention.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), CUDA,
+    contiguous, one dtype.  window <= 0 means no window.  Returns
+    (B, Sq, Hq, D)."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -43,7 +43,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     o = torch.empty_like(q)
     lib = _build.load("flash_attention", SIGNATURES)
     err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(causal),
+                        o.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
                         int(window or 0), _build.dtype_code(q),
                         _build.stream_of(q))
     _build.check(lib, err, "fa_launch")

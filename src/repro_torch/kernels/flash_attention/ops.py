@@ -14,14 +14,14 @@ from .flash_attention import flash_attention_cuda
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  window <= 0 means no
-    window.  Returns (B, Sq, Hq, D)."""
+                    window: int = 0) -> torch.Tensor:
+    """Causal attention.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).
+    window <= 0 means no window.  Returns (B, Sq, Hq, D)."""
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, window=window)
+        return ref.attention(q, k, v, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out = flash_attention_cuda(q, k, v, window=window)
     flash_attention.launches += 1
     return out
 

@@ -7,9 +7,10 @@ import torch
 _NEG = -1e30
 
 
-def attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); Hq % Hkv == 0.
-    window > 0 = sliding window of that many keys. Returns (B, Sq, Hq, D)."""
+def attention(q, k, v, *, window: int = 0):
+    """Causal attention.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D);
+    Hq % Hkv == 0.  window > 0 = sliding window of that many keys.
+    Returns (B, Sq, Hq, D)."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -17,9 +18,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0):
     s = torch.einsum("bqhgd,bkhd->bhgqk", qr.float(), k.float()) / math.sqrt(D)
     q_pos = torch.arange(Sq, device=q.device)
     k_pos = torch.arange(Skv, device=q.device)
-    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= q_pos[:, None] >= k_pos[None, :]
+    ok = q_pos[:, None] >= k_pos[None, :]
     if window and window > 0:
         ok &= (q_pos[:, None] - k_pos[None, :]) < window
     s = torch.where(ok, s, torch.full_like(s, _NEG))

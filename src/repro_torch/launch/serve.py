@@ -197,7 +197,7 @@ def main(argv=None):
               f"(x{rep['std_rel']:.2f}, bw_mean x{rep['mean_rel']:.2f}, "
               f"perf x{rep['perf_rel']:.2f})")
 
-    # per-slot token streams across all partitions (driver contract)
+    # per-slot token streams across all partitions (the return contract)
     return [toks for eng in engines for toks in eng.slot_tokens]
 
 

@@ -171,7 +171,7 @@ def attention_block(p, cfg, x, *, window=None, positions=None):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q, k, v = attention_qkv(p, cfg, x, positions)
     o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=True, window=_window(window))
+                        window=_window(window))
     return _proj(o.reshape(B, S, -1), p["wo"]), (k, v)
 
 

@@ -655,7 +655,6 @@ class PartitionEngine(EngineBase):
         self.api = api
         self.params = params
         self.device = api.device
-        self.paged = True
         self.pages = None          # k_pages / v_pages pool tensors
         self._last_tok = None      # (slots, 1) int32 host array
         self.last_logits = None    # (slots, V) np, for equivalence tests

@@ -96,7 +96,7 @@ def test_flash_attention_plain_vs_pallas(B, S, Hq, Hkv, D, window, dtype):
     rng = np.random.default_rng(S + D + window)
     q, k, v = _qkv(rng, B, S, S, Hq, Hkv, D)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, k, v))
-    out = fa_ref.attention(tq, tk, tv, causal=True, window=window)
+    out = fa_ref.attention(tq, tk, tv, window=window)
     _close(out, jfa_ops.flash_attention(jq, jk, jv, causal=True,
                                         window=window, bq=8, bk=16), dtype)
     _close(out, jfa_ref.attention(jq, jk, jv, causal=True, window=window),
@@ -113,7 +113,7 @@ def test_flash_attention_plain_ragged_vs_ref(B, Sq, Hq, Hkv, D, window,
     rng = np.random.default_rng(Sq)
     q, k, v = _qkv(rng, B, Sq, Sq, Hq, Hkv, D)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, k, v))
-    _close(fa_ref.attention(tq, tk, tv, causal=True, window=window),
+    _close(fa_ref.attention(tq, tk, tv, window=window),
            jfa_ref.attention(jq, jk, jv, causal=True, window=window), dtype)
 
 

@@ -131,6 +131,16 @@ def test_eight_paged_decode_steps_match(models):
                                np.asarray(jpc["k_pages"])[:, 1:], **TOL)
 
 
+def test_init_cache_matches_reference(models):
+    jcfg, jm, _, tcfg, tm, _ = models
+    jc, tc = jm.init_cache(3, 20), tm.init_cache(3, 20)
+    assert sorted(tc) == sorted(jc)
+    for key in jc:
+        assert tuple(tc[key].shape) == jc[key].shape
+        assert str(tc[key].dtype).replace("torch.", "") == str(jc[key].dtype)
+        assert torch.count_nonzero(tc[key]) == 0
+
+
 def test_write_prefix_pages_raises_on_overflow(models):
     _, _, _, tcfg, _, _ = models
     pages = TKV.init_pages(tcfg, 5, 4, device="cpu")
