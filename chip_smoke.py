@@ -14,16 +14,28 @@ Phases (each raises on failure; nothing is caught):
    serving path's qwen2-7b shapes in bf16 (tolerance 3e-2, the reference's
    bf16 tolerance) and fp32 (tolerance 2e-4, the reference's fp32
    tolerance: both sides accumulate in f32, only in another order, with
-   TF32 switched off explicitly), plus one ragged shape per kernel; then
-   each kernel's time beside its plain version's, one PyTorch library
+   TF32 switched off explicitly), plus one ragged shape per kernel; packed
+   int8/fp8 pages at 5e-2, the reference's quantization budget (QTOL).
+   Then each kernel's time beside its plain version's, one PyTorch library
    call's (a yardstick the port never calls) and its roofline bound.
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
-   weights on both; ragged prefill and 4 paged decode steps; logits within
-   1e-3 (f32 on both sides, summed in different orders through two layers
-   with contractions up to 18,944 long) and identical argmax.
+   weights on both; ragged prefill and 4 decode steps on a float pool
+   (logits within 1e-3: f32 on both sides, summed in different orders
+   through two layers with contractions up to 18,944 long; identical
+   argmax), an int8 and an fp8 pool (5e-2), a sparse float pool and a
+   sparse int8 pool (the keep masks first compared equal, any flip
+   reported by slot, head, block and estimated mass; then 1e-3 and 5e-2)
+   and the dense slab (1e-3).  A prefix-cache hit on the card gives
+   logits bit-identical to a cold engine.
 3. The slice: ``repro_torch.launch.serve.main`` serves qwen2-7b at full
-   width (28 layers, bf16, random weights from seed 0) with 2 partitions;
-   every request must complete and every kernel's launch count must rise.
+   width (28 layers, bf16, random weights from seed 0) with 2 partitions,
+   then at a smaller load (1 partition, 4 requests, prompt 64) on the
+   float pool, with ``--kv-dtype int8 --sparse-threshold T``, with
+   ``--kv-dtype fp8``, with ``--sparse-threshold T --prefix-cache`` and
+   with ``--dense``.  Every request must complete,
+   every kernel's launch count must rise on the run that carries it (the
+   counts are set to 0 just before each run and read just after), and the
+   sparse runs must drop blocks.
 
 The second-to-last line is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port's
@@ -31,6 +43,7 @@ sources beside this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -42,12 +55,30 @@ ROOT = Path(__file__).resolve().parent
 H100_BW = 3.35e12            # HBM3 bytes/s, data sheet
 H100_BF16 = 989e12           # dense bf16 tensor-core FLOP/s, data sheet
 TOL = {"bfloat16": 3e-2, "float32": 2e-4}
+QTOL = 5e-2                  # packed KV pages (tests/test_kv_quant.py)
 MODEL_TOL = 1e-3
 
 SERVE_ARGS = ["--arch", "qwen2-7b", "--partitions", "2", "--stagger",
               "demand", "--requests", "8", "--batch", "4", "--prompt-len",
               "32", "--gen", "16", "--device", "cuda"]
 SLOTS, PROMPT, GEN = 4, 32, 16
+# the lever runs: prompts of 64 tokens span 5 blocks of 16 once decode
+# starts, so a threshold of 0.25 > 1/5 leaves at least two blocks of every
+# (slot, kv head) below it, one of which is not the current block: blocks
+# are dropped whatever the weights
+LEVER_PROMPT, LEVER_GEN, THRESHOLD = 64, 8, 0.25
+LEVER_ARGS = ["--arch", "qwen2-7b", "--partitions", "1", "--requests", "4",
+              "--batch", "4", "--prompt-len", str(LEVER_PROMPT), "--gen",
+              str(LEVER_GEN), "--device", "cuda", "--no-sim"]
+LEVER_RUNS = {    # "paged": the float pool at the same load, for comparison
+    "paged": [],
+    "int8+sparse": ["--kv-dtype", "int8", "--sparse-threshold",
+                    str(THRESHOLD)],
+    "fp8": ["--kv-dtype", "fp8"],
+    "sparse+prefix": ["--sparse-threshold", str(THRESHOLD),
+                      "--prefix-cache"],
+    "dense": ["--dense"],
+}
 
 
 def log(msg: str) -> None:
@@ -98,6 +129,35 @@ def check_close(torch, name, got, want, tol):
         fail(f"{name}: kernel disagrees with its plain version (max abs err "
              f"{worst:.3g}, tolerance {tol} abs + {tol} rel)")
     return worst
+
+
+def paged_tables(torch, curs, bs, dev):
+    """Shuffled block chains covering positions [0, cur] of each slot plus
+    a null-padded tail; a slot with cur 0 stays on null block 0 (an
+    inactive slot).  Returns (tables (B, T) int32, pool blocks N)."""
+    B = len(curs)
+    T = max(-(-(c + 1) // bs) for c in curs) + 1
+    N = 1 + B * T
+    free = torch.randperm(N - 1, generator=torch.Generator().manual_seed(
+        B)).add(1).tolist()
+    tables = torch.zeros((B, T), dtype=torch.int32)
+    for b, c in enumerate(curs):
+        if c > 0:
+            for t in range(-(-(c + 1) // bs)):
+                tables[b, t] = free.pop()
+    return tables.to(dev), N
+
+
+def rows_read(torch, cur, bs, T, Hkv, keep=None):
+    """(slot, kv head, position) rows a decode kernel must read: positions
+    [0, cur[b]] of every kv head, only in kept blocks when ``keep`` (B,
+    Hkv, T) is given."""
+    pos = torch.arange(T * bs, device=cur.device)
+    live = (pos[None, :] <= cur[:, None].long())            # (B, S)
+    live = live[:, None, :].expand(-1, Hkv, -1)
+    if keep is not None:
+        live = live & keep.bool().repeat_interleave(bs, dim=-1)
+    return float(live.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -235,16 +295,7 @@ def phase_kernels(torch, cfg):
              ([3, 17, 40], 0, 4, 2, 16, "D=16")]
     for curs, w, hq, hkv, D, tag in cases:
         B = len(curs)
-        T = max(-(-(c + 1) // bs) for c in curs) + 1      # null-padded tail
-        N = 1 + B * T
-        free = torch.randperm(N - 1, generator=torch.Generator().manual_seed(
-            B)).add(1).tolist()
-        tables = torch.zeros((B, T), dtype=torch.int32)
-        for b_, c in enumerate(curs):
-            if c > 0:       # slot with cur_pos 0 stays on the null block
-                for t in range(-(-(c + 1) // bs)):
-                    tables[b_, t] = free.pop()
-        tables = tables.to(dev)
+        tables, N = paged_tables(torch, curs, bs, dev)
         cur = torch.tensor(curs, dtype=torch.int32, device=dev)
         for dt in (torch.bfloat16, torch.float32):
             qd = rnd((B, hq, D), dt)
@@ -278,12 +329,211 @@ def phase_kernels(torch, cfg):
     return out
 
 
+def phase_decode_kernels(torch, cfg):
+    """Phase 1 for the decode kernels of the bandwidth levers and the dense
+    slab: paged_decode_quant, paged_decode_sparse, flash_decode."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.serving.kv_pool import quantize_kv
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def keys(shape, dtype):
+        # each (block, kv head) tile of K carries its own offset, so the
+        # blocks' estimated masses differ as a real model's do
+        base = torch.randn(shape, generator=g, device=dev)
+        off = torch.randn((shape[0], 1, *shape[2:]), generator=g, device=dev)
+        return (base + 2 * off).to(dtype)
+
+    hd, Hq, Hkv, bs = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, 16
+    out = {}
+    bf, f32 = torch.bfloat16, torch.float32
+    lever_curs = [LEVER_PROMPT + 1, LEVER_PROMPT + 7, LEVER_PROMPT + 3,
+                  LEVER_PROMPT + 5]
+
+    # -- paged_decode_quant: the int8+sparse and fp8 runs' shapes, int8 and
+    # fp8 pages, q bf16 and f32, with and without a keep mask and the
+    # current rows; one ragged case (window, an inactive slot, D = 16)
+    worst = 0.0
+    cases = [(lever_curs, 0, Hq, Hkv, hd, "main"),
+             ([0, 5, 37, 63], 20, Hq, Hkv, hd, "window+inactive"),
+             ([3, 17, 40], 0, 4, 2, 16, "D=16")]
+    for curs, w, hq, hkv, D, tag in cases:
+        B = len(curs)
+        tables, N = paged_tables(torch, curs, bs, dev)
+        cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+        for kind in ("int8", "fp8"):
+            kq, ks = quantize_kv(keys((N, bs, hkv, D), f32), kind)
+            vq, vs = quantize_kv(rnd((N, bs, hkv, D), f32), kind)
+            for dt in (bf, f32):
+                q = rnd((B, hq, D), dt)
+                rows = dict(k_row=rnd((B, hkv, D), dt),
+                            v_row=rnd((B, hkv, D), dt))
+                keep = pa_ref.block_keep_mask(q, kq, tables, cur,
+                                              threshold=THRESHOLD, window=w,
+                                              k_scales=ks)
+                for kk, rr in ((None, {}), (None, rows), (keep, rows)):
+                    args = (q, kq, vq, ks, vs, tables, cur)
+                    e = check_close(
+                        torch, f"paged_decode_quant {tag} {kind} {dt} keep="
+                        f"{kk is not None} rows={bool(rr)}",
+                        pa_ops.paged_decode_quant(*args, window=w, keep=kk,
+                                                  **rr),
+                        pa_ref.paged_decode_attention_quant(
+                            *args, window=w, keep=kk, **rr), QTOL)
+                    if tag == "main" and dt == bf:
+                        worst = max(worst, e)
+                if tag == "main" and kind == "int8" and dt == bf:
+                    main = (args, rows, keep, N)
+    args, rows, keep, N = main
+    q, kq, _, _, _, tables, cur = args
+    T = tables.shape[1]
+    t_k = time_ms(torch, lambda i: pa_ops.paged_decode_quant(
+        *args, keep=keep, **rows), 1)
+    t_p = time_ms(torch, lambda i: pa_ref.paged_decode_attention_quant(
+        *args, keep=keep, **rows), 1)
+    n_rows = rows_read(torch, cur, bs, T, Hkv, keep)
+    blocks = float(keep.sum())
+    valid = float(pa_ref.valid_blocks(cur, T, bs).sum()) * Hkv
+    b_ms, by = bound(1 * 2 * n_rows * hd + 4 * 2 * blocks
+                     + 2 * (2 * q.numel() + 2 * rows["k_row"].numel())
+                     + 4 * (tables.numel() + cur.numel() + keep.numel()),
+                     4 * Hq // Hkv * hd * n_rows, H100_BF16)
+    out["paged_decode_quant"] = dict(
+        shape=f"one layer of an int8+sparse decode step: q ({SLOTS},{Hq},"
+              f"{hd}) bf16, int8 pool of {N} blocks x {bs}, contexts "
+              f"{cur.tolist()}, keep mask at {THRESHOLD} ({int(blocks)} of "
+              f"{int(valid)} (slot, head, block) kept), current rows",
+        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
+        bound_ms=b_ms, bound_by=by)
+    log(f"phase 1: paged_decode_quant matches at {len(cases)} shapes x "
+        f"int8/fp8 x 2 dtypes x 3 operand sets; kernel_ms {t_k:.4f} "
+        f"plain_ms {t_p:.4f} library_ms null bound_ms {b_ms:.5f} ({by})")
+
+    # -- paged_decode_sparse: the sparse run's shapes with the model path's
+    # mask, a mask that drops about half the blocks, and one where only
+    # the current block survives in one slot; plus the ragged cases
+    worst = 0.0
+    for curs, w, hq, hkv, D, tag in cases:
+        B = len(curs)
+        tables, N = paged_tables(torch, curs, bs, dev)
+        T = tables.shape[1]
+        cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+        valid = pa_ref.valid_blocks(cur, T, bs, w)[:, None, :].expand(
+            -1, hkv, -1)
+        current = (torch.arange(T, device=dev)[None, None, :]
+                   == (cur[:, None, None] // bs)) & valid
+        half = (torch.rand((B, hkv, T), generator=g, device=dev) < 0.5)
+        half = (half & valid) | current
+        only_cur = half.clone()
+        only_cur[B - 1] = current[B - 1]
+        for dt in (bf, f32):
+            q = rnd((B, hq, D), dt)
+            kp, vp = keys((N, bs, hkv, D), dt), rnd((N, bs, hkv, D), dt)
+            model = pa_ref.block_keep_mask(q, kp, tables, cur,
+                                           threshold=THRESHOLD, window=w)
+            for mname, keep in (("model", model), ("half", half),
+                                ("only-current", only_cur)):
+                e = check_close(
+                    torch, f"paged_decode_sparse {tag} {mname} {dt}",
+                    pa_ops.paged_decode_sparse(q, kp, vp, tables, cur,
+                                               window=w, keep=keep),
+                    pa_ref.paged_decode_attention_sparse(
+                        q, kp, vp, tables, cur, window=w, keep=keep),
+                    TOL[str(dt).split(".")[1]])
+                if tag == "main" and dt == bf:
+                    worst = max(worst, e)
+            if tag == "main" and dt == bf:
+                main = (q, kp, vp, tables, cur, model, N)
+    q, kp, vp, tables, cur, keep, N = main
+    T = tables.shape[1]
+    t_k = time_ms(torch, lambda i: pa_ops.paged_decode_sparse(
+        q, kp, vp, tables, cur, keep=keep), 1)
+    t_p = time_ms(torch, lambda i: pa_ref.paged_decode_attention_sparse(
+        q, kp, vp, tables, cur, keep=keep), 1)
+    n_rows = rows_read(torch, cur, bs, T, Hkv, keep)
+    b_ms, by = bound(2 * 2 * n_rows * hd + 2 * 2 * q.numel()
+                     + 4 * (tables.numel() + cur.numel() + keep.numel()),
+                     4 * Hq // Hkv * hd * n_rows, H100_BF16)
+    dropped = rows_read(torch, cur, bs, T, Hkv) - n_rows
+    out["paged_decode_sparse"] = dict(
+        shape=f"one layer of a sparse decode step: q ({SLOTS},{Hq},{hd}), "
+              f"bf16 pool of {N} blocks x {bs}, contexts {cur.tolist()}, "
+              f"keep mask at {THRESHOLD} ({int(n_rows)} rows read, "
+              f"{int(dropped)} dropped)",
+        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
+        bound_ms=b_ms, bound_by=by)
+    log(f"phase 1: paged_decode_sparse matches at {len(cases)} shapes x 3 "
+        f"masks x 2 dtypes; kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+        f"library_ms null bound_ms {b_ms:.5f} ({by})")
+
+    # -- flash_decode: the dense run's slab (S = max_len), scalar and
+    # vector cur, a window, a ragged S
+    S_main = LEVER_PROMPT + 4 * LEVER_GEN
+    worst = 0.0
+    fcases = [(SLOTS, S_main, Hq, Hkv, hd, 0, "main"),
+              (3, 77, Hq, Hkv, hd, 16, "ragged S+window"),
+              (2, 30, 4, 2, 16, 0, "D=16")]
+    for B, S, hq, hkv, D, w, tag in fcases:
+        for dt in (bf, f32):
+            q = rnd((B, hq, D), dt)
+            k, v = rnd((B, S, hkv, D), dt), rnd((B, S, hkv, D), dt)
+            vec = torch.randint(0, S, (B,), generator=g, device=dev,
+                                dtype=torch.int32)
+            if tag == "main":
+                vec = torch.tensor(lever_curs, dtype=torch.int32, device=dev)
+            for cur in (torch.tensor(S // 2, dtype=torch.int32, device=dev),
+                        vec):
+                e = check_close(
+                    torch, f"flash_decode {tag} cur{tuple(cur.shape)} {dt}",
+                    fd_ops.flash_decode(q, k, v, cur, window=w),
+                    fd_ref.decode_attention(q, k, v, cur, window=w),
+                    TOL[str(dt).split(".")[1]])
+                if tag == "main" and dt == bf:
+                    worst = max(worst, e)
+            if tag == "main" and dt == bf:
+                main = (q, k, v, vec)
+    q, k, v, cur = main
+    G = Hq // Hkv
+    qt = q[:, :, None, :]                                   # SDPA layout
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    mask = (torch.arange(S_main, device=dev)[None, :]
+            <= cur[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_k = time_ms(torch, lambda i: fd_ops.flash_decode(q, k, v, cur), 1)
+    t_p = time_ms(torch, lambda i: fd_ref.decode_attention(q, k, v, cur), 1)
+    t_l = time_ms(torch, lambda i: sdpa(qt, kt, vt, attn_mask=mask), 1)
+    n_rows = float((cur + 1).sum()) * Hkv
+    b_ms, by = bound(2 * 2 * n_rows * hd + 2 * 2 * q.numel()
+                     + 4 * cur.numel(), 4 * G * hd * n_rows, H100_BF16)
+    out["flash_decode"] = dict(
+        shape=f"one layer of a dense-slab decode step: q ({SLOTS},{Hq},{hd})"
+              f", k/v ({SLOTS},{S_main},{Hkv},{hd}) bf16, cur "
+              f"{cur.tolist()}",
+        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        bound_ms=b_ms, bound_by=by)
+    log(f"phase 1: flash_decode matches at {len(fcases)} shapes x scalar/"
+        f"vector cur x 2 dtypes; kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+        f"library_ms {t_l:.4f} (SDPA with a boolean mask on K/V expanded to "
+        f"{Hq} heads) bound_ms {b_ms:.5f} ({by})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the card against the CPU on the same full-width weights
 # ---------------------------------------------------------------------------
 
 
 def phase_card_vs_cpu(torch, cfg):
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
     from repro_torch.serving import kv_pool as KV
 
@@ -296,38 +546,149 @@ def phase_card_vs_cpu(torch, cfg):
                 for k, v in tree.items()}
     params["cpu"] = to_cpu(params["cuda"])
     lens = [PROMPT, 20, 27, 9]
-    bs, max_len = 16, PROMPT + 16
-    T = -(-max_len // bs)
-    pool = KV.BlockPool(1 + len(lens) * T, bs)
-    tables = torch.tensor([pool.alloc(T) for _ in lens], dtype=torch.int32)
+    max_len = PROMPT + 16
     tokens = torch.randint(1, cfg2.vocab, (len(lens), PROMPT),
                            generator=torch.Generator().manual_seed(3))
-    logits = {}
-    for dev in ("cuda", "cpu"):
+
+    def run(dev, kind, threshold, bs, masks):
+        """Prefill + 4 decode steps on ``dev``; returns per-step logits.
+        ``masks`` collects every keep mask (and its block masses)."""
         p = params[dev]
+        T = -(-max_len // bs)
+        pool = KV.BlockPool(1 + len(lens) * T, bs)
+        tables = torch.tensor([pool.alloc(T) for _ in lens],
+                              dtype=torch.int32)
         lg, cache = TF.prefill(p, cfg2, {"tokens": tokens.to(dev)},
                                max_len=max_len, lens=torch.tensor(lens))
-        pages = KV.init_pages(cfg2, pool.n_blocks, bs, device=dev)
-        KV.write_prefix_pages(pages, cache["k"], cache["v"], tables.to(dev))
         steps = [lg.cpu()]
         tok = lg.argmax(-1)
-        pc = dict(pages, tables=tables.to(dev),
-                  lens=torch.tensor(lens, dtype=torch.int32, device=dev))
+        if kind == "dense":
+            pc = dict(cache, len=torch.tensor(lens, dtype=torch.int32,
+                                              device=dev))
+        else:
+            pages = KV.init_pages(cfg2, pool.n_blocks, bs, device=dev,
+                                  kv_dtype=kind)
+            KV.write_prefix_pages(pages, cache["k"], cache["v"],
+                                  tables.to(dev))
+            pc = dict(pages, tables=tables.to(dev),
+                      lens=torch.tensor(lens, dtype=torch.int32, device=dev))
         for _ in range(4):
-            lg, pc = TF.decode_step_paged(p, cfg2, tok[:, None], pc)
+            if kind == "dense":
+                lg, pc = TF.decode_step(p, cfg2, tok[:, None], pc)
+            else:
+                lg, pc = TF.decode_step_paged(p, cfg2, tok[:, None], pc,
+                                              sparse_threshold=threshold)
             lg = lg[:, 0]
             steps.append(lg.cpu())
             tok = lg.argmax(-1)
-        logits[dev] = steps
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
-        if not torch.equal(a.argmax(-1), b.argmax(-1)):
-            fail(f"card vs CPU: argmax differs at step {i}")
-        worst = max(worst, check_close(torch, f"card vs CPU step {i}", a, b,
-                                       MODEL_TOL))
-    log(f"phase 2: 2-layer full-width fp32 model, card (kernels) vs CPU "
-        f"(plain): prefill + 4 paged decode steps agree (max abs logit err "
-        f"{worst:.3g}, tolerance {MODEL_TOL}), identical argmax")
+        return steps
+
+    keep_mask = L.block_keep_mask
+
+    def recording(masks):
+        def record(q, k_pages, tables, cur_pos, **kw):
+            keep = keep_mask(q, k_pages, tables, cur_pos, **kw)
+            kw.pop("threshold")
+            mass = pa_ref.block_mass(q, k_pages, tables, cur_pos, **kw)
+            valid = pa_ref.valid_blocks(cur_pos, tables.shape[1],
+                                        k_pages.shape[1], kw["window"])
+            masks.append((keep.cpu(), mass.cpu(),
+                          int(valid.sum()) * keep.shape[1]))
+            return keep
+        return record
+
+    layouts = [("fp32", 0.0, 16, MODEL_TOL), ("int8", 0.0, 16, QTOL),
+               ("fp8", 0.0, 16, QTOL), ("fp32", THRESHOLD, 8, MODEL_TOL),
+               ("int8", THRESHOLD, 8, QTOL), ("dense", 0.0, 16, MODEL_TOL)]
+    for kind, threshold, bs, tol in layouts:
+        name = f"{kind}" + (f"+sparse {threshold}" if threshold else "")
+        logits, masks = {}, {}
+        for dev in ("cuda", "cpu"):
+            masks[dev] = []
+            L.block_keep_mask = recording(masks[dev])
+            try:
+                logits[dev] = run(dev, kind, threshold, bs, masks[dev])
+            finally:
+                L.block_keep_mask = keep_mask
+        if threshold:
+            flips = []
+            for call, ((kc, mc, _), (kp, mp, _)) in enumerate(
+                    zip(masks["cuda"], masks["cpu"])):
+                for b, h, t in (kc != kp).nonzero().tolist():
+                    flips.append(f"call {call} slot {b} head {h} block {t}: "
+                                 f"card {bool(kc[b, h, t])} mass "
+                                 f"{float(mc[b, h, t]):.6g}, CPU "
+                                 f"{bool(kp[b, h, t])} mass "
+                                 f"{float(mp[b, h, t]):.6g}")
+            if flips or len(masks["cuda"]) != len(masks["cpu"]):
+                fail(f"card vs CPU {name}: keep masks differ:\n  "
+                     + "\n  ".join(flips))
+            kept = sum(int(k.sum()) for k, _, _ in masks["cpu"])
+            valid = sum(n for _, _, n in masks["cpu"])
+            if kept >= valid:
+                fail(f"card vs CPU {name}: the keep masks dropped no block")
+            log(f"  {name}: {len(masks['cpu'])} keep masks equal on card and "
+                f"CPU ({valid - kept} of {valid} valid blocks dropped)")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
+            if not torch.equal(a.argmax(-1), b.argmax(-1)):
+                fail(f"card vs CPU {name}: argmax differs at step {i}")
+            worst = max(worst, check_close(
+                torch, f"card vs CPU {name} step {i}", a, b, tol))
+        log(f"phase 2: 2-layer full-width fp32 model, {name} layout, card "
+            f"(kernels) vs CPU (plain): prefill + 4 decode steps agree (max "
+            f"abs logit err {worst:.3g}, tolerance {tol}), identical argmax")
+    phase_prefix_bitwise(torch, cfg2, params["cuda"])
+
+
+def phase_prefix_bitwise(torch, cfg2, params):
+    """A prefix-cache hit on the card: the hit request's logits bit for
+    bit those of a cold engine that wrote every block itself, and serving
+    the donor's prompt again bit for bit its own cold run."""
+    import numpy as np
+
+    from repro_torch.models import api as mapi
+    from repro_torch.serving import PartitionEngine, RequestQueue
+
+    api = mapi.build(cfg2, "cuda")
+    bs, head = 16, 2 * 16
+    rng = np.random.default_rng(9)
+    first = rng.integers(1, cfg2.vocab, size=(head,)).astype(np.int32)
+    prompts = [np.concatenate([first, rng.integers(1, cfg2.vocab, size=(5,))
+                               .astype(np.int32)]) for _ in range(2)]
+
+    def engine(cache):
+        return PartitionEngine(cfg2, api, params, slots=2, max_len=64,
+                               block_size=bs, prefix_cache=cache)
+
+    def drive(eng, prompt):
+        q = RequestQueue()
+        q.submit(prompt, 4)
+        eng.assign(q.pop(1))
+        eng.prefill_wave(0.0)
+        i = next(j for j, r in enumerate(eng.active) if r is not None)
+        out = []
+        while eng.busy:
+            eng.decode_step(0.0)
+            out.append(eng.last_logits[i].copy())
+        return out
+
+    warm = engine(True)
+    drive(warm, prompts[0])
+    for prompt in (prompts[1], prompts[0]):
+        hit = drive(warm, prompt)
+        cold = drive(engine(False), prompt)
+        if warm.n_cached_tokens < head:
+            fail("prefix cache: the second request did not hit the cached "
+                 "head")
+        for i, (h, c) in enumerate(zip(hit, cold)):
+            if not np.array_equal(h, c):
+                fail(f"prefix cache: hit logits differ from a cold engine's "
+                     f"at decode step {i} (max abs diff "
+                     f"{float(np.abs(h - c).max()):.3g}); bitwise expected")
+    log(f"phase 2: prefix-cache hits on the card ({warm.n_prefix_hits} hits, "
+        f"{warm.n_cached_tokens} cached tokens): logits bit-identical to "
+        f"cold engines")
 
 
 # ---------------------------------------------------------------------------
@@ -335,34 +696,71 @@ def phase_card_vs_cpu(torch, cfg):
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(torch, cfg, wrappers):
+def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
+    """One serve CLI run with every count set to 0 just before it and read
+    just after; every request must complete.  Returns the run's record."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.launch import serve
 
     for w in wrappers.values():
         w.launches = 0
+    for w in (pa_ops.paged_decode_sparse, pa_ops.paged_decode_quant):
+        w.dropped_blocks.reset()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = serve.main(SERVE_ARGS)
+    outs = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
-    n_req = int(SERVE_ARGS[SERVE_ARGS.index("--requests") + 1])
+    launches = {k: w.launches for k, w in wrappers.items()}
+    dropped = {k: w.dropped_blocks.value for k, w in
+               (("paged_decode_sparse", pa_ops.paged_decode_sparse),
+                ("paged_decode_quant", pa_ops.paged_decode_quant))}
     tokens = sum(len(s) for s in outs)
-    if tokens != n_req * GEN:
-        fail(f"serve: {tokens} tokens generated, expected {n_req} requests x "
-             f"{GEN} (a request did not complete)")
+    if tokens != n_req * gen:
+        fail(f"serve {name}: {tokens} tokens generated, expected {n_req} "
+             f"requests x {gen} (a request did not complete)")
     if any(not 0 <= t < cfg.vocab for s in outs for t in s):
-        fail("serve: a generated token is outside the vocabulary")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"serve: kernel {name} was never launched on the main path")
-    log(f"phase 3: served {n_req}/{n_req} requests, {tokens} tokens in "
-        f"{wall:.2f} s wall ({tokens / wall:.1f} generated tokens per wall "
-        f"second), max_memory_allocated "
+        fail(f"serve {name}: a generated token is outside the vocabulary")
+    log(f"phase 3 [{name}]: served {n_req}/{n_req} requests, {tokens} "
+        f"tokens in {wall:.2f} s wall ({tokens / wall:.2f} generated tokens "
+        f"per wall second), max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
-        f"{launches}")
-    return launches
+        f"{launches}, dropped blocks {dropped}")
+    return dict(launches=launches, dropped=dropped, wall=wall, tokens=tokens)
+
+
+# the kernels each phase-3 run must launch (launch count above 0)
+CARRIES = {"baseline": ("matmul", "flash_attention", "paged_decode"),
+           "paged": ("matmul", "flash_attention", "paged_decode"),
+           "int8+sparse": ("matmul", "flash_attention",
+                           "paged_decode_quant"),
+           "fp8": ("matmul", "flash_attention", "paged_decode_quant"),
+           "sparse+prefix": ("matmul", "flash_attention",
+                             "paged_decode_sparse"),
+           "dense": ("matmul", "flash_attention", "flash_decode")}
+
+
+def phase_serve(torch, cfg, wrappers):
+    runs = {"baseline": serve_run(
+        torch, cfg, wrappers, "baseline", SERVE_ARGS,
+        int(SERVE_ARGS[SERVE_ARGS.index("--requests") + 1]), GEN)}
+    n_req = int(LEVER_ARGS[LEVER_ARGS.index("--requests") + 1])
+    for name, flags in LEVER_RUNS.items():
+        gc.collect()            # the last run's 15 GB of weights, engines
+        torch.cuda.empty_cache()  # and pools may sit in reference cycles
+        runs[name] = serve_run(torch, cfg, wrappers, name,
+                               LEVER_ARGS + flags, n_req, LEVER_GEN)
+    for name, kernels in CARRIES.items():
+        for k in kernels:
+            if runs[name]["launches"][k] == 0:
+                fail(f"serve {name}: kernel {k} was never launched on the "
+                     f"run that carries it")
+    for name, k in (("int8+sparse", "paged_decode_quant"),
+                    ("sparse+prefix", "paged_decode_sparse")):
+        if runs[name]["dropped"][k] == 0:
+            fail(f"serve {name}: the keep masks dropped no block")
+    return runs
 
 
 def main() -> None:
@@ -381,6 +779,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
 
@@ -402,12 +801,16 @@ def main() -> None:
 
     cfg = get_config("qwen2-7b")
     stats = phase_kernels(torch, cfg)
+    stats.update(phase_decode_kernels(torch, cfg))
     phase_card_vs_cpu(torch, cfg)
     torch.cuda.empty_cache()
     wrappers = {"matmul": mm_ops.matmul,
                 "flash_attention": fa_ops.flash_attention,
-                "paged_decode": pa_ops.paged_decode}
-    launches = phase_serve(torch, cfg, wrappers)
+                "paged_decode": pa_ops.paged_decode,
+                "paged_decode_quant": pa_ops.paged_decode_quant,
+                "paged_decode_sparse": pa_ops.paged_decode_sparse,
+                "flash_decode": fd_ops.flash_decode}
+    runs = phase_serve(torch, cfg, wrappers)
 
     meta = {"matmul": ("matmul.cu", "src/repro/kernels/matmul/matmul.py:49"),
             "flash_attention": (
@@ -415,13 +818,26 @@ def main() -> None:
                 "src/repro/kernels/flash_attention/flash_attention.py:92"),
             "paged_decode": (
                 "paged_attention.cu",
-                "src/repro/kernels/paged_attention/paged_attention.py:101")}
+                "src/repro/kernels/paged_attention/paged_attention.py:101"),
+            "paged_decode_quant": (
+                "paged_attention.cu",
+                "src/repro/kernels/paged_attention/paged_attention.py:189"),
+            "paged_decode_sparse": (
+                "paged_attention.cu",
+                "src/repro/kernels/paged_attention/paged_attention.py:282"),
+            "flash_decode": (
+                "flash_decode.cu",
+                "src/repro/kernels/flash_decode/flash_decode.py:83")}
     kernels = []
     for name, (src, replaces) in meta.items():
         s = stats[name]
+        by_run = {run: r["launches"][name] for run, r in runs.items()
+                  if r["launches"][name]}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{src}",
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": sum(by_run.values()),
+                        "launches_by_run": by_run,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],

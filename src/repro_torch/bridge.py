@@ -5,8 +5,9 @@ cannot reproduce, so the tests hold the two packages against each other on
 the SAME weights: ``params_from_jax`` maps a nested dict of arrays (numpy,
 or anything ``np.asarray`` accepts, such as the reference's own jax
 arrays) to torch tensors of the same shapes under the same keys.  bfloat16
-crosses exactly, bit for bit, through an int16 view.  This module imports
-numpy and torch only.
+crosses exactly, bit for bit, through an int16 view, and float8_e4m3fn (a
+packed KV pool) through a uint8 view.  This module imports numpy and torch
+only.
 """
 from __future__ import annotations
 
@@ -17,10 +18,13 @@ from repro_torch.device import DEFAULT_DEVICE, resolve
 
 
 def to_torch(a, device, dtype=None) -> torch.Tensor:
-    """One array -> tensor on ``device`` (a copy; bf16 bit-exact)."""
+    """One array -> tensor on ``device`` (a copy; bf16 and fp8
+    bit-exact)."""
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     if dtype is not None:

@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "flash_attention", "paged_attention")
+SOURCES = ("matmul", "flash_attention", "paged_attention",
+           "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -112,10 +113,22 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# packed page dtype codes shared with csrc/paged_attention.cu
+PAGE_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
 def dtype_code(t: torch.Tensor) -> int:
     code = DTYPE_CODES.get(t.dtype)
     if code is None:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, got "
+                        f"{t.dtype}")
+    return code
+
+
+def page_code(t: torch.Tensor) -> int:
+    code = PAGE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"packed KV pages are int8 or float8_e4m3fn, got "
                         f"{t.dtype}")
     return code
 

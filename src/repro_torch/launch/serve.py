@@ -15,9 +15,11 @@ and the fluid-simulation validation of the shaping claim.
       --smoke --device cpu                            # plain PyTorch path
 
 ``--device`` (default ``cuda``) never falls back: without a card, ask for
-the CPU.  Flags whose slice has not landed are refused with the ROADMAP.md
-item that will bring them: ``--cluster``, ``--dense``, ``--kv-dtype``
-other than fp32, ``--sparse-threshold`` > 0, ``--prefix-cache``,
+the CPU.  The bandwidth levers run on both: ``--kv-dtype int8/fp8``
+(packed KV pages), ``--sparse-threshold T`` (blockwise-sparse decode) and
+``--prefix-cache``, in any mix, and ``--dense`` serves from the dense KV
+slab instead of the paged pool.  Flags whose slice has not landed are
+refused with the ROADMAP.md item that will bring them: ``--cluster``,
 ``--cost-model measured``, ``--profile`` and ``--trace``.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro_torch.device import resolve
 from repro_torch.models import api as mapi
 from repro_torch.obs import (format_summary, observe_phase_durations,
                              registry_from_engines)
+from repro_torch.profiling.cost_model import KV_PRICE_BYTES
 from repro_torch.serving import (CLOCKS, EventScheduler, PartitionEngine,
                                  RequestQueue, decode_cost, make_scheduler,
                                  prefill_cost, serving_trace_report)
@@ -43,14 +46,6 @@ from repro_torch.serving.trace_sim import phase_balanced_bandwidth
 _NOT_PORTED = [
     ("--cluster N", lambda a: a.cluster is not None,
      "Queue 1 item 8 (cluster and PD with torch workers)"),
-    ("--dense", lambda a: a.dense,
-     "Queue 1 item 15 (dense-slab oracle)"),
-    ("--kv-dtype int8/fp8", lambda a: a.kv_dtype != "fp32",
-     "Queue 1 item 7 (bandwidth levers)"),
-    ("--sparse-threshold > 0", lambda a: a.sparse_threshold > 0.0,
-     "Queue 1 item 7 (bandwidth levers)"),
-    ("--prefix-cache", lambda a: a.prefix_cache,
-     "Queue 1 item 7 (bandwidth levers)"),
     ("--cost-model measured", lambda a: a.cost_model == "measured",
      "Queue 1 item 9 (measured cost on torch)"),
     ("--profile", lambda a: a.profile is not None,
@@ -90,9 +85,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-request completion deadline (virtual s)")
     ap.add_argument("--no-sim", action="store_true",
                     help="skip the serving-trace shaping validation")
-    # the reference's flags whose slices have not landed (see _NOT_PORTED)
     ap.add_argument("--dense", action="store_true",
-                    help="dense per-wave KV layout (not ported yet)")
+                    help="dense per-wave KV slab instead of the paged pool "
+                         "(the equivalence oracle)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="automatic prefix caching: prompts share cached "
+                         "KV blocks of a common head")
+    ap.add_argument("--kv-dtype", default="fp32",
+                    choices=["fp32", "int8", "fp8"],
+                    help="KV pool element layout: 'fp32' stores the model "
+                         "dtype, 'int8'/'fp8' pack pages with per-(block, "
+                         "kv-head) scales")
+    ap.add_argument("--sparse-threshold", type=float, default=0.0,
+                    metavar="T",
+                    help="blockwise-sparse paged attention: skip KV blocks "
+                         "whose estimated attention mass is below T")
+    # the reference's flags whose slices have not landed (see _NOT_PORTED)
     ap.add_argument("--cluster", type=int, default=None, metavar="N",
                     help="controller + N worker cluster (not ported yet)")
     ap.add_argument("--simulated", action="store_true",
@@ -102,15 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="phase pricing; only 'analytic' is ported")
     ap.add_argument("--profile", default=None, metavar="PATH",
                     help="measured-cost profile (not ported yet)")
-    ap.add_argument("--prefix-cache", action="store_true",
-                    help="automatic prefix caching (not ported yet)")
-    ap.add_argument("--kv-dtype", default="fp32",
-                    choices=["fp32", "int8", "fp8"],
-                    help="KV pool element layout; only 'fp32' (the model "
-                         "dtype) is ported")
-    ap.add_argument("--sparse-threshold", type=float, default=0.0,
-                    metavar="T",
-                    help="blockwise-sparse paged attention (not ported yet)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="Chrome-trace export (not ported yet)")
     return ap
@@ -143,24 +142,40 @@ def main(argv=None):
         (cfg.n_img_tokens or 0)
 
     # --- engines: in-process the (read-only) params are aliased; real
-    # deployments replicate per partition (the reuse-vs-shaping tradeoff)
+    # deployments replicate per partition (the reuse-vs-shaping tradeoff).
+    # Built BEFORE the request load so admission control can probe the
+    # fleet's prefix caches (a hit-eligible request is priced post-hit).
     api = mapi.build(cfg, device)
     params = api.init(torch.Generator(device=device).manual_seed(0))
     engines = [PartitionEngine(cfg, api, params, slots=slots,
                                max_len=max_len, pid=p,
                                peak_flops=peak_per_part,
-                               block_size=args.block_size)
+                               paged=not args.dense,
+                               block_size=args.block_size,
+                               prefix_cache=args.prefix_cache,
+                               kv_dtype=args.kv_dtype,
+                               sparse_threshold=args.sparse_threshold)
                for p in range(P)]
 
     # --- request load + admission control ---
+    kv_price = KV_PRICE_BYTES.get(args.kv_dtype)
+    kv_keep = 1.0 - args.sparse_threshold
+
     def estimate(req):
         pre = prefill_cost(cfg, slots, req.prompt_len, peak_per_part,
-                           cached=req.cached_len)
+                           cached=req.cached_len, kv_dtype_bytes=kv_price)
         dec = decode_cost(cfg, slots, req.prompt_len + args.gen // 2,
-                          peak_per_part)
+                          peak_per_part, kv_dtype_bytes=kv_price,
+                          kv_keep=kv_keep)
         return pre.duration + req.max_new_tokens * dec.duration
 
-    queue = RequestQueue(max_depth=args.max_queue, service_estimate=estimate)
+    # the probe answers "how much of this prompt is already resident
+    # SOMEWHERE in the fleet" — optimistic across engines (the scheduler
+    # is free to seat the request on the engine that holds the prefix)
+    probe = (lambda req: max(e.peek_cached(req) for e in engines)) \
+        if args.prefix_cache else None
+    queue = RequestQueue(max_depth=args.max_queue, service_estimate=estimate,
+                         prefix_probe=probe)
     rng = np.random.default_rng(0)
     for _ in range(args.requests):
         queue.submit(rng.integers(1, cfg.vocab, size=(args.prompt_len,))
@@ -176,7 +191,8 @@ def main(argv=None):
     s = m.summary()
     print(f"serve: {cfg.name} device={device} P={P} stagger={args.stagger} "
           f"clock={args.clock} cost_model={args.cost_model} "
-          f"kv={args.kv_dtype} slots={P}x{slots} "
+          f"kv={args.kv_dtype} sparse={args.sparse_threshold:g} "
+          f"dense={args.dense} slots={P}x{slots} "
           f"completed={s['requests_completed']}/{queue.n_submitted} "
           f"rejected={queue.n_rejected}")
     reg = registry_from_engines(engines, queue=queue)
@@ -184,7 +200,8 @@ def main(argv=None):
     achieved = sched.achieved_bw_stats() \
         if isinstance(sched, EventScheduler) else None
     for line in format_summary(s, reg, bandwidth=bandwidth,
-                               achieved=achieved):
+                               achieved=achieved,
+                               prefix_cache=args.prefix_cache):
         print(line)
 
     if not args.no_sim:

@@ -3,12 +3,14 @@
 ``build(cfg, device)`` returns a ``ModelAPI`` bound to one device:
   init(generator)                        -> params
   prefill(params, batch, max_len, lens)  -> (logits, cache)
-  decode_paged(params, token, pcache)    -> (logits, pcache)
+  decode(params, token, cache)           -> (logits, cache)   (dense slab)
+  decode_paged(params, token, pcache, sparse_threshold=0.0)
+                                         -> (logits, pcache)
   init_cache(batch, max_len)             -> dense cache dict
 
 The port's counterpart of ``repro.models.api._build_lm``; the loss,
-forward, dense-slab ``decode`` and the shape-spec helpers wait for their
-slices (ROADMAP.md, Queue 1 items 13 and 15).
+forward and the shape-spec helpers wait for their slices (ROADMAP.md,
+Queue 1 items 13 and 15).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ class ModelAPI:
     device: torch.device
     init: Callable
     prefill: Callable
+    decode: Callable
     decode_paged: Callable
     init_cache: Callable
 
@@ -49,10 +52,15 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def prefill(params, batch, max_len=None, lens=None):
         return TF.prefill(params, cfg, batch, max_len, lens=lens)
 
-    def decode_paged(params, token, pcache):
-        return TF.decode_step_paged(params, cfg, token, pcache)
+    def decode(params, token, cache):
+        return TF.decode_step(params, cfg, token, cache)
+
+    def decode_paged(params, token, pcache, *, sparse_threshold=0.0):
+        return TF.decode_step_paged(params, cfg, token, pcache,
+                                    sparse_threshold=sparse_threshold)
 
     def init_cache(batch, max_len):
         return TF.init_cache(cfg, batch, max_len, device=device)
 
-    return ModelAPI(cfg, device, init, prefill, decode_paged, init_cache)
+    return ModelAPI(cfg, device, init, prefill, decode, decode_paged,
+                    init_cache)

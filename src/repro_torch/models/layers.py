@@ -9,7 +9,11 @@ on a CUDA tensor and the plain PyTorch version on a CPU tensor:
 
 * every projection and the LM head -> ``kernels.matmul.ops.matmul``;
 * prefill attention -> ``kernels.flash_attention.ops.flash_attention``;
-* paged decode attention -> ``kernels.paged_attention.ops.paged_decode``.
+* paged decode attention -> ``kernels.paged_attention.ops``:
+  ``paged_decode`` (float pool), ``paged_decode_sparse`` (float pool,
+  blockwise-sparse) and ``paged_decode_quant`` (packed int8/fp8 pool,
+  optionally sparse);
+* dense-slab decode attention -> ``kernels.flash_decode.ops.flash_decode``.
 
 Families other than the dense one (MoE, SSM, hybrid, VLM, enc-dec) wait for
 their slices (ROADMAP.md, Queue 1 items 10-11).
@@ -22,10 +26,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.ref import \
+    decode_attention as decode_attention_plain
 from repro_torch.kernels.matmul.ops import matmul
-from repro_torch.kernels.paged_attention.ops import paged_decode
-
-_NEG = -1e30
+from repro_torch.kernels.paged_attention.ops import (paged_decode,
+                                                     paged_decode_quant,
+                                                     paged_decode_sparse)
+from repro_torch.kernels.paged_attention.ref import block_keep_mask
 
 # ---------------------------------------------------------------------------
 # initializers (same distributions as the reference; torch draws its own bits)
@@ -104,28 +112,13 @@ def apply_rope(x, positions, theta: float):
 
 def decode_attention(q, k_cache, v_cache, cur_pos, *, window=None):
     """Single-token attention against a dense cache, the plain masked
-    version (the reference's ``decode_attention`` without ``head_keep``).
+    version (the reference's ``decode_attention`` without ``head_keep``):
+    the flash-decode kernel's plain version with the reference's shapes.
 
-    q: (B, 1, Hq, D); caches: (B, S, Hkv, D); cur_pos: (B,) int — cache
-    entries [0, cur_pos[b]] of slot b are valid."""
-    B, _, Hq, D = q.shape
-    _, S, Hkv, _ = k_cache.shape
-    G = Hq // Hkv
-    qr = q.reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qr.float(),
-                     k_cache.float()) / math.sqrt(D)
-    pos = torch.arange(S, dtype=torch.int32, device=q.device)
-    cur = torch.as_tensor(cur_pos, dtype=torch.int32,
-                          device=q.device).reshape(-1, 1)
-    ok = pos[None, :] <= cur
-    w = _window(window)
-    if w:
-        ok &= pos[None, :] > (cur - w)
-    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, _NEG))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
-                     v_cache.float())
-    return o.reshape(B, 1, Hq, D).to(q.dtype)
+    q: (B, 1, Hq, D); caches: (B, S, Hkv, D); cur_pos: () or (B,) int —
+    cache entries [0, cur_pos[b]] of slot b are valid."""
+    return decode_attention_plain(q[:, 0], k_cache, v_cache, cur_pos,
+                                  window=_window(window))[:, None]
 
 
 def init_attention(generator, cfg, dtype, device, n_layers: int):
@@ -175,31 +168,86 @@ def attention_block(p, cfg, x, *, window=None, positions=None):
     return _proj(o.reshape(B, S, -1), p["wo"]), (k, v)
 
 
-def attention_decode_paged(p, cfg, x, k_pages, v_pages, tables, cur_pos, *,
+def attention_decode_slice(p, cfg, x, k_cache, v_cache, cur_pos, *,
                            window=None):
+    """Decode attention against one layer's dense cache slab.
+
+    x: (B, 1, d); caches: (B, S, Hkv, D); cur_pos: (B,) int32 per-slot
+    write position.  Each slot's new K/V row is written IN PLACE at its
+    own position (clamped to the slab, as the reference's
+    ``dynamic_update_slice`` clamps), then the flash-decode wrapper attends
+    over the cache with it: the reference's ``_cache_write``-then-attend
+    order.  Returns (out, (k_new, v_new)) like the reference, with the row
+    already persisted."""
+    B = x.shape[0]
+    cur = cur_pos.to(torch.int32)
+    q, k, v = attention_qkv(p, cfg, x, cur[:, None])
+    b_idx = torch.arange(B, device=x.device)
+    row = cur.long().clamp(0, k_cache.shape[1] - 1)
+    k_cache[b_idx, row] = k[:, 0].to(k_cache.dtype)
+    v_cache[b_idx, row] = v[:, 0].to(v_cache.dtype)
+    o = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, cur,
+                     window=_window(window))
+    return _proj(o.reshape(B, 1, -1), p["wo"]), (k, v)
+
+
+def current_block(tables, cur, bs: int):
+    """(B,) int64: each slot's block holding position ``cur[b]``,
+    ``tables[b, cur // bs]`` (clamped to the table)."""
+    t = (cur // bs).clamp(0, tables.shape[1] - 1)[:, None].long()
+    return tables.gather(1, t)[:, 0].long()
+
+
+def attention_decode_paged(p, cfg, x, k_pages, v_pages, tables, cur_pos, *,
+                           window=None, k_scales=None, v_scales=None,
+                           sparse_threshold=0.0):
     """Decode attention against one layer's paged KV pool.
 
     x: (B, 1, d); pages: (N, bs, Hkv, D); tables: (B, T) int32 block ids
-    (null-padded); cur_pos: (B,) int32 per-slot write position.  The new
-    token's K/V row is written IN PLACE into the pool first — block
-    ``tables[b, cur // bs]``, offset ``cur % bs`` — and then the paged
-    attention wrapper reads the pool with it: the reference places the row
-    in its gathered view before attending and has the caller persist it
-    afterwards (``repro/models/layers.py:390-391``,
-    ``repro/models/transformer.py:390-411``); a kernel that streams the
-    pool must find the row there.  Returns (out, (k_new, v_new)) like the
-    reference, with the row already persisted.
+    (null-padded); cur_pos: (B,) int32 per-slot write position.  Returns
+    (out, (k_new, v_new)) like the reference.
+
+    ``k_scales``/``v_scales`` ((N, Hkv) f32) mark a packed int8/fp8 pool. A
+    positive ``sparse_threshold`` drops whole KV blocks whose estimated
+    attention mass falls below it (``block_keep_mask``).  The order of
+    operations keeps the reference's results
+    (``repro/models/layers.py:356-400``), which attends over the pool as
+    the step found it with the exact new row placed in its gathered view:
+
+    1. the keep mask is computed from the pool BEFORE this step's row is
+       persisted (with the old scales): writing first would move the
+       current block's mean key and could flip blocks;
+    2. float pool: the new row is written IN PLACE into the pool — block
+       ``tables[b, cur // bs]``, offset ``cur % bs`` — and the kernel reads
+       it there, so the row comes back already persisted;
+    3. packed pool: the pool is left untouched and the kernel takes the
+       exact row as ``k_row``/``v_row``; the CALLER then requantizes each
+       slot's current block with the row (``decode_step_paged``).
     """
     B = x.shape[0]
-    bs, T = k_pages.shape[1], tables.shape[1]
+    bs = k_pages.shape[1]
     cur = cur_pos.to(torch.int32)
+    w = _window(window)
     q, k, v = attention_qkv(p, cfg, x, cur[:, None])
-    blk = tables.gather(1, (cur // bs).clamp(0, T - 1)[:, None].long())[:, 0]
-    off = (cur % bs).long()
-    k_pages[blk.long(), off] = k[:, 0].to(k_pages.dtype)
-    v_pages[blk.long(), off] = v[:, 0].to(v_pages.dtype)
-    o = paged_decode(q[:, 0].contiguous(), k_pages, v_pages, tables, cur,
-                     window=_window(window))
+    qd = q[:, 0].contiguous()
+    keep = None
+    if sparse_threshold:
+        keep = block_keep_mask(qd, k_pages, tables, cur,
+                               threshold=sparse_threshold, window=w,
+                               k_scales=k_scales)
+    if k_scales is not None:
+        o = paged_decode_quant(qd, k_pages, v_pages, k_scales, v_scales,
+                               tables, cur, window=w, k_row=k[:, 0],
+                               v_row=v[:, 0], keep=keep)
+    else:
+        blk, off = current_block(tables, cur, bs), (cur % bs).long()
+        k_pages[blk, off] = k[:, 0].to(k_pages.dtype)
+        v_pages[blk, off] = v[:, 0].to(v_pages.dtype)
+        if keep is not None:
+            o = paged_decode_sparse(qd, k_pages, v_pages, tables, cur,
+                                    window=w, keep=keep)
+        else:
+            o = paged_decode(qd, k_pages, v_pages, tables, cur, window=w)
     return _proj(o.reshape(B, 1, -1), p["wo"]), (k, v)
 
 

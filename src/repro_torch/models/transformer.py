@@ -12,7 +12,9 @@ Public entry points
 init_lm(cfg, generator, device)                -> params
 init_cache(cfg, batch, max_len, device=...)    -> dense cache dict
 prefill(params, cfg, batch, max_len, lens)     -> (logits_last, cache)
-decode_step_paged(params, cfg, token, pcache)  -> (logits, pcache)
+decode_step(params, cfg, token, cache)         -> (logits, cache)
+decode_step_paged(params, cfg, token, pcache, sparse_threshold=0.0)
+                                               -> (logits, pcache)
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.kernels.matmul.ops import matmul
+from repro_torch.serving.kv_pool import (dequantize_kv, kv_dtype_name,
+                                         quantize_kv)
 
 from . import layers as L
 
@@ -157,21 +161,65 @@ def prefill(params, cfg, batch, max_len=None, lens=None):
     return logits, cache
 
 
-def decode_step_paged(params, cfg, token, pcache):
+def _logits(params, cfg, x):
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    B = x.shape[0]
+    logits = matmul(x.reshape(B, -1), _head(params, cfg)).float()
+    return logits.reshape(B, 1, -1)
+
+
+def decode_step(params, cfg, token, cache):
+    """One decode step against the dense cache slab.
+
+    token: (B, 1) int.  cache: ``k``/``v`` (L, B, S, Hkv, D) and ``len`` —
+    a scalar (one shared position) or a (B,) vector of per-slot write
+    positions.  Same math as the reference's ``decode_step``: each layer
+    writes every slot's new row at its own position, then attends through
+    the flash-decode wrapper.  The cache tensors are updated IN PLACE
+    (where the reference donates them to its jitted step).  Returns
+    (logits (B, 1, V) f32, new cache dict holding the same tensors) with
+    ``len`` advanced by one.
+    """
+    _check_family(cfg)
+    x = params["embed"][token.long()]                 # (B, 1, d)
+    B = x.shape[0]
+    pos = torch.as_tensor(cache["len"], dtype=torch.int32,
+                          device=x.device).expand(B).contiguous()
+    windows = layer_windows(cfg)
+    for li in range(cfg.n_layers):
+        bp = _layer(params["blocks"], li)
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        a_out, _ = L.attention_decode_slice(
+            bp["attn"], cfg, h, cache["k"][li], cache["v"][li], pos,
+            window=int(windows[li]))
+        x = _mlp_residual(bp, cfg, x + a_out)
+    new_cache = dict(cache)
+    new_cache["len"] = torch.as_tensor(cache["len"], device=x.device) + 1
+    return _logits(params, cfg, x), new_cache
+
+
+def decode_step_paged(params, cfg, token, pcache, *, sparse_threshold=0.0):
     """One decode step against a paged (block-table) KV pool.
 
     token: (B, 1) int.  pcache:
-      k_pages/v_pages : (L, N, bs, Hkv, D) shared block pool (float layout)
+      k_pages/v_pages : (L, N, bs, Hkv, D) shared block pool
       tables          : (B, T) int32 per-slot block chains (null-padded)
       lens            : (B,) int32 per-slot write positions
-    Same math as the reference's ``decode_step_paged`` on a float pool.
-    The pool is updated IN PLACE: each layer writes the slots' new K/V rows
-    into ``k_pages``/``v_pages`` before attending (this stands where the
-    reference has ``donate_argnums`` on the jitted step: the caller's pool
-    tensors are the step's output).  Returns (logits (B, 1, V) f32, new
-    pcache dict holding the same pool tensors) with every ``lens`` advanced
-    by one (the engine overrides lengths for inactive slots from host
-    bookkeeping).
+      k_scales/v_scales (packed pools): (L, N, Hkv) f32 per-(block,
+        kv-head) scales; their presence marks packed int8/fp8 pages
+    Same math as the reference's ``decode_step_paged``.  The pool is
+    updated IN PLACE (this stands where the reference has
+    ``donate_argnums`` on the jitted step: the caller's pool tensors are
+    the step's output).  On a float pool each layer writes the slots' new
+    K/V rows before attending; on a packed pool each layer attends first
+    (with the exact new row) and then runs the reference's read-modify-
+    write: each slot's current block is dequantized, the new row set, and
+    the whole block requantized with a fresh scale
+    (``repro/models/transformer.py:396-408``).  A positive
+    ``sparse_threshold`` makes attention skip low-mass KV blocks.  Returns
+    (logits (B, 1, V) f32, new pcache dict holding the same pool tensors)
+    with every ``lens`` advanced by one (the engine overrides lengths for
+    inactive slots from host bookkeeping).
     """
     _check_family(cfg)
     x = params["embed"][token.long()]                 # (B, 1, d)
@@ -179,16 +227,44 @@ def decode_step_paged(params, cfg, token, pcache):
     pos = pcache["lens"].to(torch.int32)
     tables = pcache["tables"].to(torch.int32).contiguous()
     kp_all, vp_all = pcache["k_pages"], pcache["v_pages"]
+    quant = "k_scales" in pcache
+    if quant:
+        ks_all, vs_all = pcache["k_scales"], pcache["v_scales"]
+        kv_name = kv_dtype_name(kp_all)
+        bs = kp_all.shape[2]
+        blk = L.current_block(tables, pos, bs)
+        row, off = torch.arange(B, device=x.device), (pos % bs).long()
     windows = layer_windows(cfg)
     for li in range(cfg.n_layers):
         bp = _layer(params["blocks"], li)
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        a_out, _ = L.attention_decode_paged(
+        ks = vs = None
+        if quant:
+            ks, vs = ks_all[li], vs_all[li]
+        a_out, (k_new, v_new) = L.attention_decode_paged(
             bp["attn"], cfg, h, kp_all[li], vp_all[li], tables, pos,
-            window=int(windows[li]))
+            window=int(windows[li]), k_scales=ks, v_scales=vs,
+            sparse_threshold=sparse_threshold)
+        if quant:
+            for pages, scales, new in ((kp_all[li], ks, k_new),
+                                       (vp_all[li], vs, v_new)):
+                _requant_rows(pages, scales, blk, row, off, new[:, 0],
+                              kv_name)
         x = _mlp_residual(bp, cfg, x + a_out)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = matmul(x.reshape(B, -1), _head(params, cfg)).float()
     new_pcache = dict(pcache)
     new_pcache["lens"] = pos + 1
-    return logits.reshape(B, 1, -1), new_pcache
+    return _logits(params, cfg, x), new_pcache
+
+
+def _requant_rows(pages, scales, blk, row, off, new, kv_name) -> None:
+    """Read-modify-write of each slot's current block of one packed pool
+    layer, in place: dequantize ``pages[blk]`` (B, bs, Hkv, D), set row
+    ``off`` to ``new`` (B, Hkv, D), requantize with a fresh per-head
+    scale.  Inactive slots all land in null block 0, which no live slot
+    reads."""
+    byte_pages = pages.view(torch.uint8)
+    f = dequantize_kv(byte_pages[blk].view(pages.dtype), scales[blk])
+    f[row, off] = new.float()
+    q, sc = quantize_kv(f, kv_name)
+    byte_pages[blk] = q.view(torch.uint8)
+    scales[blk] = sc

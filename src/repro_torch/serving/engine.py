@@ -620,12 +620,16 @@ class PartitionEngine(EngineBase):
     serving); on hardware each partition holds its own replica — the
     paper's reuse-vs-shaping tradeoff.
 
-    KV lives in the paged block pool and decodes through
-    ``models.transformer.decode_step_paged``, whose pool update is in place
-    (the reference donates the pool to its jitted step instead).  The dense
-    per-wave layout (``paged=False``), enc-dec models, quantized or sparse
-    KV, prefix caching and the KV handoff between engines are not ported
-    yet and raise ``NotImplementedError`` naming their ROADMAP.md item.
+    ``paged=True`` (the default) stores KV in the block pool and decodes
+    through ``models.transformer.decode_step_paged``, whose pool update is
+    in place (the reference donates the pool to its jitted step instead);
+    the pool may be packed (``kv_dtype`` int8/fp8), decode may skip
+    low-mass blocks (``sparse_threshold``) and prompts may share cached
+    prefix blocks (``prefix_cache``).  ``paged=False`` keeps the dense
+    ``(L, slots, max_len)`` slab with per-slot lengths and decodes through
+    ``decode_step`` — same serving semantics, the equivalence oracle.
+    Enc-dec models and the KV handoff between engines are not ported yet
+    and raise ``NotImplementedError`` naming their ROADMAP.md item.
     """
 
     def __init__(self, cfg: ModelConfig, api, params, *, slots: int,
@@ -640,22 +644,27 @@ class PartitionEngine(EngineBase):
         if cfg.family == "encdec":
             raise NotImplementedError("enc-dec serving is not ported yet "
                                       "(ROADMAP.md, Queue 1 item 11)")
-        if paged is False:
-            raise NotImplementedError(
-                "the dense per-wave KV layout (paged=False) is not ported "
-                "yet (ROADMAP.md, Queue 1 item 15)")
-        if prefix_cache or kv_dtype != "fp32" or sparse_threshold > 0.0:
-            raise NotImplementedError(
-                "prefix caching, quantized KV pages and blockwise-sparse "
-                "decode are not ported yet (ROADMAP.md, Queue 1 item 7)")
         super().__init__(cfg, slots=slots, max_len=max_len, pid=pid,
                          peak_flops=peak_flops, block_size=block_size,
                          pool_blocks=pool_blocks, wave_only=wave_only,
-                         cost_model=cost_model)
+                         cost_model=cost_model, prefix_cache=prefix_cache,
+                         kv_dtype=kv_dtype, sparse_threshold=sparse_threshold)
+        self.paged = True if paged is None else bool(paged)
+        if self.prefix_cache and not self.paged:
+            raise ValueError("prefix caching shares KV *blocks* and needs "
+                             "the paged pool (paged=True); the dense "
+                             "per-wave slab has no blocks to share")
+        if (self.kv_dtype != "fp32" or self.sparse_threshold > 0.0) \
+                and not self.paged:
+            raise ValueError("kv quantization / blockwise-sparse attention "
+                             "live in the paged block pool (paged=True); "
+                             "the dense per-wave slab has neither packed "
+                             "pages nor block granularity to skip")
         self.api = api
         self.params = params
         self.device = api.device
-        self.pages = None          # k_pages / v_pages pool tensors
+        self.cache = None          # dense mode: the (L, slots, max_len) slab
+        self.pages = None          # paged mode: pool tensors (+ scales)
         self._last_tok = None      # (slots, 1) int32 host array
         self.last_logits = None    # (slots, V) np, for equivalence tests
 
@@ -707,6 +716,7 @@ class PartitionEngine(EngineBase):
             # hold this content: divert their rewrite to the null block
             tables[j, :self.slot_shared[i]] = NULL_BLOCK
         src_t = torch.as_tensor(src, dtype=torch.long, device=self.device)
+        # a packed pool quantizes on this append (write_prefix_pages)
         KV.write_prefix_pages(self.pages, cache["k"][:, src_t],
                               cache["v"][:, src_t],
                               torch.as_tensor(tables, device=self.device))
@@ -717,7 +727,11 @@ class PartitionEngine(EngineBase):
         for i, req in enumerate(wave):
             self.slot_lens[i] = self._prefix + req.prompt_len
         logits, cache = self._wave_prefill_cache(wave)
-        self._install_paged(cache, list(range(len(wave))))
+        if self.paged:
+            self._install_paged(cache, list(range(len(wave))))
+            self.cache = None
+        else:
+            self.cache = cache
         first = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         last = np.ones((self.slots, 1), np.int32)
         last[:first.shape[0], 0] = first.reshape(-1)[:self.slots]
@@ -726,10 +740,17 @@ class PartitionEngine(EngineBase):
 
     def _refill_slot(self, i: int, req: Request):
         prompt = np.asarray(req.prompt, np.int32)
-        lg, c1 = self.api.prefill(self.params, self._make_batch([prompt]),
-                                  max_len=self._prefix + req.prompt_len)
+        lg, c1 = self.api.prefill(
+            self.params, self._make_batch([prompt]),
+            max_len=self._prefix + req.prompt_len if self.paged
+            else self.max_len)
         self.slot_lens[i] = self._prefix + req.prompt_len
-        self._install_paged(c1, [i], src_rows=[0])
+        if self.paged:
+            self._install_paged(c1, [i], src_rows=[0])
+        else:
+            for key in ("k", "v"):
+                self.cache[key][:, i] = c1[key][:, 0]
+            self.cache["len"][i] = c1["len"][0]
         tok = int(torch.argmax(lg, dim=-1).reshape(-1)[0])
         last = self._last_tok.copy()
         last[i, 0] = tok
@@ -753,18 +774,25 @@ class PartitionEngine(EngineBase):
                         np.int32)
 
     def _run_decode(self):
-        tables = np.zeros((self.slots, self.table_width), np.int32)
-        for i, tbl in enumerate(self.slot_tables):
-            if self.active[i] is not None:
-                tables[i, :len(tbl)] = tbl
-        pcache = dict(self.pages)
-        pcache["tables"] = torch.as_tensor(tables, device=self.device)
-        pcache["lens"] = torch.as_tensor(self._device_lens(),
-                                         device=self.device)
         token = torch.as_tensor(self._last_tok, device=self.device)
-        logits, pcache = self.api.decode_paged(self.params, token, pcache)
-        self.pages = {k: v for k, v in pcache.items()
-                      if k not in ("tables", "lens")}
+        lens = torch.as_tensor(self._device_lens(), device=self.device)
+        if self.paged:
+            tables = np.zeros((self.slots, self.table_width), np.int32)
+            for i, tbl in enumerate(self.slot_tables):
+                if self.active[i] is not None:
+                    tables[i, :len(tbl)] = tbl
+            pcache = dict(self.pages)
+            pcache["tables"] = torch.as_tensor(tables, device=self.device)
+            pcache["lens"] = lens
+            logits, pcache = self.api.decode_paged(
+                self.params, token, pcache,
+                sparse_threshold=self.sparse_threshold)
+            self.pages = {k: v for k, v in pcache.items()
+                          if k not in ("tables", "lens")}
+        else:
+            cache = dict(self.cache)
+            cache["len"] = lens
+            logits, self.cache = self.api.decode(self.params, token, cache)
         toks = torch.argmax(logits, dim=-1).to(torch.int32)
         self._last_tok = toks.reshape(self.slots, 1).cpu().numpy()
         self.last_logits = logits.reshape(self.slots, -1).cpu().numpy()

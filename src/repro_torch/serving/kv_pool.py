@@ -347,9 +347,9 @@ class BlockPool:
 
 # KV storage dtypes the pool understands.  Byte widths are host-side
 # metadata so the cost model can reprice KV traffic without touching a
-# device; "fp32" means "store at the model's own compute dtype" and is the
-# only layout the port stores so far (packed int8/fp8 pages wait for their
-# slice: ROADMAP.md, Queue 1 item 7).
+# device; "fp32" means "store at the model's own compute dtype", "int8" and
+# "fp8" are the packed layouts (per-(block, kv-head) f32 scales beside the
+# pages; see ``docs/kv_quantization.md`` for the error budget).
 KV_DTYPE_BYTES: Dict[str, int] = {"fp32": 4, "int8": 1, "fp8": 1}
 KV_DTYPES = tuple(KV_DTYPE_BYTES)
 
@@ -365,20 +365,84 @@ def kv_dtype_supported(kv_dtype: str) -> bool:
     return hasattr(torch, "float8_e4m3fn")
 
 
+def _kv_qspec(kv_dtype: str):
+    """(packed torch dtype, qmax) for a quantized layout name."""
+    import torch
+
+    if kv_dtype == "int8":
+        return torch.int8, 127.0
+    if kv_dtype == "fp8":
+        if not kv_dtype_supported("fp8"):
+            raise ValueError(
+                "kv_dtype='fp8' needs torch.float8_e4m3fn, which this torch "
+                "build does not provide; use 'int8'")
+        return torch.float8_e4m3fn, float(torch.finfo(torch.float8_e4m3fn).max)
+    raise ValueError(f"unknown quantized kv_dtype {kv_dtype!r}; "
+                     f"expected one of {sorted(KV_DTYPE_BYTES)}")
+
+
+def kv_dtype_name(pages) -> str:
+    """The quantized layout name of a packed page tensor."""
+    import torch
+
+    return "int8" if pages.dtype == torch.int8 else "fp8"
+
+
+def quantize_kv(x, kv_dtype: str):
+    """Per-block-per-head abs-max quantization of KV rows.
+
+    ``x``: ``(..., block_size, Hkv, D)`` float rows (any leading axes).
+    Returns ``(q, scales)`` with ``q`` the same shape packed to the target
+    dtype and ``scales`` shaped ``(..., Hkv)`` float32, one scale per
+    (leading..., kv-head) tile — the whole ``(block_size, D)`` extent of a
+    head shares one scale.  int8 rounds half to even (as ``jnp.round``)
+    and clips to +-127, so the round-trip error is bounded by ``scale / 2``
+    per element; fp8 (e4m3, qmax 448) casts and inherits the format's
+    relative error instead.  Bit for bit the reference's ``quantize_kv``.
+    """
+    import torch
+
+    qdt, qmax = _kv_qspec(kv_dtype)
+    xf = x.float()
+    amax = torch.amax(xf.abs(), dim=(-3, -1))
+    # floor keeps an all-zero block from dividing by zero; any real row's
+    # abs-max dominates it, so the error bound is untouched
+    scales = torch.clamp(amax / qmax, min=1e-12)
+    q = xf / scales[..., None, :, None]
+    if qdt == torch.int8:
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+    return q.to(qdt), scales
+
+
+def dequantize_kv(q, scales, dtype=None):
+    """Inverse of ``quantize_kv``: ``q (..., bs, Hkv, D)`` packed values +
+    ``scales (..., Hkv)`` back to float (``dtype`` or float32)."""
+    x = q.float() * scales.float()[..., None, :, None]
+    return x if dtype is None else x.to(dtype)
+
+
 def init_pages(cfg, n_blocks: int, block_size: int, dtype=None, *,
                device, kv_dtype: str = "fp32") -> Dict:
     """Page tensors ``k/v: (L, n_blocks, block_size, Hkv, D)`` on
     ``device``, zero-filled; empty dict for attention-free families (their
-    recurrent state is per-slot already)."""
+    recurrent state is per-slot already).  With a quantized ``kv_dtype``
+    the pages are packed (int8/fp8) and the dict carries
+    ``k_scales``/``v_scales`` ``(L, n_blocks, Hkv)`` float32 — their
+    presence is how downstream consumers detect the layout."""
     import torch
 
-    if kv_dtype != "fp32":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: packed KV pages are not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
     if cfg.family == "ssm":
         return {}
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    if kv_dtype != "fp32":
+        qdt, _ = _kv_qspec(kv_dtype)
+        sshape = (cfg.n_layers, n_blocks, cfg.n_kv_heads)
+        return {"k_pages": torch.zeros(shape, dtype=qdt, device=device),
+                "v_pages": torch.zeros(shape, dtype=qdt, device=device),
+                "k_scales": torch.zeros(sshape, dtype=torch.float32,
+                                        device=device),
+                "v_scales": torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)}
     dt = dtype or getattr(torch, cfg.dtype)
     return {"k_pages": torch.zeros(shape, dtype=dt, device=device),
             "v_pages": torch.zeros(shape, dtype=dt, device=device)}
@@ -395,6 +459,11 @@ def write_prefix_pages(pages: Dict, k, v, tables) -> Dict:
     harmlessly in the null block (which no live slot ever reads).  A prefix
     longer than the table can hold is a caller bug and raises — this module
     never silently truncates context.
+
+    When ``pages`` carries ``k_scales``/``v_scales`` (a quantized pool from
+    ``init_pages(kv_dtype=...)``) this is the quantize-on-append path: each
+    incoming block is packed with a fresh per-(layer, block, head) abs-max
+    scale and both the packed values and the scales are scattered.
 
     The pool tensors are updated IN PLACE (where the reference returns new
     arrays); the same dict is returned so callers read like the reference.
@@ -416,6 +485,16 @@ def write_prefix_pages(pages: Dict, k, v, tables) -> Dict:
     v_blk = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) \
         .reshape(L, B * T, bs, Hkv, D)
     idx = torch.as_tensor(tables, device=kp.device).reshape(-1).long()
+    if "k_scales" in pages:
+        name = kv_dtype_name(kp)
+        kq, ks = quantize_kv(k_blk, name)
+        vq, vs = quantize_kv(v_blk, name)
+        # packed dtypes have no index_copy_ kernel: scatter their bytes
+        kp.view(torch.uint8).index_copy_(1, idx, kq.view(torch.uint8))
+        vp.view(torch.uint8).index_copy_(1, idx, vq.view(torch.uint8))
+        pages["k_scales"].index_copy_(1, idx, ks)
+        pages["v_scales"].index_copy_(1, idx, vs)
+        return pages
     kp.index_copy_(1, idx, k_blk.to(kp.dtype))
     vp.index_copy_(1, idx, v_blk.to(vp.dtype))
     return pages

@@ -9,8 +9,9 @@
   an identical virtual-clock ``metrics.summary()`` (the clock, queue,
   scheduler and cost model are the reference's code, copied; only the
   wall-clock throughput may differ).
-* The port's serve CLI completes every request on the CPU and refuses the
-  flags whose slice has not landed.
+* The port's serve CLI completes every request on the CPU, with each
+  bandwidth lever and with ``--dense``, and refuses the flags whose slice
+  has not landed.
 """
 import jax
 import numpy as np
@@ -124,10 +125,21 @@ def test_serve_cli_completes_every_request_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cluster", "2"], ["--dense"], ["--kv-dtype", "int8"],
-    ["--sparse-threshold", "0.1"], ["--prefix-cache"],
-    ["--cost-model", "measured"], ["--profile", "p.json"],
-    ["--trace", "t.json"],
+    ["--dense"], ["--kv-dtype", "int8"], ["--sparse-threshold", "0.1"],
+    ["--prefix-cache"],
+])
+def test_serve_cli_serves_formerly_refused_flags(flags, capsys):
+    outs = serve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
+                       "--partitions", "2", "--stagger", "demand",
+                       "--requests", "6", "--batch", "2", "--prompt-len",
+                       "8", "--gen", "4", "--no-sim", *flags])
+    assert sum(len(s) for s in outs) == 6 * 4
+    assert "completed=6/6" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cluster", "2"], ["--cost-model", "measured"],
+    ["--profile", "p.json"], ["--trace", "t.json"],
 ])
 def test_serve_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
@@ -136,9 +148,20 @@ def test_serve_cli_refuses_unported_flags(flags, capsys):
     assert "ROADMAP.md" in capsys.readouterr().err
 
 
-def test_engine_refuses_unported_layouts(built):
+@pytest.mark.parametrize("kw,match", [
+    (dict(kv_dtype="int4"), "unknown kv_dtype"),
+    (dict(sparse_threshold=1.0), "sparse_threshold"),
+    (dict(sparse_threshold=1.5), "sparse_threshold"),
+    (dict(sparse_threshold=-0.1), "sparse_threshold"),
+    (dict(paged=False, kv_dtype="int8"), "paged block pool"),
+    (dict(paged=False, sparse_threshold=0.2), "paged block pool"),
+    (dict(paged=False, prefix_cache=True), "paged pool"),
+])
+def test_engine_refuses_unported_layouts(built, kw, match):
+    """The refusals that remain are the reference's loud ValueErrors
+    (``tests/test_kv_quant.py:130-175``): unknown dtype, a threshold
+    outside [0, 1), quantized, sparse or prefix-cached KV on the dense
+    slab."""
     _, (tcfg, tm, tp) = built
-    for kw in ({"paged": False}, {"kv_dtype": "int8"},
-               {"prefix_cache": True}, {"sparse_threshold": 0.2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(tcfg, tm, tp, slots=2, max_len=32, **kw)
+    with pytest.raises(ValueError, match=match):
+        TEngine(tcfg, tm, tp, slots=2, max_len=32, **kw)

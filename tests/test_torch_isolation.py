@@ -18,6 +18,8 @@ import torch
 from repro_torch import device as D
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.matmul import ref as mm_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -77,11 +79,30 @@ def _pa_args():
     return q, kp, kp * 0.5, tables, cur
 
 
+def _pq_args():
+    q, kp, vp, tables, cur = _pa_args()
+    kq = (kp * 20).round().clamp(-127, 127).to(torch.int8)
+    scales = torch.full((kp.shape[0], kp.shape[2]), 0.05)
+    return q, kq, kq.flip(1), scales, scales * 2, tables, cur
+
+
+def _fd_args():
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 8), np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 9, 2, 8), np.float32))
+    return q, k, k * 0.5, torch.tensor([8, 3], dtype=torch.int32)
+
+
 WRAPPERS = {
     "matmul": (mm_ops.matmul, mm_ref.matmul, _mm_args),
     "flash_attention": (fa_ops.flash_attention, fa_ref.attention, _fa_args),
     "paged_decode": (pa_ops.paged_decode, pa_ref.paged_decode_attention,
                      _pa_args),
+    "paged_decode_sparse": (pa_ops.paged_decode_sparse,
+                            pa_ref.paged_decode_attention_sparse, _pa_args),
+    "paged_decode_quant": (pa_ops.paged_decode_quant,
+                           pa_ref.paged_decode_attention_quant, _pq_args),
+    "flash_decode": (fd_ops.flash_decode, fd_ref.decode_attention, _fd_args),
 }
 
 
