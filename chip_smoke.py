@@ -7,9 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 Phases (each raises on failure; nothing is caught):
 
-0. Build every CUDA kernel of the serving path from ``src/repro_torch/
-   kernels/csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one process per
-   source, in parallel) into ``build/kernels/``.
+0. Build every CUDA kernel of the port from ``src/repro_torch/kernels/
+   csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one process per source, in
+   parallel) into ``build/kernels/``.
 1. Kernels against their plain PyTorch versions, on the card, at the
    serving path's qwen2-7b shapes in bf16 (tolerance 3e-2, the reference's
    bf16 tolerance) and fp32 (tolerance 2e-4, the reference's fp32
@@ -18,6 +18,13 @@ Phases (each raises on failure; nothing is caught):
    int8/fp8 pages at 5e-2, the reference's quantization budget (QTOL).
    Then each kernel's time beside its plain version's, one PyTorch library
    call's (a yardstick the port never calls) and its roofline bound.
+   conv2d is held to its plain version at every distinct conv shape of
+   ResNet-50 at 224 (20), GoogLeNet's two 5x5 branch shapes and VGG-16's
+   first conv, bf16 (3e-2) and fp32 (2e-4), plus a ragged shape; it is
+   timed at ResNet-50's shapes at batch 64 beside the plain version and
+   ``F.conv2d`` (channels_last, TF32 off), cycling over input sets that
+   overflow the L2.  These checks take their shapes from what phase 2's
+   CPU forwards passed to the conv2d wrapper, so they run after it.
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
    weights on both; ragged prefill and 4 decode steps on a float pool
    (logits within 1e-3: f32 on both sides, summed in different orders
@@ -26,7 +33,11 @@ Phases (each raises on failure; nothing is caught):
    sparse int8 pool (the keep masks first compared equal, any flip
    reported by slot, head, block and estimated mass; then 1e-3 and 5e-2)
    and the dense slab (1e-3).  A prefix-cache hit on the card gives
-   logits bit-identical to a cold engine.
+   logits bit-identical to a cold engine.  ResNet-50, GoogLeNet and VGG-16
+   at 224, fp32, batch 2, built from one seed on both devices: logits
+   within 1e-3 * max|cpu| (f32 on both sides, summed in other orders
+   through up to 53 convs and 16 unnormalised residual adds), identical
+   argmax per image.
 3. The slice: ``repro_torch.launch.serve.main`` serves qwen2-7b at full
    width (28 layers, bf16, random weights from seed 0) with 2 partitions,
    then at a smaller load (1 partition, 4 requests, prompt 64) on the
@@ -35,7 +46,16 @@ Phases (each raises on failure; nothing is caught):
    with ``--dense``.  Every request must complete,
    every kernel's launch count must rise on the run that carries it (the
    counts are set to 0 just before each run and read just after), and the
-   sparse runs must drop blocks.
+   sparse runs must drop blocks.  The CNN slice: ``repro_torch.models.cnn
+   .apply_cnn`` runs each of ResNet-50, GoogLeNet and VGG-16 at 224, batch
+   64, fp32 on the card: one forward holds every conv2d and matmul call
+   against its plain version on the call's own inputs (2e-4 of the
+   output's scale), one times the kernels inside the forward with CUDA
+   events, then the timed forwards (device ms per forward, images/s, peak
+   memory, the conv2d and matmul launches per forward, which must equal
+   the op tables' 53+1, 57+1, 13+3), and ``repro_torch.core.shaping_sim
+   .partition_sweep`` reproduces the paper's Fig. 5 sweep for each net on
+   the host, held to the reference's own reproduction gates.
 
 The second-to-last line is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port's
@@ -46,6 +66,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +78,18 @@ H100_BF16 = 989e12           # dense bf16 tensor-core FLOP/s, data sheet
 TOL = {"bfloat16": 3e-2, "float32": 2e-4}
 QTOL = 5e-2                  # packed KV pages (tests/test_kv_quant.py)
 MODEL_TOL = 1e-3
+H100_FP32 = 67e12            # float32 FLOP/s outside the tensor cores
+
+# the CNN slice: the paper's total batch, fp32 (the paper's dtype)
+CNN_NETS = ("resnet50", "googlenet", "vgg16")
+CNN_BATCH = 64
+CNN_CHECK_BATCH = 2          # card vs CPU, and the conv2d checks
+CNN_REPS = 3                 # timed forwards per net
+CNN_TOL = 1e-3               # relative to max|cpu logits|
+CNN_LAUNCHES = {"resnet50": (53, 1), "googlenet": (57, 1),
+                "vgg16": (13, 3)}     # (conv2d, matmul) per forward
+CNN_SWEEP = (2, 4, 8, 16)    # partitions of the Fig. 5 sweep
+SWEEP_BATCH = 64             # its total batch (benchmarks/common.py SIM_KW)
 
 SERVE_ARGS = ["--arch", "qwen2-7b", "--partitions", "2", "--stagger",
               "demand", "--requests", "8", "--batch", "4", "--prompt-len",
@@ -526,6 +559,110 @@ def phase_decode_kernels(torch, cfg):
     return out
 
 
+def phase_conv_kernel(torch, shapes):
+    """Phase 1 for conv2d, at the conv shapes phase 2's CPU forwards passed
+    to the wrapper (``shapes``: {net: {(H, Cin, Cout, k, stride): calls per
+    forward}}): every distinct shape of ResNet-50 at 224, GoogLeNet's 5x5
+    branch shapes and VGG-16's first conv, bf16 and fp32 at batch
+    ``CNN_CHECK_BATCH``, plus a ragged shape; then ResNet-50's shapes timed
+    at batch 64, each cycling over input sets that together overflow the
+    L2, as the forward reads each layer's weights once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv2d import ops as cv_ops
+    from repro_torch.kernels.conv2d import ref as cv_ref
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def operands(N, H, C, K, k, dt):
+        x = torch.randn((N, H, H, C), generator=g, device=dev).to(dt)
+        w = (torch.randn((k, k, C, K), generator=g, device=dev)
+             * math.sqrt(2.0 / (k * k * C))).to(dt)
+        return x, w
+
+    resnet = shapes["resnet50"]
+    if len(resnet) != 20 or sum(resnet.values()) != 53:
+        fail(f"conv2d: ResNet-50 passed {len(resnet)} distinct conv shapes and "
+             f"{sum(resnet.values())} convs to the wrapper, expected 20 and 53")
+    extra = sorted({sh for sh in shapes["googlenet"] if sh[3] == 5}
+                   | {sh for sh in shapes["vgg16"] if sh[1] == 3})
+    worst = {bf: 0.0, f32: 0.0}
+    cases = [(CNN_CHECK_BATCH, *sh) for sh in sorted(resnet)] + \
+        [(CNN_CHECK_BATCH, *sh) for sh in extra] + \
+        [(3, 13, 5, 70, 3, 2)]                      # ragged M, R and K
+    for N, H, C, K, k, st in cases:
+        for dt in (bf, f32):
+            x, w = operands(N, H, C, K, k, dt)
+            e = check_close(torch, f"conv2d {(N, H, C, K, k, st)} {dt}",
+                            cv_ops.conv2d(x, w, stride=st),
+                            cv_ref.conv2d(cv_ops.pad_same(x, k, k, st), w,
+                                          stride=st),
+                            TOL[str(dt).split(".")[1]])
+            if (H, C, K, k, st) in resnet:
+                worst[dt] = max(worst[dt], e)
+            del x, w
+    log(f"phase 1: conv2d matches its plain version at {len(cases)} shapes "
+        f"(ResNet-50's {len(resnet)}, GoogLeNet's 5x5 and VGG-16's first "
+        f"{extra}, one ragged) x 2 dtypes, batch {CNN_CHECK_BATCH} (max abs "
+        f"err at ResNet-50's shapes: fp32 {worst[f32]:.3g}, bf16 "
+        f"{worst[bf]:.3g})")
+
+    # one ResNet-50 forward's convs at batch 64, each shape timed on the
+    # input the wrapper would pad: kernel (through the wrapper, VALID on the
+    # padded input), plain version, F.conv2d on channels_last tensors
+    tot = {dt: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for dt in (f32, bf)}
+    for (H, C, K, k, st), calls in sorted(resnet.items()):
+        line = []
+        for dt, peak in ((f32, H100_FP32), (bf, H100_BF16)):
+            sets = []
+            while len(sets) < 2 or (len(sets) < 4 and len(sets) * sum(
+                    t.numel() * t.element_size() for t in sets[0][:2])
+                    < 128e6):
+                x, w = operands(CNN_BATCH, H, C, K, k, dt)
+                xp = cv_ops.pad_same(x, k, k, st)
+                sets.append((xp, w, xp.permute(0, 3, 1, 2),  # channels_last
+                             w.permute(3, 2, 0, 1).contiguous(
+                                 memory_format=torch.channels_last)))
+                del x, w
+            n = len(sets)
+            t_k = time_ms(torch, lambda i: cv_ops.conv2d(
+                sets[i][0], sets[i][1], stride=st, padding="VALID"), n, 2 * n)
+            t_p = time_ms(torch, lambda i: cv_ref.conv2d(
+                sets[i][0], sets[i][1], stride=st), n, n)
+            t_l = time_ms(torch, lambda i: F.conv2d(
+                sets[i][2], sets[i][3], stride=st), n, 2 * n)
+            xp, w = sets[0][:2]
+            Ho = (xp.shape[1] - k) // st + 1
+            M = CNN_BATCH * Ho * Ho
+            b_ms, by = bound(xp.element_size() * (xp.numel() + w.numel()
+                                                  + M * K),
+                             2.0 * M * K * k * k * C, peak)
+            for key, v in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                           ("bound", b_ms)):
+                tot[dt][key] += calls * v
+            line.append(f"{str(dt).split('.')[1]} kernel_ms {t_k:.4f} "
+                        f"plain_ms {t_p:.4f} library_ms {t_l:.4f} bound_ms "
+                        f"{b_ms:.4f} ({by}; {n} input sets)")
+            del sets, xp, w
+        log(f"  conv2d {CNN_BATCH}x{H}x{H}x{C} -> {K} k{k} s{st} (x{calls}"
+            f"/forward): " + "; ".join(line))
+    for dt in (f32, bf):
+        t = tot[dt]
+        log(f"  conv2d one ResNet-50 forward's 53 convs, batch {CNN_BATCH}, "
+            f"{str(dt).split('.')[1]}: kernel_ms {t['ms']:.3f} plain_ms "
+            f"{t['plain']:.3f} library_ms {t['lib']:.3f} bound_ms "
+            f"{t['bound']:.3f}")
+    t = tot[f32]
+    return {"conv2d": dict(
+        shape=f"one ResNet-50 forward at 224, batch {CNN_BATCH}, fp32: 53 "
+              f"calls at 20 distinct shapes, each timed alone (library: "
+              f"F.conv2d, channels_last, TF32 off)",
+        max_abs_err=worst[f32], ms=t["ms"], plain_ms=t["plain"],
+        library_ms=t["lib"], bound_ms=t["bound"], bound_by="operations")}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the card against the CPU on the same full-width weights
 # ---------------------------------------------------------------------------
@@ -691,6 +828,59 @@ def phase_prefix_bitwise(torch, cfg2, params):
         f"cold engines")
 
 
+def phase_cnn_card_vs_cpu(torch):
+    """ResNet-50, GoogLeNet and VGG-16 at 224, fp32, batch 2: the same
+    weights (one seed, drawn on the CPU by ``init_cnn`` for both devices)
+    through the kernels on the card and the plain versions on the CPU.
+    Returns each net's card parameters for phase 3 and the conv shapes its
+    CPU forward passed to the conv2d wrapper, {(H, Cin, Cout, k, stride):
+    calls per forward}, for phase 1's conv2d checks."""
+    from collections import Counter
+
+    from repro_torch.models import cnn
+
+    card, shapes = {}, {}
+    real_conv = cnn.conv2d
+    for i, name in enumerate(CNN_NETS):
+        params = {dev: cnn.init_cnn(torch.Generator().manual_seed(10 + i),
+                                    name, device=dev)
+                  for dev in ("cpu", "cuda")}
+        x = torch.randn((CNN_CHECK_BATCH, 224, 224, 3),
+                        generator=torch.Generator().manual_seed(20 + i))
+        got = cnn.apply_cnn(params["cuda"], name, x.to("cuda")).cpu()
+        calls = shapes[name] = Counter()
+
+        def recording(x, w, *, stride=1, padding="SAME"):
+            calls[(x.shape[1], w.shape[2], w.shape[3], w.shape[0],
+                   stride)] += 1
+            return real_conv(x, w, stride=stride, padding=padding)
+        cnn.conv2d = recording
+        try:
+            want = cnn.apply_cnn(params["cpu"], name, x)
+        finally:
+            cnn.conv2d = real_conv
+        if got.shape != (CNN_CHECK_BATCH, 1000) or \
+                not torch.isfinite(got).all():
+            fail(f"card vs CPU {name}: logits of shape {tuple(got.shape)}, "
+                 f"finite {bool(torch.isfinite(got).all())}")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if err > CNN_TOL * scale:
+            fail(f"card vs CPU {name}: max abs logit err {err:.3g} > "
+                 f"{CNN_TOL} * max|cpu| {scale:.3g}")
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            fail(f"card vs CPU {name}: argmax differs ({got.argmax(-1)} vs "
+                 f"{want.argmax(-1)})")
+        log(f"phase 2: {name} at 224, fp32, batch {CNN_CHECK_BATCH}, card "
+            f"(kernels) vs CPU (plain): max abs logit err {err:.3g} = "
+            f"{err / scale:.3g} x max|cpu| ({scale:.4g}), tolerance "
+            f"{CNN_TOL}; identical argmax; {sum(calls.values())} convs at "
+            f"{len(calls)} distinct shapes")
+        card[name] = params["cuda"]
+        del params
+    return card, shapes
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice, through the serving CLI
 # ---------------------------------------------------------------------------
@@ -763,6 +953,177 @@ def phase_serve(torch, cfg, wrappers):
     return runs
 
 
+def check_in_forward(torch, name, got, want, tol, worst):
+    """A wrapper's output inside a real forward against its plain version
+    on the same inputs: |got - want| <= tol * (rms(want) + |want|), the
+    reference's absolute-plus-relative tolerance with its absolute term
+    taken at the output's own scale.  The reference states 2e-4 for
+    operands of unit scale; without a norm inside its residual blocks
+    ResNet-50's last stage reaches an RMS near 1e3, where reordering the
+    f32 sums alone moves a near-zero output past an absolute 2e-4.
+    ``worst`` gathers the largest ratio to this limit ("scaled") and to the
+    unscaled tol + tol * |want| ("unscaled"), which is logged."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms = float(w.pow(2).mean().sqrt())
+    scaled = float((err / (tol * (rms + w.abs()))).max())
+    worst["scaled"] = max(worst["scaled"], scaled)
+    worst["unscaled"] = max(worst["unscaled"],
+                            float((err / (tol + tol * w.abs())).max()))
+    worst["rms"] = max(worst["rms"], rms)
+    worst["calls"] += 1
+    if not bool(torch.isfinite(g).all()) or scaled > 1:
+        fail(f"{name}: kernel disagrees with its plain version inside the "
+             f"forward (max abs err {float(err.max()):.3g}, output rms "
+             f"{rms:.3g}, {scaled:.3g} x the limit {tol} * (rms + |want|))")
+
+
+def phase_cnn(torch, wrappers, card_params):
+    """The CNN slice on the card, each net at 224, batch 64, fp32.  A first
+    forward holds every conv2d and matmul call against its plain version on
+    the call's own inputs; a second brackets every conv2d kernel and matmul
+    launch with CUDA events (their device time inside a forward, cold
+    weights included); then the timed forwards, with the counts set to 0
+    just before them and read just after.  Then the paper's partition sweep
+    on the host.  Returns one run record per net."""
+    from repro_torch.core.shaping_sim import partition_sweep
+    from repro_torch.kernels.conv2d import ops as cv_ops
+    from repro_torch.kernels.conv2d import ref as cv_ref
+    from repro_torch.kernels.matmul import ref as mm_ref
+    from repro_torch.models import cnn
+
+    real_conv, real_mm, real_launch = cnn.conv2d, cnn.matmul, \
+        cv_ops.conv2d_cuda
+    tol = TOL["float32"]
+    runs = {}
+    for i, name in enumerate(CNN_NETS):
+        params = card_params.pop(name)
+        x = torch.randn((CNN_BATCH, 224, 224, 3), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            30 + i))
+        worst = {k: dict(scaled=0.0, unscaled=0.0, rms=0.0, calls=0)
+                 for k in ("conv2d", "matmul")}
+
+        def conv_checked(x, w, *, stride=1, padding="SAME"):
+            got = real_conv(x, w, stride=stride, padding=padding)
+            xp = cv_ops.pad_same(x, w.shape[0], w.shape[1], stride) \
+                if padding == "SAME" else x
+            check_in_forward(torch, f"cnn {name} conv2d x {tuple(x.shape)} "
+                             f"w {tuple(w.shape)} s{stride}", got,
+                             cv_ref.conv2d(xp, w, stride=stride), tol,
+                             worst["conv2d"])
+            return got
+
+        def mm_checked(a, b):
+            got = real_mm(a, b)
+            check_in_forward(torch, f"cnn {name} matmul {tuple(a.shape)} x "
+                             f"{tuple(b.shape)}", got, mm_ref.matmul(a, b),
+                             tol, worst["matmul"])
+            return got
+
+        events = {"conv2d": [], "matmul": []}
+
+        def timed(real, key):
+            def call(*args, **kw):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                out = real(*args, **kw)
+                t1.record()
+                events[key].append((t0, t1))
+                return out
+            return call
+
+        cnn.conv2d, cnn.matmul = conv_checked, mm_checked
+        try:
+            cnn.apply_cnn(params, name, x)
+        finally:
+            cnn.conv2d, cnn.matmul = real_conv, real_mm
+        checked = (worst["conv2d"]["calls"], worst["matmul"]["calls"])
+        if checked != CNN_LAUNCHES[name]:
+            fail(f"cnn {name}: (conv2d, matmul) calls checked {checked}, "
+                 f"expected {CNN_LAUNCHES[name]}")
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)   # the host queues ahead of the card
+        cv_ops.conv2d_cuda = timed(real_launch, "conv2d")
+        cnn.matmul = timed(real_mm, "matmul")
+        try:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            cnn.apply_cnn(params, name, x)
+            t1.record()
+        finally:
+            cv_ops.conv2d_cuda, cnn.matmul = real_launch, real_mm
+        t1.synchronize()
+        fwd_ms = t0.elapsed_time(t1)
+        in_fwd = {k: sum(a.elapsed_time(b) for a, b in ev)
+                  for k, ev in events.items()}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(CNN_REPS):
+            out = cnn.apply_cnn(params, name, x)
+        t1.record()
+        t1.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        ms = t0.elapsed_time(t1) / CNN_REPS
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if out.shape != (CNN_BATCH, 1000) or not torch.isfinite(out).all():
+            fail(f"cnn {name}: logits of shape {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out).all())}")
+        per = (launches["conv2d"] / CNN_REPS, launches["matmul"] / CNN_REPS)
+        if launches["conv2d"] == 0 or per != CNN_LAUNCHES[name]:
+            fail(f"cnn {name}: (conv2d, matmul) launches per forward {per}, "
+                 f"expected {CNN_LAUNCHES[name]}")
+        for k, wk in worst.items():
+            log(f"phase 3 [cnn {name}]: all {wk['calls']} {k} calls of a "
+                f"batch-{CNN_BATCH} forward match their plain version on "
+                f"their own inputs: worst {wk['scaled']:.3g} x the limit "
+                f"{tol} * (rms + |want|) (output rms up to {wk['rms']:.4g}); "
+                f"{wk['unscaled']:.3g} x an unscaled {tol} + {tol} * |want|")
+        log(f"phase 3 [cnn {name}]: batch {CNN_BATCH} at 224, fp32: "
+            f"{ms:.3f} device ms per forward ({CNN_BATCH / ms * 1e3:.1f} "
+            f"images/s), max_memory_allocated {peak:.2f} GB, launches per "
+            f"forward conv2d {per[0]:g} matmul {per[1]:g}; inside one "
+            f"event-bracketed forward ({fwd_ms:.3f} ms) the conv2d kernels "
+            f"take {in_fwd['conv2d']:.3f} ms and the matmuls "
+            f"{in_fwd['matmul']:.3f} ms")
+        runs[f"cnn {name}"] = dict(launches=launches, ms=ms, peak_gb=peak,
+                                   conv_ms=in_fwd["conv2d"],
+                                   matmul_ms=in_fwd["matmul"])
+        del params, x, out
+        torch.cuda.empty_cache()
+
+    # the paper's Fig. 5 protocol on each net's layer trace, held to the
+    # reference's reproduction gates (tests/test_shaping_sim.py)
+    for name in CNN_NETS:
+        t0 = time.perf_counter()
+        rows = partition_sweep(cnn.model_traces(name), list(CNN_SWEEP),
+                               total_batch=SWEEP_BATCH, n_passes=6)
+        best = max(rows, key=lambda p: rows[p]["perf"])
+        gain = rows[best]["perf"] - 1
+        band = (0.0, 0.10) if name == "vgg16" else (0.03, 0.25)
+        if not (band[0] < gain < band[1]
+                and rows[best]["bw_std"] < rows[1]["bw_std"]
+                and rows[best]["bw_mean"] > rows[1]["bw_mean"]):
+            fail(f"partition sweep {name}: best P={best} perf {gain:+.4f} "
+                 f"(band {band}), bw std {rows[best]['bw_std']:.4g} vs "
+                 f"{rows[1]['bw_std']:.4g}, mean {rows[best]['bw_mean']:.4g} "
+                 f"vs {rows[1]['bw_mean']:.4g}")
+        log(f"phase 3 [sweep {name}]: Fig. 5 on the paper's KNL pricing, "
+            f"{time.perf_counter() - t0:.2f} s host: " + ", ".join(
+                f"P={p} perf {r['perf']:.4f} bw_mean {r['bw_mean'] / 1e9:.1f}"
+                f" GB/s bw_std {r['bw_std'] / 1e9:.1f} GB/s"
+                for p, r in rows.items()))
+    return runs
+
+
 def main() -> None:
     import torch
 
@@ -778,6 +1139,7 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.conv2d import ops as cv_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.matmul import ops as mm_ops
@@ -795,22 +1157,33 @@ def main() -> None:
     log(f"phase 0: built {sorted(report)} in {time.perf_counter() - t0:.1f} s"
         f" ({_build.BUILD_DIR})")
     for name, r in report.items():
-        for line in r["ptxas"].splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers",
+                                           r["ptxas"])]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                             r["ptxas"])]
+        log(f"  {name}: {len(regs)} kernel instances, {min(regs, default=0)}"
+            f"-{max(regs, default=0)} registers, at most "
+            f"{max(spills, default=0)} bytes of spill stores")
 
     cfg = get_config("qwen2-7b")
     stats = phase_kernels(torch, cfg)
     stats.update(phase_decode_kernels(torch, cfg))
     phase_card_vs_cpu(torch, cfg)
+    cnn_params, conv_shapes = phase_cnn_card_vs_cpu(torch)
+    stats.update(phase_conv_kernel(torch, conv_shapes))
     torch.cuda.empty_cache()
     wrappers = {"matmul": mm_ops.matmul,
                 "flash_attention": fa_ops.flash_attention,
                 "paged_decode": pa_ops.paged_decode,
                 "paged_decode_quant": pa_ops.paged_decode_quant,
                 "paged_decode_sparse": pa_ops.paged_decode_sparse,
-                "flash_decode": fd_ops.flash_decode}
-    runs = phase_serve(torch, cfg, wrappers)
+                "flash_decode": fd_ops.flash_decode,
+                "conv2d": cv_ops.conv2d}
+    runs = phase_cnn(torch, wrappers, cnn_params)
+    stats["conv2d"]["in_forward_ms"] = runs["cnn resnet50"]["conv_ms"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(phase_serve(torch, cfg, wrappers))
 
     meta = {"matmul": ("matmul.cu", "src/repro/kernels/matmul/matmul.py:49"),
             "flash_attention": (
@@ -827,7 +1200,8 @@ def main() -> None:
                 "src/repro/kernels/paged_attention/paged_attention.py:282"),
             "flash_decode": (
                 "flash_decode.cu",
-                "src/repro/kernels/flash_decode/flash_decode.py:83")}
+                "src/repro/kernels/flash_decode/flash_decode.py:83"),
+            "conv2d": ("conv2d.cu", "src/repro/kernels/conv2d/conv2d.py:51")}
     kernels = []
     for name, (src, replaces) in meta.items():
         s = stats[name]
@@ -841,7 +1215,10 @@ def main() -> None:
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
-                        "library_ms": s["library_ms"], "shape": s["shape"]})
+                        "library_ms": s["library_ms"], "shape": s["shape"],
+                        **({"in_forward_ms": s["in_forward_ms"]}
+                           if "in_forward_ms" in s else {})})
+    log(smi)      # again here: long runs push the first lines out of a tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

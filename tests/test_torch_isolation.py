@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from repro_torch import device as D
+from repro_torch.kernels.conv2d import ops as cv_ops
+from repro_torch.kernels.conv2d import ref as cv_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -93,7 +95,18 @@ def _fd_args():
     return q, k, k * 0.5, torch.tensor([8, 3], dtype=torch.int32)
 
 
+def _cv_args():
+    rng = np.random.default_rng(4)
+    return (torch.from_numpy(rng.standard_normal((2, 6, 6, 4), np.float32)),
+            torch.from_numpy(rng.standard_normal((3, 3, 4, 5), np.float32)))
+
+
+def _cv_plain(x, w):   # the wrapper pads SAME, the plain version does not
+    return cv_ref.conv2d(cv_ops.pad_same(x, 3, 3, 1), w)
+
+
 WRAPPERS = {
+    "conv2d": (cv_ops.conv2d, _cv_plain, _cv_args),
     "matmul": (mm_ops.matmul, mm_ref.matmul, _mm_args),
     "flash_attention": (fa_ops.flash_attention, fa_ref.attention, _fa_args),
     "paged_decode": (pa_ops.paged_decode, pa_ref.paged_decode_attention,
