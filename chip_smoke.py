@@ -5,6 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --only flash_attention`` builds only
+``flash_attention.cu`` and runs only phase 1's flash-attention checks and
+timings, then exits 0 without the result line: a quick check of that
+kernel, never to be taken for a full run.
+
 Phases (each raises on failure; nothing is caught):
 
 0. Build every CUDA kernel of the port from ``src/repro_torch/kernels/
@@ -16,6 +21,10 @@ Phases (each raises on failure; nothing is caught):
    tolerance: both sides accumulate in f32, only in another order, with
    TF32 switched off explicitly), plus one ragged shape per kernel; packed
    int8/fp8 pages at 5e-2, the reference's quantization budget (QTOL).
+   flash attention is also held in bf16 over its tensor-core tiles' edges
+   (every mix of G in FA_GROUPS, Sq = Skv in FA_LENGTHS, window in
+   FA_WINDOWS, D in FA_DIMS) and at a 2048-token prompt, and timed there
+   too (``long_ms``, ``long_library_ms``, ``long_bound_ms`` in the JSON).
    Then each kernel's time beside its plain version's, one PyTorch library
    call's (a yardstick the port never calls) and its roofline bound.
    conv2d is held to its plain version at every distinct conv shape of
@@ -63,6 +72,7 @@ sources beside this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import math
@@ -79,6 +89,15 @@ TOL = {"bfloat16": 3e-2, "float32": 2e-4}
 QTOL = 5e-2                  # packed KV pages (tests/test_kv_quant.py)
 MODEL_TOL = 1e-3
 H100_FP32 = 67e12            # float32 FLOP/s outside the tensor cores
+
+# flash attention's tile edges (64 flattened rows q_pos * G + g and 64 keys
+# a tile): G = 7 puts Sq * G = 63, 70 on both sides of 64 at Sq = 9, 10;
+# Sq = 65, 100 cross a key tile; D = 16, 80 are zero-padded to 32, 96
+FA_GROUPS = (1, 7, 8, 16)
+FA_LENGTHS = (1, 9, 10, 63, 65, 100)
+FA_WINDOWS = (0, 16, 100)
+FA_DIMS = (16, 64, 80, 128)
+FA_LONG = 2048               # a long prompt: operations-bound
 
 # the CNN slice: the paper's total batch, fp32 (the paper's dtype)
 CNN_NETS = ("resnet50", "googlenet", "vgg16")
@@ -199,8 +218,6 @@ def rows_read(torch, cur, bs, T, Hkv, keep=None):
 
 
 def phase_kernels(torch, cfg):
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -281,44 +298,6 @@ def phase_kernels(torch, cfg):
     log(f"  matmul decode step: kernel_ms {ms:.3f} plain_ms {plain:.3f} "
         f"library_ms {lib:.3f} bound_ms {bnd:.3f}")
 
-    # -- flash attention: the prefill wave (slots x prompt), GQA G = 7
-    worst = 0.0
-    cases = [(SLOTS, PROMPT, PROMPT, Hq, Hkv, hd, 0, "main"),
-             (2, 45, 45, Hq, Hkv, hd, 16, "ragged+window"),
-             (3, 29, 29, 4, 2, 16, 0, "D=16")]
-    for B, Sq, Skv, hq, hkv, D, w, tag in cases:
-        for dt in (torch.bfloat16, torch.float32):
-            q, k, v = (rnd((B, Sq, hq, D), dt), rnd((B, Skv, hkv, D), dt),
-                       rnd((B, Skv, hkv, D), dt))
-            e = check_close(torch, f"flash_attention {tag} {dt}",
-                            fa_ops.flash_attention(q, k, v, window=w),
-                            fa_ref.attention(q, k, v, window=w),
-                            TOL[str(dt).split(".")[1]])
-            if tag == "main" and dt == torch.bfloat16:
-                worst = e
-    q = rnd((SLOTS, PROMPT, Hq, hd), torch.bfloat16)
-    k = rnd((SLOTS, PROMPT, Hkv, hd), torch.bfloat16)
-    v = rnd((SLOTS, PROMPT, Hkv, hd), torch.bfloat16)
-    G = Hq // Hkv
-    qt = q.transpose(1, 2).contiguous()                 # SDPA layout
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_k = time_ms(torch, lambda i: fa_ops.flash_attention(q, k, v), 1)
-    t_p = time_ms(torch, lambda i: fa_ref.attention(q, k, v), 1)
-    t_l = time_ms(torch, lambda i: sdpa(qt, kt, vt, is_causal=True), 1)
-    pairs = PROMPT * (PROMPT + 1) / 2
-    b_ms, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
-                     4 * SLOTS * Hq * hd * pairs, H100_BF16)
-    out["flash_attention"] = dict(
-        shape=f"one layer of a prefill wave: q ({SLOTS},{PROMPT},{Hq},{hd}), "
-              f"k/v ({SLOTS},{PROMPT},{Hkv},{hd}), causal, bf16",
-        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
-        bound_ms=b_ms, bound_by=by)
-    log(f"phase 1: flash_attention matches at {len(cases)} shapes x 2 dtypes;"
-        f" kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} "
-        f"(SDPA on K/V expanded to {Hq} heads) bound_ms {b_ms:.5f} ({by})")
-
     # -- paged decode: the slots' chains at the serving path's widths
     bs = 16
     worst = 0.0
@@ -360,6 +339,90 @@ def phase_kernels(torch, cfg):
         f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms null bound_ms "
         f"{b_ms:.5f} ({by})")
     return out
+
+
+def phase_flash_attention(torch, cfg):
+    """The prefill flash-attention kernel against ``ref.attention`` on the
+    card: the prefill wave, a ragged windowed shape and D = 16 in bf16 and
+    fp32, then bf16 over the tensor-core kernel's tile edges (every mix of
+    FA_GROUPS, FA_LENGTHS, FA_WINDOWS and FA_DIMS) and a FA_LONG-token
+    prompt.  Timed at the main path's prefill wave and at the long prompt
+    beside SDPA (K/V expanded to the query heads) and the roofline bound."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def check(tag, dt, B, Sq, hq, hkv, D, w):
+        q, k, v = (rnd((B, Sq, hq, D), dt), rnd((B, Sq, hkv, D), dt),
+                   rnd((B, Sq, hkv, D), dt))
+        return check_close(torch, f"flash_attention {tag} {dt}",
+                           fa_ops.flash_attention(q, k, v, window=w),
+                           fa_ref.attention(q, k, v, window=w),
+                           TOL[str(dt).split(".")[1]])
+
+    hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    worst = 0.0
+    cases = [(SLOTS, PROMPT, Hq, Hkv, hd, 0, "main"),
+             (2, 45, Hq, Hkv, hd, 16, "ragged+window"),
+             (3, 29, 4, 2, 16, 0, "D=16")]
+    for B, Sq, hq, hkv, D, w, tag in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            e = check(tag, dt, B, Sq, hq, hkv, D, w)
+            if tag == "main" and dt == torch.bfloat16:
+                worst = e
+    edges = [(G, Sq, w, D) for G in FA_GROUPS for Sq in FA_LENGTHS
+             for w in FA_WINDOWS for D in FA_DIMS]
+    edge_worst = max(check(f"G={G} S={Sq} window={w} D={D}", torch.bfloat16,
+                           2, Sq, 2 * G, 2, D, w) for G, Sq, w, D in edges)
+    long_err = check(f"long S={FA_LONG}", torch.bfloat16, 1, FA_LONG, Hq,
+                     Hkv, hd, 0)
+    log(f"phase 1: flash_attention matches at {len(cases)} shapes x 2 dtypes"
+        f" (bf16 main max abs err {worst:.3g}), {len(edges)} bf16 tile-edge "
+        f"shapes (max abs err {edge_worst:.3g}) and the {FA_LONG}-token prompt"
+        f" ({long_err:.3g})")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    G = Hq // Hkv
+
+    def timings(B, S, iters):
+        q = rnd((B, S, Hq, hd), torch.bfloat16)
+        k = rnd((B, S, Hkv, hd), torch.bfloat16)
+        v = rnd((B, S, Hkv, hd), torch.bfloat16)
+        qt = q.transpose(1, 2).contiguous()                 # SDPA layout
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        t_k = time_ms(torch, lambda i: fa_ops.flash_attention(q, k, v), 1,
+                      iters)
+        t_p = time_ms(torch, lambda i: fa_ref.attention(q, k, v), 1, 5)
+        t_l = time_ms(torch, lambda i: sdpa(qt, kt, vt, is_causal=True), 1,
+                      iters)
+        pairs = S * (S + 1) / 2
+        flops = 4 * B * Hq * hd * pairs
+        b_ms, by = bound(2 * (2 * q.numel() + 2 * k.numel()), flops,
+                         H100_BF16)
+        return t_k, t_p, t_l, b_ms, by, flops
+
+    t_k, t_p, t_l, b_ms, by, _ = timings(SLOTS, PROMPT, 20)
+    log(f"  flash_attention bf16 ({SLOTS},{PROMPT},{Hq},{hd}): kernel_ms "
+        f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA on K/V "
+        f"expanded to {Hq} heads) bound_ms {b_ms:.5f} ({by})")
+    lt_k, lt_p, lt_l, lb_ms, lby, lflops = timings(1, FA_LONG, 10)
+    log(f"  flash_attention bf16 long (1,{FA_LONG},{Hq},{hd}) causal: "
+        f"kernel_ms {lt_k:.4f} ({lflops / lt_k / 1e9:.1f} TFLOP/s) plain_ms "
+        f"{lt_p:.4f} library_ms {lt_l:.4f} ({lflops / lt_l / 1e9:.1f} "
+        f"TFLOP/s) bound_ms {lb_ms:.5f} ({lby})")
+    return {"flash_attention": dict(
+        shape=f"one layer of a prefill wave: q ({SLOTS},{PROMPT},{Hq},{hd}), "
+              f"k/v ({SLOTS},{PROMPT},{Hkv},{hd}), causal, bf16; long: "
+              f"q (1,{FA_LONG},{Hq},{hd})",
+        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_library_ms=lt_l,
+        long_bound_ms=lb_ms)}
 
 
 def phase_decode_kernels(torch, cfg):
@@ -1124,7 +1187,24 @@ def phase_cnn(torch, wrappers, card_params):
     return runs
 
 
+def ptxas_entries(text: str):
+    """(kernel, registers, spill-store bytes) of each entry function in an
+    ``-Xptxas=-v`` report."""
+    out = []
+    for chunk in text.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((chunk.split("'", 1)[0], int(regs.group(1)) if regs else 0,
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["flash_attention"],
+                    help="build this kernel alone and run its phase-1 checks "
+                         "and timings; prints no result line")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1153,20 +1233,30 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    report = _build.build()
+    report = _build.build([args.only] if args.only else _build.SOURCES)
     log(f"phase 0: built {sorted(report)} in {time.perf_counter() - t0:.1f} s"
         f" ({_build.BUILD_DIR})")
     for name, r in report.items():
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers",
-                                           r["ptxas"])]
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
-                                             r["ptxas"])]
+        entries = ptxas_entries(r["ptxas"])
+        regs = [n for _, n, _ in entries]
         log(f"  {name}: {len(regs)} kernel instances, {min(regs, default=0)}"
             f"-{max(regs, default=0)} registers, at most "
-            f"{max(spills, default=0)} bytes of spill stores")
+            f"{max((n for _, _, n in entries), default=0)} bytes of spill "
+            "stores")
+        if name == "flash_attention":   # the tensor-core kernel, per instance
+            for fn, n_regs, spill in entries:
+                log(f"    {fn}: {n_regs} registers, {spill} bytes of spill "
+                    "stores")
 
     cfg = get_config("qwen2-7b")
+    if args.only:
+        phase_flash_attention(torch, cfg)
+        log(smi)
+        log(f"chip_smoke: --only {args.only} passed (one kernel's phase 1, "
+            "not a full run: no result line)")
+        return
     stats = phase_kernels(torch, cfg)
+    stats.update(phase_flash_attention(torch, cfg))
     stats.update(phase_decode_kernels(torch, cfg))
     phase_card_vs_cpu(torch, cfg)
     cnn_params, conv_shapes = phase_cnn_card_vs_cpu(torch)
@@ -1216,6 +1306,8 @@ def main() -> None:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"], "shape": s["shape"],
+                        **{key: s[key] for key in ("long_ms", "long_library_ms",
+                                                   "long_bound_ms") if key in s},
                         **({"in_forward_ms": s["in_forward_ms"]}
                            if "in_forward_ms" in s else {})})
     log(smi)      # again here: long runs push the first lines out of a tail

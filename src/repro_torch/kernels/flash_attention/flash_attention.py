@@ -3,9 +3,12 @@
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py::
 flash_attention_pallas``.  Unlike the Pallas kernel it takes any Sq and
-Skv (ragged tiles are masked in the kernel).  Limits: D <= 128 and at most
-16 query heads per kv head (one CTA packs a tile of query positions times
-the whole GQA group into 16 rows).
+Skv (ragged tiles are masked in the kernel).  bf16 runs on the tensor
+cores (``mma.sync``, 64 flattened query rows a CTA), f32 on the CUDA cores
+(one CTA packs a tile of query positions times the whole GQA group into
+16 rows).  Limits: D <= 128, at most 16 query heads per kv head, and for
+bf16 D % 8 == 0 and 16-byte aligned operands (the tiles load 16-byte
+chunks of a row).
 """
 from __future__ import annotations
 
@@ -39,8 +42,15 @@ def flash_attention_cuda(q, k, v, *, window: int = 0) -> torch.Tensor:
                          f"(D={D}, G={Hq // Hkv})")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError("flash_attention: q, k, v dtypes differ")
+    if q.dtype == torch.bfloat16 and D % 8:
+        raise ValueError(f"flash_attention: the bf16 kernel takes D % 8 == 0 "
+                         f"(D={D})")
     _build.check_inputs("flash_attention", q, k, v)
     o = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v, o)):
+        raise ValueError("flash_attention: the bf16 kernel takes 16-byte "
+                         "aligned operands")
     lib = _build.load("flash_attention", SIGNATURES)
     err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), B, Sq, Skv, Hq, Hkv, D,

@@ -20,6 +20,7 @@ from repro.kernels.matmul import ops as jmm_ops
 from repro.kernels.matmul import ref as jmm_ref
 from repro.kernels.paged_attention import ops as jpa_ops
 from repro.kernels.paged_attention import ref as jpa_ref
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.matmul import ref as mm_ref
 from repro_torch.kernels.paged_attention import ref as pa_ref
@@ -115,6 +116,41 @@ def test_flash_attention_plain_ragged_vs_ref(B, Sq, Hq, Hkv, D, window,
     (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, k, v))
     _close(fa_ref.attention(tq, tk, tv, window=window),
            jfa_ref.attention(jq, jk, jv, causal=True, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,bq,bk", [
+    (1, 16, 8, 1, 16, 0, 8, 16),       # G = 8
+    (1, 16, 32, 2, 16, 0, 8, 8),       # G = 16, the wrapper's limit
+    (1, 9, 7, 1, 16, 0, 9, 9),         # Sq * G = 63: one row short of a tile
+    (1, 10, 7, 1, 16, 0, 5, 10),       # Sq * G = 70: six rows into a second
+    (1, 65, 7, 1, 16, 0, 13, 13),      # Sq = Skv = 65: one key past a tile
+    (1, 32, 7, 1, 80, 0, 8, 16),       # D = 80, zero-padded in the kernel
+    (1, 130, 2, 1, 16, 100, 13, 26),   # window 100 over three key tiles
+])
+def test_flash_attention_plain_tile_edges(B, S, Hq, Hkv, D, window, bq, bk,
+                                          dtype):
+    """The tensor-core kernel's edges: 64 flattened rows q_pos * G + g and
+    64 keys a tile; the Pallas kernel runs with blocks that divide S."""
+    rng = np.random.default_rng(S * Hq + D + window)
+    q, k, v = _qkv(rng, B, S, S, Hq, Hkv, D)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, k, v))
+    out = fa_ref.attention(tq, tk, tv, window=window)
+    _close(out, jfa_ops.flash_attention(jq, jk, jv, causal=True,
+                                        window=window, bq=bq, bk=bk), dtype)
+    _close(out, jfa_ref.attention(jq, jk, jv, causal=True, window=window),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype,message", [
+    (torch.bfloat16, "D % 8"),          # shape check, before any build
+    (torch.float32, "CUDA device"),     # f32 takes D = 12; not a CPU tensor
+])
+def test_flash_attention_cuda_rejects_before_build(dtype, message):
+    q = torch.zeros((1, 4, 2, 12), dtype=dtype)
+    k = torch.zeros((1, 4, 1, 12), dtype=dtype)
+    with pytest.raises(ValueError, match=message):
+        fa_kernel.flash_attention_cuda(q, k, k)
 
 
 # ---------------------------------------------------------------------------
