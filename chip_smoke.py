@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 ``python3 chip_smoke.py --only flash_attention`` builds only
 ``flash_attention.cu`` and runs only phase 1's flash-attention checks and
 timings, then exits 0 without the result line: a quick check of that
-kernel, never to be taken for a full run.
+kernel, never to be taken for a full run.  ``--only decode_attention`` does
+the same for ``paged_attention.cu`` and ``flash_decode.cu`` (the four entry
+points of the decode template).
 
 Phases (each raises on failure; nothing is caught):
 
@@ -25,6 +27,12 @@ Phases (each raises on failure; nothing is caught):
    (every mix of G in FA_GROUPS, Sq = Skv in FA_LENGTHS, window in
    FA_WINDOWS, D in FA_DIMS) and at a 2048-token prompt, and timed there
    too (``long_ms``, ``long_library_ms``, ``long_bound_ms`` in the JSON).
+   The four decode-template kernels (paged float, packed, sparse, dense
+   slab) are held through the model path's wrapper (the split plan) and at
+   forced splits (1, the plan's, more than the walk's tiles), at the
+   serving shapes, a ragged window with an inactive slot, D = 16 and 20,
+   contexts 1 / 31 / 32 / 33 and about 4,096, and timed at the main shape
+   and at 4,096 (``splits`` and ``long_splits`` give the plan's counts).
    Then each kernel's time beside its plain version's, one PyTorch library
    call's (a yardstick the port never calls) and its roofline bound.
    conv2d is held to its plain version at every distinct conv shape of
@@ -98,6 +106,14 @@ FA_LENGTHS = (1, 9, 10, 63, 65, 100)
 FA_WINDOWS = (0, 16, 100)
 FA_DIMS = (16, 64, 80, 128)
 FA_LONG = 2048               # a long prompt: operations-bound
+
+# the decode template's split walk: contexts 1, 31, 32, 33 around the first
+# 32-row tile edge, and contexts of about DECODE_LONG (bytes-bound), each
+# timed launch on its own operands, LONG_SETS of them together past the L2
+EDGE_CURS = [0, 30, 31, 32]
+DECODE_LONG = 4096
+LONG_OFFSETS = (0, 5, 3, 14)
+LONG_SETS = 4
 
 # the CNN slice: the paper's total batch, fp32 (the paper's dtype)
 CNN_NETS = ("resnet50", "googlenet", "vgg16")
@@ -183,10 +199,11 @@ def check_close(torch, name, got, want, tol):
     return worst
 
 
-def paged_tables(torch, curs, bs, dev):
+def paged_tables(torch, curs, bs, dev, inactive=True):
     """Shuffled block chains covering positions [0, cur] of each slot plus
-    a null-padded tail; a slot with cur 0 stays on null block 0 (an
-    inactive slot).  Returns (tables (B, T) int32, pool blocks N)."""
+    a null-padded tail; with ``inactive`` a slot with cur 0 stays on null
+    block 0 (an inactive slot).  Returns (tables (B, T) int32, pool
+    blocks N)."""
     B = len(curs)
     T = max(-(-(c + 1) // bs) for c in curs) + 1
     N = 1 + B * T
@@ -194,7 +211,7 @@ def paged_tables(torch, curs, bs, dev):
         B)).add(1).tolist()
     tables = torch.zeros((B, T), dtype=torch.int32)
     for b, c in enumerate(curs):
-        if c > 0:
+        if c > 0 or not inactive:
             for t in range(-(-(c + 1) // bs)):
                 tables[b, t] = free.pop()
     return tables.to(dev), N
@@ -220,8 +237,6 @@ def rows_read(torch, cur, bs, T, Hkv, keep=None):
 def phase_kernels(torch, cfg):
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention import ref as pa_ref
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
@@ -298,46 +313,6 @@ def phase_kernels(torch, cfg):
     log(f"  matmul decode step: kernel_ms {ms:.3f} plain_ms {plain:.3f} "
         f"library_ms {lib:.3f} bound_ms {bnd:.3f}")
 
-    # -- paged decode: the slots' chains at the serving path's widths
-    bs = 16
-    worst = 0.0
-    cases = [([PROMPT + 3, PROMPT + 9, PROMPT + 1, PROMPT + 14], 0, Hq, Hkv,
-              hd, "main"),
-             ([0, 5, 37, 63], 20, Hq, Hkv, hd, "ragged+window+inactive"),
-             ([3, 17, 40], 0, 4, 2, 16, "D=16")]
-    for curs, w, hq, hkv, D, tag in cases:
-        B = len(curs)
-        tables, N = paged_tables(torch, curs, bs, dev)
-        cur = torch.tensor(curs, dtype=torch.int32, device=dev)
-        for dt in (torch.bfloat16, torch.float32):
-            qd = rnd((B, hq, D), dt)
-            kp, vp = rnd((N, bs, hkv, D), dt), rnd((N, bs, hkv, D), dt)
-            e = check_close(torch, f"paged_decode {tag} {dt}",
-                            pa_ops.paged_decode(qd, kp, vp, tables, cur,
-                                                window=w),
-                            pa_ref.paged_decode_attention(qd, kp, vp, tables,
-                                                          cur, window=w),
-                            TOL[str(dt).split(".")[1]])
-            if tag == "main" and dt == torch.bfloat16:
-                worst = e
-                main = (qd, kp, vp, tables, cur)
-    qd, kp, vp, tables, cur = main
-    t_k = time_ms(torch, lambda i: pa_ops.paged_decode(qd, kp, vp, tables,
-                                                       cur), 1)
-    t_p = time_ms(torch, lambda i: pa_ref.paged_decode_attention(
-        qd, kp, vp, tables, cur), 1)
-    rows = float((cur + 1).sum())
-    b_ms, by = bound(2 * (2 * qd.numel() + 2 * rows * Hkv * hd)
-                     + 4 * (tables.numel() + cur.numel()),
-                     4 * Hq * hd * rows, H100_BF16)
-    out["paged_decode"] = dict(
-        shape=f"one layer of a decode step: q ({SLOTS},{Hq},{hd}), pool of "
-              f"{kp.shape[0]} blocks x {bs}, contexts {cur.tolist()}, bf16",
-        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
-        bound_ms=b_ms, bound_by=by)
-    log(f"phase 1: paged_decode matches at {len(cases)} shapes x 2 dtypes; "
-        f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms null bound_ms "
-        f"{b_ms:.5f} ({by})")
     return out
 
 
@@ -426,16 +401,28 @@ def phase_flash_attention(torch, cfg):
 
 
 def phase_decode_kernels(torch, cfg):
-    """Phase 1 for the decode kernels of the bandwidth levers and the dense
-    slab: paged_decode_quant, paged_decode_sparse, flash_decode."""
+    """Phase 1 for the four entry points of the decode-attention template
+    (paged_decode, paged_decode_quant, paged_decode_sparse, flash_decode).
+    Each is held against its plain version through the model path's
+    wrapper (the split plan) and through its kernel at forced splits (1,
+    the plan's, more than the walk's tiles), at the serving path's shapes,
+    a ragged window with an inactive slot, D = 16 and D = 20, contexts 1,
+    31, 32 and 33 around the first tile edge, and contexts of about
+    DECODE_LONG; then each kernel is timed alone (its ``*_cuda`` launch
+    with the plan's splits: no wrapper's counting ops) at the main shape
+    and at DECODE_LONG."""
+    from repro_torch.kernels import decode_split
+    from repro_torch.kernels.flash_decode import flash_decode as fd_k
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa_k
     from repro_torch.kernels.paged_attention import ref as pa_ref
     from repro_torch.serving.kv_pool import quantize_kv
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(4)
+    sms = decode_split.sm_count(torch.device(dev))
 
     def rnd(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
@@ -447,22 +434,108 @@ def phase_decode_kernels(torch, cfg):
         off = torch.randn((shape[0], 1, *shape[2:]), generator=g, device=dev)
         return (base + 2 * off).to(dtype)
 
+    def counts(walk, B, hkv):
+        """Forced splits: 1, the plan's, more than the walk's tiles."""
+        tiles = -(-walk // decode_split.KT)
+        return sorted({1, decode_split.plan(B, hkv, walk, sms), tiles + 3})
+
+    def held(name, wrapped, kernel, want, tol, walk, B, hkv):
+        """The model path's wrapper, then the kernel at each forced split
+        count, against one plain output."""
+        worst = check_close(torch, name, wrapped(), want, tol)
+        for n in counts(walk, B, hkv):
+            worst = max(worst, check_close(torch, f"{name} splits={n}",
+                                           kernel(n), want, tol))
+        return worst
+
     hd, Hq, Hkv, bs = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, 16
+    G = Hq // Hkv
     out = {}
     bf, f32 = torch.bfloat16, torch.float32
     lever_curs = [LEVER_PROMPT + 1, LEVER_PROMPT + 7, LEVER_PROMPT + 3,
                   LEVER_PROMPT + 5]
+    long_curs = [DECODE_LONG + o for o in LONG_OFFSETS]
+
+    def cases(main):
+        # (curs, window, Hq, Hkv, D, tag, cur 0 = inactive slot)
+        return [(main, 0, Hq, Hkv, hd, "main", True),
+                ([0, 5, 37, 63], 20, Hq, Hkv, hd, "ragged+window+inactive",
+                 True),
+                ([3, 17, 40], 0, 4, 2, 16, "D=16", True),
+                ([3, 17, 40], 0, 4, 2, 20, "D=20", True),
+                (EDGE_CURS, 0, Hq, Hkv, hd, "contexts 1/31/32/33", False),
+                (long_curs, 0, Hq, Hkv, hd, f"contexts ~{DECODE_LONG}",
+                 False)]
+
+    def plan_of(tables):
+        return decode_split.plan(tables.shape[0], Hkv, tables.shape[1] * bs,
+                                 sms)
+
+    # -- paged_decode (float pages): the serving path's contexts
+    worst = 0.0
+    pcases = cases([PROMPT + 3, PROMPT + 9, PROMPT + 1, PROMPT + 14])
+    for curs, w, hq, hkv, D, tag, inactive in pcases:
+        B = len(curs)
+        tables, N = paged_tables(torch, curs, bs, dev, inactive)
+        cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+        for dt in (bf, f32):
+            qd = rnd((B, hq, D), dt)
+            kp, vp = rnd((N, bs, hkv, D), dt), rnd((N, bs, hkv, D), dt)
+            e = held(f"paged_decode {tag} {dt}",
+                     lambda: pa_ops.paged_decode(qd, kp, vp, tables, cur,
+                                                 window=w),
+                     lambda n: pa_k.paged_decode_cuda(
+                         qd, kp, vp, tables, cur, window=w, splits=n),
+                     pa_ref.paged_decode_attention(qd, kp, vp, tables, cur,
+                                                   window=w),
+                     TOL[str(dt).split(".")[1]], tables.shape[1] * bs, B, hkv)
+            if tag == "main" and dt == bf:
+                worst = e
+                main = (qd, kp, vp, tables, cur)
+    qd, kp, vp, tables, cur = main
+    t_k = time_ms(torch, lambda i: pa_k.paged_decode_cuda(qd, kp, vp, tables,
+                                                          cur), 1)
+    t_p = time_ms(torch, lambda i: pa_ref.paged_decode_attention(
+        qd, kp, vp, tables, cur), 1)
+
+    def float_bound(q, cur, n_rows, extra):
+        return bound(2 * (2 * q.numel() + 2 * n_rows * hd) + 4 * extra,
+                     4 * G * hd * n_rows, H100_BF16)
+
+    b_ms, by = float_bound(qd, cur, float((cur + 1).sum()) * Hkv,
+                           tables.numel() + cur.numel())
+    # contexts of about DECODE_LONG, each launch on its own pool (together
+    # past the 50 MB L2, as a decode step finds each layer's pages cold)
+    ltables, lN = paged_tables(torch, long_curs, bs, dev)
+    lcur = torch.tensor(long_curs, dtype=torch.int32, device=dev)
+    sets = [(rnd((SLOTS, Hq, hd), bf), rnd((lN, bs, Hkv, hd), bf),
+             rnd((lN, bs, Hkv, hd), bf)) for _ in range(LONG_SETS)]
+    lt_k = time_ms(torch, lambda i: pa_k.paged_decode_cuda(
+        *sets[i], ltables, lcur), LONG_SETS)
+    lb_ms, _ = float_bound(sets[0][0], lcur, float((lcur + 1).sum()) * Hkv,
+                           ltables.numel() + lcur.numel())
+    del sets
+    out["paged_decode"] = dict(
+        shape=f"one layer of a decode step: q ({SLOTS},{Hq},{hd}), pool of "
+              f"{kp.shape[0]} blocks x {bs}, contexts {cur.tolist()}, bf16; "
+              f"long: contexts {lcur.tolist()}",
+        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
+        bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
+        splits=plan_of(tables), long_splits=plan_of(ltables))
+    log(f"phase 1: paged_decode matches at {len(pcases)} shapes x 2 dtypes "
+        f"x (the wrapper + forced splits); kernel_ms {t_k:.4f} plain_ms "
+        f"{t_p:.4f} library_ms null bound_ms {b_ms:.5f} ({by}), splits "
+        f"{plan_of(tables)}; long kernel_ms {lt_k:.4f} bound_ms "
+        f"{lb_ms:.5f} splits {plan_of(ltables)}")
 
     # -- paged_decode_quant: the int8+sparse and fp8 runs' shapes, int8 and
     # fp8 pages, q bf16 and f32, with and without a keep mask and the
-    # current rows; one ragged case (window, an inactive slot, D = 16)
+    # current rows
     worst = 0.0
-    cases = [(lever_curs, 0, Hq, Hkv, hd, "main"),
-             ([0, 5, 37, 63], 20, Hq, Hkv, hd, "window+inactive"),
-             ([3, 17, 40], 0, 4, 2, 16, "D=16")]
-    for curs, w, hq, hkv, D, tag in cases:
+    qcases = cases(lever_curs)
+    for curs, w, hq, hkv, D, tag, inactive in qcases:
         B = len(curs)
-        tables, N = paged_tables(torch, curs, bs, dev)
+        tables, N = paged_tables(torch, curs, bs, dev, inactive)
         cur = torch.tensor(curs, dtype=torch.int32, device=dev)
         for kind in ("int8", "fp8"):
             kq, ks = quantize_kv(keys((N, bs, hkv, D), f32), kind)
@@ -474,15 +547,20 @@ def phase_decode_kernels(torch, cfg):
                 keep = pa_ref.block_keep_mask(q, kq, tables, cur,
                                               threshold=THRESHOLD, window=w,
                                               k_scales=ks)
+                args = (q, kq, vq, ks, vs, tables, cur)
                 for kk, rr in ((None, {}), (None, rows), (keep, rows)):
-                    args = (q, kq, vq, ks, vs, tables, cur)
-                    e = check_close(
-                        torch, f"paged_decode_quant {tag} {kind} {dt} keep="
+                    e = held(
+                        f"paged_decode_quant {tag} {kind} {dt} keep="
                         f"{kk is not None} rows={bool(rr)}",
-                        pa_ops.paged_decode_quant(*args, window=w, keep=kk,
-                                                  **rr),
+                        lambda: pa_ops.paged_decode_quant(
+                            *args, window=w, keep=kk, **rr),
+                        lambda n: pa_k.paged_decode_quant_cuda(
+                            *args, window=w, splits=n,
+                            keep=None if kk is None else kk.to(torch.int32),
+                            **rr),
                         pa_ref.paged_decode_attention_quant(
-                            *args, window=w, keep=kk, **rr), QTOL)
+                            *args, window=w, keep=kk, **rr), QTOL,
+                        tables.shape[1] * bs, B, hkv)
                     if tag == "main" and dt == bf:
                         worst = max(worst, e)
                 if tag == "main" and kind == "int8" and dt == bf:
@@ -490,37 +568,58 @@ def phase_decode_kernels(torch, cfg):
     args, rows, keep, N = main
     q, kq, _, _, _, tables, cur = args
     T = tables.shape[1]
-    t_k = time_ms(torch, lambda i: pa_ops.paged_decode_quant(
-        *args, keep=keep, **rows), 1)
+    ikeep = keep.to(torch.int32)
+    t_k = time_ms(torch, lambda i: pa_k.paged_decode_quant_cuda(
+        *args, keep=ikeep, **rows), 1)
     t_p = time_ms(torch, lambda i: pa_ref.paged_decode_attention_quant(
         *args, keep=keep, **rows), 1)
-    n_rows = rows_read(torch, cur, bs, T, Hkv, keep)
-    blocks = float(keep.sum())
-    valid = float(pa_ref.valid_blocks(cur, T, bs).sum()) * Hkv
-    b_ms, by = bound(1 * 2 * n_rows * hd + 4 * 2 * blocks
+
+    def quant_bound(q, cur, T, keep, rows):
+        n_rows = rows_read(torch, cur, bs, T, Hkv, keep)
+        blocks = float(keep.sum()) if keep is not None else \
+            float(pa_ref.valid_blocks(cur, T, bs).sum()) * Hkv
+        extra = T * cur.numel() + cur.numel() \
+            + (keep.numel() if keep is not None else 0)
+        return bound(1 * 2 * n_rows * hd + 4 * 2 * blocks
                      + 2 * (2 * q.numel() + 2 * rows["k_row"].numel())
-                     + 4 * (tables.numel() + cur.numel() + keep.numel()),
-                     4 * Hq // Hkv * hd * n_rows, H100_BF16)
+                     + 4 * extra, 4 * G * hd * n_rows, H100_BF16), blocks
+
+    (b_ms, by), blocks = quant_bound(q, cur, T, keep, rows)
+    valid = float(pa_ref.valid_blocks(cur, T, bs).sum()) * Hkv
+    # long: an int8 pool read whole (no keep mask), with current rows
+    lsets = []
+    for _ in range(LONG_SETS):
+        lkq, lks = quantize_kv(keys((lN, bs, Hkv, hd), f32), "int8")
+        lvq, lvs = quantize_kv(rnd((lN, bs, Hkv, hd), f32), "int8")
+        lsets.append(((rnd((SLOTS, Hq, hd), bf), lkq, lvq, lks, lvs, ltables,
+                       lcur), dict(k_row=rnd((SLOTS, Hkv, hd), bf),
+                                   v_row=rnd((SLOTS, Hkv, hd), bf))))
+    lt_k = time_ms(torch, lambda i: pa_k.paged_decode_quant_cuda(
+        *lsets[i][0], **lsets[i][1]), LONG_SETS)
+    (lb_ms, _), _ = quant_bound(lsets[0][0][0], lcur, ltables.shape[1], None,
+                                lsets[0][1])
+    del lsets
     out["paged_decode_quant"] = dict(
         shape=f"one layer of an int8+sparse decode step: q ({SLOTS},{Hq},"
               f"{hd}) bf16, int8 pool of {N} blocks x {bs}, contexts "
               f"{cur.tolist()}, keep mask at {THRESHOLD} ({int(blocks)} of "
-              f"{int(valid)} (slot, head, block) kept), current rows",
+              f"{int(valid)} (slot, head, block) kept), current rows; long: "
+              f"int8, no keep mask, current rows, contexts {lcur.tolist()}",
         max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
-        bound_ms=b_ms, bound_by=by)
-    log(f"phase 1: paged_decode_quant matches at {len(cases)} shapes x "
-        f"int8/fp8 x 2 dtypes x 3 operand sets; kernel_ms {t_k:.4f} "
-        f"plain_ms {t_p:.4f} library_ms null bound_ms {b_ms:.5f} ({by})")
+        bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
+        splits=plan_of(tables), long_splits=plan_of(ltables))
+    log(f"phase 1: paged_decode_quant matches at {len(qcases)} shapes x "
+        f"int8/fp8 x 2 dtypes x 3 operand sets x (the wrapper + forced "
+        f"splits); kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms null "
+        f"bound_ms {b_ms:.5f} ({by}), splits {plan_of(tables)}; long "
+        f"kernel_ms {lt_k:.4f} bound_ms {lb_ms:.5f}")
 
-    # -- paged_decode_sparse: the sparse run's shapes with the model path's
-    # mask, a mask that drops about half the blocks, and one where only
-    # the current block survives in one slot; plus the ragged cases
+    # -- paged_decode_sparse: the model path's mask, a mask that drops
+    # about half the blocks, and one where only the current block survives
+    # in one slot
     worst = 0.0
-    for curs, w, hq, hkv, D, tag in cases:
-        B = len(curs)
-        tables, N = paged_tables(torch, curs, bs, dev)
-        T = tables.shape[1]
-        cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+
+    def masks(cur, T, B, hkv, w):
         valid = pa_ref.valid_blocks(cur, T, bs, w)[:, None, :].expand(
             -1, hkv, -1)
         current = (torch.arange(T, device=dev)[None, None, :]
@@ -529,6 +628,14 @@ def phase_decode_kernels(torch, cfg):
         half = (half & valid) | current
         only_cur = half.clone()
         only_cur[B - 1] = current[B - 1]
+        return half, only_cur
+
+    for curs, w, hq, hkv, D, tag, inactive in qcases:
+        B = len(curs)
+        tables, N = paged_tables(torch, curs, bs, dev, inactive)
+        T = tables.shape[1]
+        cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+        half, only_cur = masks(cur, T, B, hkv, w)
         for dt in (bf, f32):
             q = rnd((B, hq, D), dt)
             kp, vp = keys((N, bs, hkv, D), dt), rnd((N, bs, hkv, D), dt)
@@ -536,89 +643,141 @@ def phase_decode_kernels(torch, cfg):
                                            threshold=THRESHOLD, window=w)
             for mname, keep in (("model", model), ("half", half),
                                 ("only-current", only_cur)):
-                e = check_close(
-                    torch, f"paged_decode_sparse {tag} {mname} {dt}",
-                    pa_ops.paged_decode_sparse(q, kp, vp, tables, cur,
-                                               window=w, keep=keep),
-                    pa_ref.paged_decode_attention_sparse(
-                        q, kp, vp, tables, cur, window=w, keep=keep),
-                    TOL[str(dt).split(".")[1]])
+                e = held(f"paged_decode_sparse {tag} {mname} {dt}",
+                         lambda: pa_ops.paged_decode_sparse(
+                             q, kp, vp, tables, cur, window=w, keep=keep),
+                         lambda n: pa_k.paged_decode_sparse_cuda(
+                             q, kp, vp, tables, cur, keep.to(torch.int32),
+                             window=w, splits=n),
+                         pa_ref.paged_decode_attention_sparse(
+                             q, kp, vp, tables, cur, window=w, keep=keep),
+                         TOL[str(dt).split(".")[1]], T * bs, B, hkv)
                 if tag == "main" and dt == bf:
                     worst = max(worst, e)
             if tag == "main" and dt == bf:
                 main = (q, kp, vp, tables, cur, model, N)
     q, kp, vp, tables, cur, keep, N = main
     T = tables.shape[1]
-    t_k = time_ms(torch, lambda i: pa_ops.paged_decode_sparse(
-        q, kp, vp, tables, cur, keep=keep), 1)
+    ikeep = keep.to(torch.int32)
+    t_k = time_ms(torch, lambda i: pa_k.paged_decode_sparse_cuda(
+        q, kp, vp, tables, cur, ikeep), 1)
     t_p = time_ms(torch, lambda i: pa_ref.paged_decode_attention_sparse(
         q, kp, vp, tables, cur, keep=keep), 1)
     n_rows = rows_read(torch, cur, bs, T, Hkv, keep)
-    b_ms, by = bound(2 * 2 * n_rows * hd + 2 * 2 * q.numel()
-                     + 4 * (tables.numel() + cur.numel() + keep.numel()),
-                     4 * Hq // Hkv * hd * n_rows, H100_BF16)
+    b_ms, by = float_bound(q, cur, n_rows, tables.numel() + cur.numel()
+                           + keep.numel())
     dropped = rows_read(torch, cur, bs, T, Hkv) - n_rows
+    # long: about half the blocks kept
+    lhalf, _ = masks(lcur, ltables.shape[1], SLOTS, Hkv, 0)
+    sets = [(rnd((SLOTS, Hq, hd), bf), keys((lN, bs, Hkv, hd), bf),
+             rnd((lN, bs, Hkv, hd), bf)) for _ in range(LONG_SETS)]
+    ihalf = lhalf.to(torch.int32)
+    lt_k = time_ms(torch, lambda i: pa_k.paged_decode_sparse_cuda(
+        *sets[i], ltables, lcur, ihalf), LONG_SETS)
+    l_rows = rows_read(torch, lcur, bs, ltables.shape[1], Hkv, lhalf)
+    lb_ms, _ = float_bound(sets[0][0], lcur, l_rows, ltables.numel()
+                           + lcur.numel() + lhalf.numel())
+    del sets
     out["paged_decode_sparse"] = dict(
         shape=f"one layer of a sparse decode step: q ({SLOTS},{Hq},{hd}), "
               f"bf16 pool of {N} blocks x {bs}, contexts {cur.tolist()}, "
               f"keep mask at {THRESHOLD} ({int(n_rows)} rows read, "
-              f"{int(dropped)} dropped)",
+              f"{int(dropped)} dropped); long: about half the blocks kept "
+              f"({int(l_rows)} rows read), contexts {lcur.tolist()}",
         max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
-        bound_ms=b_ms, bound_by=by)
-    log(f"phase 1: paged_decode_sparse matches at {len(cases)} shapes x 3 "
-        f"masks x 2 dtypes; kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
-        f"library_ms null bound_ms {b_ms:.5f} ({by})")
+        bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
+        splits=plan_of(tables), long_splits=plan_of(ltables))
+    log(f"phase 1: paged_decode_sparse matches at {len(qcases)} shapes x 3 "
+        f"masks x 2 dtypes x (the wrapper + forced splits); kernel_ms "
+        f"{t_k:.4f} plain_ms {t_p:.4f} library_ms null bound_ms {b_ms:.5f} "
+        f"({by}), splits {plan_of(tables)}; long kernel_ms {lt_k:.4f} "
+        f"bound_ms {lb_ms:.5f}")
 
     # -- flash_decode: the dense run's slab (S = max_len), scalar and
-    # vector cur, a window, a ragged S
+    # vector cur, a window, a ragged S, the tile edge, a long slab
     S_main = LEVER_PROMPT + 4 * LEVER_GEN
+    S_long = DECODE_LONG + 64
     worst = 0.0
-    fcases = [(SLOTS, S_main, Hq, Hkv, hd, 0, "main"),
-              (3, 77, Hq, Hkv, hd, 16, "ragged S+window"),
-              (2, 30, 4, 2, 16, 0, "D=16")]
-    for B, S, hq, hkv, D, w, tag in fcases:
+    fcases = [(SLOTS, S_main, Hq, Hkv, hd, 0, "main", lever_curs),
+              (3, 77, Hq, Hkv, hd, 16, "ragged S+window", None),
+              (2, 30, 4, 2, 16, 0, "D=16", None),
+              (2, 30, 4, 2, 20, 0, "D=20", None),
+              (SLOTS, 40, Hq, Hkv, hd, 0, "contexts 1/31/32/33", EDGE_CURS),
+              (SLOTS, S_long, Hq, Hkv, hd, 0, f"contexts ~{DECODE_LONG}",
+               long_curs)]
+    for B, S, hq, hkv, D, w, tag, curs in fcases:
         for dt in (bf, f32):
             q = rnd((B, hq, D), dt)
             k, v = rnd((B, S, hkv, D), dt), rnd((B, S, hkv, D), dt)
             vec = torch.randint(0, S, (B,), generator=g, device=dev,
-                                dtype=torch.int32)
-            if tag == "main":
-                vec = torch.tensor(lever_curs, dtype=torch.int32, device=dev)
+                                dtype=torch.int32) if curs is None else \
+                torch.tensor(curs, dtype=torch.int32, device=dev)
             for cur in (torch.tensor(S // 2, dtype=torch.int32, device=dev),
                         vec):
-                e = check_close(
-                    torch, f"flash_decode {tag} cur{tuple(cur.shape)} {dt}",
-                    fd_ops.flash_decode(q, k, v, cur, window=w),
-                    fd_ref.decode_attention(q, k, v, cur, window=w),
-                    TOL[str(dt).split(".")[1]])
+                e = held(f"flash_decode {tag} cur{tuple(cur.shape)} {dt}",
+                         lambda: fd_ops.flash_decode(q, k, v, cur, window=w),
+                         lambda n: fd_k.flash_decode_cuda(
+                             q, k, v, cur, window=w, splits=n),
+                         fd_ref.decode_attention(q, k, v, cur, window=w),
+                         TOL[str(dt).split(".")[1]], S, B, hkv)
                 if tag == "main" and dt == bf:
                     worst = max(worst, e)
             if tag == "main" and dt == bf:
                 main = (q, k, v, vec)
     q, k, v, cur = main
-    G = Hq // Hkv
-    qt = q[:, :, None, :]                                   # SDPA layout
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-    mask = (torch.arange(S_main, device=dev)[None, :]
-            <= cur[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_k = time_ms(torch, lambda i: fd_ops.flash_decode(q, k, v, cur), 1)
+
+    def sdpa_operands(q, k, v, cur, S):
+        """SDPA's layout: K/V expanded to the query heads, a boolean mask
+        of the valid positions."""
+        return (q[:, :, None, :],
+                k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous(),
+                v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous(),
+                (torch.arange(S, device=dev)[None, :]
+                 <= cur[:, None])[:, None, None, :])
+
+    qt, kt, vt, mask = sdpa_operands(q, k, v, cur, S_main)
+    t_k = time_ms(torch, lambda i: fd_k.flash_decode_cuda(q, k, v, cur), 1)
     t_p = time_ms(torch, lambda i: fd_ref.decode_attention(q, k, v, cur), 1)
     t_l = time_ms(torch, lambda i: sdpa(qt, kt, vt, attn_mask=mask), 1)
-    n_rows = float((cur + 1).sum()) * Hkv
-    b_ms, by = bound(2 * 2 * n_rows * hd + 2 * 2 * q.numel()
-                     + 4 * cur.numel(), 4 * G * hd * n_rows, H100_BF16)
+    del qt, kt, vt
+
+    def fd_bound(q, cur):
+        return float_bound(q, cur, float((cur + 1).sum()) * Hkv, cur.numel())
+
+    b_ms, by = fd_bound(q, cur)
+    lcur = torch.tensor(long_curs, dtype=torch.int32, device=dev)
+    sets = [(rnd((SLOTS, Hq, hd), bf), rnd((SLOTS, S_long, Hkv, hd), bf),
+             rnd((SLOTS, S_long, Hkv, hd), bf)) for _ in range(LONG_SETS)]
+    lt_k = time_ms(torch, lambda i: fd_k.flash_decode_cuda(*sets[i], lcur),
+                   LONG_SETS)
+    lb_ms, _ = fd_bound(sets[0][0], lcur)
+    lsets = [sdpa_operands(*st, lcur, S_long) for st in sets]
+    del sets
+    lt_l = time_ms(torch, lambda i: sdpa(lsets[i][0], lsets[i][1],
+                                         lsets[i][2], attn_mask=lsets[i][3]),
+                   LONG_SETS)
+    del lsets
+
+    def fd_plan(S):
+        return decode_split.plan(SLOTS, Hkv, S, sms)
+
     out["flash_decode"] = dict(
         shape=f"one layer of a dense-slab decode step: q ({SLOTS},{Hq},{hd})"
               f", k/v ({SLOTS},{S_main},{Hkv},{hd}) bf16, cur "
-              f"{cur.tolist()}",
+              f"{cur.tolist()}; long: k/v ({SLOTS},{S_long},{Hkv},{hd}), cur "
+              f"{long_curs}",
         max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
-        bound_ms=b_ms, bound_by=by)
+        bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
+        long_library_ms=lt_l, splits=fd_plan(S_main),
+        long_splits=fd_plan(S_long))
     log(f"phase 1: flash_decode matches at {len(fcases)} shapes x scalar/"
-        f"vector cur x 2 dtypes; kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
-        f"library_ms {t_l:.4f} (SDPA with a boolean mask on K/V expanded to "
-        f"{Hq} heads) bound_ms {b_ms:.5f} ({by})")
+        f"vector cur x 2 dtypes x (the wrapper + forced splits); kernel_ms "
+        f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA with a "
+        f"boolean mask on K/V expanded to {Hq} heads) bound_ms {b_ms:.5f} "
+        f"({by}), splits {fd_plan(S_main)}; long kernel_ms {lt_k:.4f} "
+        f"library_ms {lt_l:.4f} bound_ms {lb_ms:.5f} splits "
+        f"{fd_plan(S_long)}")
     return out
 
 
@@ -1187,6 +1346,12 @@ def phase_cnn(torch, wrappers, card_params):
     return runs
 
 
+# --only NAME: the sources to build and the phase-1 function to run
+ONLY = {"flash_attention": (["flash_attention"], phase_flash_attention),
+        "decode_attention": (["paged_attention", "flash_decode"],
+                             phase_decode_kernels)}
+
+
 def ptxas_entries(text: str):
     """(kernel, registers, spill-store bytes) of each entry function in an
     ``-Xptxas=-v`` report."""
@@ -1201,9 +1366,9 @@ def ptxas_entries(text: str):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["flash_attention"],
-                    help="build this kernel alone and run its phase-1 checks "
-                         "and timings; prints no result line")
+    ap.add_argument("--only", choices=sorted(ONLY),
+                    help="build these kernels alone and run their phase-1 "
+                         "checks and timings; prints no result line")
     args = ap.parse_args()
     import torch
 
@@ -1233,7 +1398,8 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    report = _build.build([args.only] if args.only else _build.SOURCES)
+    report = _build.build(ONLY[args.only][0] if args.only
+                          else _build.SOURCES)
     log(f"phase 0: built {sorted(report)} in {time.perf_counter() - t0:.1f} s"
         f" ({_build.BUILD_DIR})")
     for name, r in report.items():
@@ -1243,15 +1409,16 @@ def main() -> None:
             f"-{max(regs, default=0)} registers, at most "
             f"{max((n for _, _, n in entries), default=0)} bytes of spill "
             "stores")
-        if name == "flash_attention":   # the tensor-core kernel, per instance
+        if args.only:                   # each kernel instance
             for fn, n_regs, spill in entries:
                 log(f"    {fn}: {n_regs} registers, {spill} bytes of spill "
                     "stores")
 
     cfg = get_config("qwen2-7b")
     if args.only:
-        phase_flash_attention(torch, cfg)
+        stats = ONLY[args.only][1](torch, cfg)
         log(smi)
+        print(json.dumps({"kernels": stats}), flush=True)
         log(f"chip_smoke: --only {args.only} passed (one kernel's phase 1, "
             "not a full run: no result line)")
         return
@@ -1306,8 +1473,9 @@ def main() -> None:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"], "shape": s["shape"],
-                        **{key: s[key] for key in ("long_ms", "long_library_ms",
-                                                   "long_bound_ms") if key in s},
+                        **{key: s[key] for key in (
+                            "long_ms", "long_library_ms", "long_bound_ms",
+                            "splits", "long_splits") if key in s},
                         **({"in_forward_ms": s["in_forward_ms"]}
                            if "in_forward_ms" in s else {})})
     log(smi)      # again here: long runs push the first lines out of a tail

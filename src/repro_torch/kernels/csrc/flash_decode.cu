@@ -8,19 +8,20 @@
 // row tiles of a (B * Hkv, S, D) transposed copy of the cache through VMEM
 // with the kv axis sequential; here the decode template of
 // decode_attention.cuh (design and bound there) reads the (B, S, Hkv, D)
-// cache in place, one CTA per (slot, kv head), and walks only positions up
-// to cur_pos[b] (and from the first the window reaches), so a partially
-// filled slab costs the bytes of its live rows, not of S.  S needs no tile
-// multiple.
+// cache in place, `splits` CTAs per (slot, kv head) each walking one slice
+// of the positions up to cur_pos[b] (and from the first the window
+// reaches), so a partially filled slab costs the bytes of its live rows,
+// not of S.  S needs no tile multiple.
 #include "decode_attention.cuh"
 
 // cur_stride: 1 for a (B,) cur_pos vector, 0 for one shared scalar.
-// window <= 0 means no window.  Limits: D <= 128, Hq % Hkv == 0,
+// window <= 0 means no window.  ws: the (splits, B, Hq, D + 2) f32
+// workspace, null iff splits == 1.  Limits: D <= 128, Hq % Hkv == 0,
 // Hq / Hkv <= 32.
 extern "C" int fd_launch(const void* q, const void* kc, const void* vc,
-                         const void* cur_pos, int cur_stride, void* o, int B,
-                         int Hq, int Hkv, int D, int S, int window, int dtype,
-                         void* stream) {
+                         const void* cur_pos, int cur_stride, void* o,
+                         void* ws, int B, int Hq, int Hkv, int D, int S,
+                         int window, int dtype, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S < 1 || (cur_stride != 0 && cur_stride != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -31,6 +32,9 @@ extern "C" int fd_launch(const void* q, const void* kc, const void* vc,
   a.cur = static_cast<const int*>(cur_pos);
   a.cur_stride = cur_stride;
   a.o = o;
+  a.ws = static_cast<float*>(ws);
+  a.splits = splits;
+  a.B = B;
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.D = D;

@@ -49,7 +49,8 @@ int quant_pages(const decode::Args& a, int B, int page_dtype, bool keep,
 
 decode::Args paged_args(const void* q, const void* kp, const void* vp,
                         const void* tables, const void* cur_pos, void* o,
-                        int Hq, int Hkv, int D, int bs, int T_, int window) {
+                        void* ws, int B, int Hq, int Hkv, int D, int bs,
+                        int T_, int window, int splits) {
   decode::Args a{};
   a.q = q;
   a.kp = kp;
@@ -58,6 +59,9 @@ decode::Args paged_args(const void* q, const void* kp, const void* vp,
   a.cur = static_cast<const int*>(cur_pos);
   a.cur_stride = 1;
   a.o = o;
+  a.ws = static_cast<float*>(ws);
+  a.splits = splits;
+  a.B = B;
   a.Hq = Hq;
   a.Hkv = Hkv;
   a.D = D;
@@ -70,16 +74,19 @@ decode::Args paged_args(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// window <= 0 means no window.  Limits (also checked by the wrappers):
-// D <= 128, Hq % Hkv == 0, Hq / Hkv <= 32.
+// window <= 0 means no window.  ws: the (splits, B, Hq, D + 2) f32
+// workspace of a split launch, null iff splits == 1.  Limits (also checked
+// by the wrappers): D <= 128, Hq % Hkv == 0, Hq / Hkv <= 32.
 extern "C" int pa_launch(const void* q, const void* kp, const void* vp,
                          const void* tables, const void* cur_pos, void* o,
-                         int B, int Hq, int Hkv, int D, int bs, int T_,
-                         int window, int dtype, void* stream) {
+                         void* ws, int B, int Hq, int Hkv, int D, int bs,
+                         int T_, int window, int dtype, int splits,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bs < 1 || T_ < 1) return static_cast<int>(cudaErrorInvalidValue);
   const decode::Args a =
-      paged_args(q, kp, vp, tables, cur_pos, o, Hq, Hkv, D, bs, T_, window);
+      paged_args(q, kp, vp, tables, cur_pos, o, ws, B, Hq, Hkv, D, bs, T_,
+                 window, splits);
   if (dtype == DT_F32) return float_pages<float, false>(a, B, s);
   if (dtype == DT_BF16) return float_pages<__nv_bfloat16, false>(a, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -88,14 +95,16 @@ extern "C" int pa_launch(const void* q, const void* kp, const void* vp,
 // keep: (B, Hkv, T) int32, nonzero = read the block.
 extern "C" int pa_sparse_launch(const void* q, const void* kp, const void* vp,
                                 const void* tables, const void* cur_pos,
-                                const void* keep, void* o, int B, int Hq,
-                                int Hkv, int D, int bs, int T_, int window,
-                                int dtype, void* stream) {
+                                const void* keep, void* o, void* ws, int B,
+                                int Hq, int Hkv, int D, int bs, int T_,
+                                int window, int dtype, int splits,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bs < 1 || T_ < 1 || keep == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   decode::Args a =
-      paged_args(q, kp, vp, tables, cur_pos, o, Hq, Hkv, D, bs, T_, window);
+      paged_args(q, kp, vp, tables, cur_pos, o, ws, B, Hq, Hkv, D, bs, T_,
+                 window, splits);
   a.keep = static_cast<const int*>(keep);
   if (dtype == DT_F32) return float_pages<float, true>(a, B, s);
   if (dtype == DT_BF16) return float_pages<__nv_bfloat16, true>(a, B, s);
@@ -108,14 +117,16 @@ extern "C" int pa_quant_launch(const void* q, const void* kp, const void* vp,
                                const void* k_scales, const void* v_scales,
                                const void* k_row, const void* v_row,
                                const void* tables, const void* cur_pos,
-                               const void* keep, void* o, int B, int Hq,
-                               int Hkv, int D, int bs, int T_, int window,
-                               int dtype, int page_dtype, void* stream) {
+                               const void* keep, void* o, void* ws, int B,
+                               int Hq, int Hkv, int D, int bs, int T_,
+                               int window, int dtype, int page_dtype,
+                               int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bs < 1 || T_ < 1 || (k_row == nullptr) != (v_row == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   decode::Args a =
-      paged_args(q, kp, vp, tables, cur_pos, o, Hq, Hkv, D, bs, T_, window);
+      paged_args(q, kp, vp, tables, cur_pos, o, ws, B, Hq, Hkv, D, bs, T_,
+                 window, splits);
   a.ks = static_cast<const float*>(k_scales);
   a.vs = static_cast<const float*>(v_scales);
   a.k_row = k_row;

@@ -3,7 +3,10 @@
 Replaces ``repro/kernels/flash_decode/flash_decode.py::flash_decode_pallas``.
 Reads the (B, S, Hkv, D) cache in place, any S; ``cur_pos`` is one int32
 scalar shared by every slot or a (B,) int32 vector.  Limits: D <= 128 and
-at most 32 query heads per kv head (one warp each).
+at most 32 query heads per kv head (one warp each).  Each launch splits
+every (slot, kv head)'s walk over ``splits`` CTAs (flash-decoding,
+``kernels/decode_split.py``): by default the plan for the slab's length S,
+from shapes alone; ``splits=`` forces a count.
 """
 from __future__ import annotations
 
@@ -11,18 +14,19 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, decode_split
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"fd_launch": [_P] * 4 + [_I] + [_P] + [_I] * 7 + [_P]}
+SIGNATURES = {"fd_launch": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 8 + [_P]}
 MAX_D = 128
 MAX_GROUP = 32
 
 
-def flash_decode_cuda(q, k_cache, v_cache, cur_pos, *,
-                      window: int = 0) -> torch.Tensor:
+def flash_decode_cuda(q, k_cache, v_cache, cur_pos, *, window: int = 0,
+                      splits=None) -> torch.Tensor:
     """q: (B, Hq, D); caches: (B, S, Hkv, D); cur_pos: () or (B,) int32;
-    all CUDA and contiguous.  Returns (B, Hq, D)."""
+    all CUDA and contiguous.  ``splits``: CTAs per (slot, kv head), default
+    the plan's.  Returns (B, Hq, D)."""
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"flash_decode: shapes {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -42,11 +46,14 @@ def flash_decode_cuda(q, k_cache, v_cache, cur_pos, *,
     if cur_pos.dtype != torch.int32:
         raise TypeError("flash_decode: cur_pos must be int32")
     _build.check_inputs("flash_decode", q, k_cache, v_cache, cur_pos)
+    n = decode_split.splits_for(q, Hkv, S, splits)
+    ws = decode_split.workspace(q, n)
     o = torch.empty_like(q)
     lib = _build.load("flash_decode", SIGNATURES)
     err = lib.fd_launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         cur_pos.data_ptr(), 1 if cur_pos.ndim else 0,
-                        o.data_ptr(), B, Hq, Hkv, D, S, int(window or 0),
-                        _build.dtype_code(q), _build.stream_of(q))
+                        o.data_ptr(), None if ws is None else ws.data_ptr(),
+                        B, Hq, Hkv, D, S, int(window or 0),
+                        _build.dtype_code(q), n, _build.stream_of(q))
     _build.check(lib, err, "fd_launch")
     return o

@@ -8,6 +8,12 @@ token's K/V row into its block first), ``paged_decode_sparse_pallas``
 ``paged_decode_quant_pallas`` (packed int8/fp8 pages with per-(block,
 kv-head) scales, an optional keep mask and optional current rows).
 Limits: D <= 128 and at most 32 query heads per kv head (one warp each).
+
+Each launch splits every (slot, kv head)'s walk over ``splits`` CTAs
+(flash-decoding, ``kernels/decode_split.py``): by default the plan for the
+table's span ``T * bs``, from shapes alone; ``splits=`` forces a count.
+With more than one split the wrapper allocates the kernel's f32 workspace
+and the launch adds the combine pass.
 """
 from __future__ import annotations
 
@@ -15,12 +21,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, decode_split
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"pa_launch": [_P] * 6 + [_I] * 8 + [_P],
-              "pa_sparse_launch": [_P] * 7 + [_I] * 8 + [_P],
-              "pa_quant_launch": [_P] * 11 + [_I] * 9 + [_P]}
+SIGNATURES = {"pa_launch": [_P] * 7 + [_I] * 9 + [_P],
+              "pa_sparse_launch": [_P] * 8 + [_I] * 9 + [_P],
+              "pa_quant_launch": [_P] * 12 + [_I] * 10 + [_P]}
 MAX_D = 128
 MAX_GROUP = 32
 
@@ -54,27 +60,40 @@ def _check_keep(what, keep, B, Hkv, T):
                          f"{tuple(keep.shape)} {keep.dtype}")
 
 
+def _split(q, Hkv, bs, T, splits):
+    """(splits, workspace pointer or None) of one launch."""
+    n = decode_split.splits_for(q, Hkv, T * bs, splits)
+    ws = decode_split.workspace(q, n)
+    return n, ws
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def paged_decode_cuda(q, k_pages, v_pages, tables, cur_pos, *,
-                      window: int = 0) -> torch.Tensor:
+                      window: int = 0, splits=None) -> torch.Tensor:
     """q: (B, Hq, D); pages: (N, bs, Hkv, D); tables: (B, T) int32;
-    cur_pos: (B,) int32; all CUDA and contiguous.  Returns (B, Hq, D)."""
+    cur_pos: (B,) int32; all CUDA and contiguous.  ``splits``: CTAs per
+    (slot, kv head), default the plan's.  Returns (B, Hq, D)."""
     B, Hq, Hkv, D, bs, T = _check("paged_decode", q, k_pages, v_pages,
                                   tables, cur_pos)
     if not q.dtype == k_pages.dtype == v_pages.dtype:
         raise TypeError("paged_decode: q and page dtypes differ")
     _build.check_inputs("paged_decode", q, k_pages, v_pages, tables, cur_pos)
+    n, ws = _split(q, Hkv, bs, T, splits)
     o = torch.empty_like(q)
     lib = _build.load("paged_attention", SIGNATURES)
     err = lib.pa_launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                         tables.data_ptr(), cur_pos.data_ptr(), o.data_ptr(),
-                        B, Hq, Hkv, D, bs, T, int(window or 0),
-                        _build.dtype_code(q), _build.stream_of(q))
+                        _ptr(ws), B, Hq, Hkv, D, bs, T, int(window or 0),
+                        _build.dtype_code(q), n, _build.stream_of(q))
     _build.check(lib, err, "pa_launch")
     return o
 
 
 def paged_decode_sparse_cuda(q, k_pages, v_pages, tables, cur_pos, keep, *,
-                             window: int = 0) -> torch.Tensor:
+                             window: int = 0, splits=None) -> torch.Tensor:
     """As ``paged_decode_cuda`` plus ``keep``: (B, Hkv, T) int32, nonzero =
     read the block.  Dropped blocks are not read."""
     B, Hq, Hkv, D, bs, T = _check("paged_decode_sparse", q, k_pages,
@@ -84,20 +103,22 @@ def paged_decode_sparse_cuda(q, k_pages, v_pages, tables, cur_pos, keep, *,
         raise TypeError("paged_decode_sparse: q and page dtypes differ")
     _build.check_inputs("paged_decode_sparse", q, k_pages, v_pages, tables,
                         cur_pos, keep)
+    n, ws = _split(q, Hkv, bs, T, splits)
     o = torch.empty_like(q)
     lib = _build.load("paged_attention", SIGNATURES)
     err = lib.pa_sparse_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), cur_pos.data_ptr(), keep.data_ptr(), o.data_ptr(),
-        B, Hq, Hkv, D, bs, T, int(window or 0), _build.dtype_code(q),
-        _build.stream_of(q))
+        _ptr(ws), B, Hq, Hkv, D, bs, T, int(window or 0),
+        _build.dtype_code(q), n, _build.stream_of(q))
     _build.check(lib, err, "pa_sparse_launch")
     return o
 
 
 def paged_decode_quant_cuda(q, k_pages, v_pages, k_scales, v_scales, tables,
                             cur_pos, *, window: int = 0, k_row=None,
-                            v_row=None, keep=None) -> torch.Tensor:
+                            v_row=None, keep=None,
+                            splits=None) -> torch.Tensor:
     """q: (B, Hq, D) f32/bf16; pages: (N, bs, Hkv, D) int8 or
     float8_e4m3fn; scales: (N, Hkv) f32; k_row/v_row: (B, Hkv, D) of q's
     dtype or None; keep: (B, Hkv, T) int32 or None.  Returns (B, Hq, D)."""
@@ -124,17 +145,14 @@ def paged_decode_quant_cuda(q, k_pages, v_pages, k_scales, v_scales, tables,
         operands.append(keep)
     _build.check_inputs(what, *operands)
     page = _build.page_code(k_pages)
+    n, ws = _split(q, Hkv, bs, T, splits)
     o = torch.empty_like(q)
     lib = _build.load("paged_attention", SIGNATURES)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = lib.pa_quant_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr(), v_scales.data_ptr(), ptr(k_row), ptr(v_row),
-        tables.data_ptr(), cur_pos.data_ptr(), ptr(keep), o.data_ptr(),
-        B, Hq, Hkv, D, bs, T, int(window or 0), _build.dtype_code(q), page,
-        _build.stream_of(q))
+        k_scales.data_ptr(), v_scales.data_ptr(), _ptr(k_row), _ptr(v_row),
+        tables.data_ptr(), cur_pos.data_ptr(), _ptr(keep), o.data_ptr(),
+        _ptr(ws), B, Hq, Hkv, D, bs, T, int(window or 0),
+        _build.dtype_code(q), page, n, _build.stream_of(q))
     _build.check(lib, err, "pa_quant_launch")
     return o
