@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 ``python3 chip_smoke.py --only flash_attention`` builds only
 ``flash_attention.cu`` and runs only phase 1's flash-attention checks and
 timings, then exits 0 without the result line: a quick check of that
-kernel, never to be taken for a full run.  ``--only decode_attention`` does
+kernel, never to be taken for a full run.  ``--only matmul`` does the same
+for ``matmul.cu``, and also times the tensor-core route at forced split
+counts.  ``--only decode_attention`` does
 the same for ``paged_attention.cu`` and ``flash_decode.cu`` (the four entry
 points of the decode template).
 
@@ -23,6 +25,13 @@ Phases (each raises on failure; nothing is caught):
    tolerance: both sides accumulate in f32, only in another order, with
    TF32 switched off explicitly), plus one ragged shape per kernel; packed
    int8/fp8 pages at 5e-2, the reference's quantization budget (QTOL).
+   The matmul is also held over its tensor-core tiles' edges (MM_EDGE_MS x
+   MM_EDGE_KN), at forced split counts on each route, with bf16 operands
+   off a 16-byte boundary (which must take the CUDA cores) and by two
+   launches of each bf16 route on the same inputs (bit for bit); it is
+   timed over a decode step's 197 calls and a prefill wave's 196, each
+   shape on its own weight buffers past the L2 (``prefill_ms`` and its
+   peers in the JSON), and at the CNNs' fp32 fc.
    flash attention is also held in bf16 over its tensor-core tiles' edges
    (every mix of G in FA_GROUPS, Sq = Skv in FA_LENGTHS, window in
    FA_WINDOWS, D in FA_DIMS) and at a 2048-token prompt, and timed there
@@ -60,7 +69,8 @@ Phases (each raises on failure; nothing is caught):
    then at a smaller load (1 partition, 4 requests, prompt 64) on the
    float pool, with ``--kv-dtype int8 --sparse-threshold T``, with
    ``--kv-dtype fp8``, with ``--sparse-threshold T --prefix-cache`` and
-   with ``--dense``.  Every request must complete,
+   with ``--dense``.  Every request must complete, every bf16 prefill
+   matmul must take the tensor-core route,
    every kernel's launch count must rise on the run that carries it (the
    counts are set to 0 just before each run and read just after), and the
    sparse runs must drop blocks.  The CNN slice: ``repro_torch.models.cnn
@@ -106,6 +116,14 @@ FA_LENGTHS = (1, 9, 10, 63, 65, 100)
 FA_WINDOWS = (0, 16, 100)
 FA_DIMS = (16, 64, 80, 128)
 FA_LONG = 2048               # a long prompt: operations-bound
+
+# the matmul's tensor-core tiles (16 / 64 / 128 rows, 128 columns, K steps
+# of 32 or 64 in a ring of 4): M on both sides of each row tile; K = 1000
+# ends inside a K step, K = 72 is shorter than the ring; N = 520 and 8 end
+# inside a column tile
+MM_EDGE_MS = (1, 4, 15, 16, 17, 63, 64, 65, 127, 128, 129, 200)
+MM_EDGE_KN = ((1000, 520), (72, 8))
+MM_SWEEP = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 20, 28)
 
 # the decode template's split walk: contexts 1, 31, 32, 33 around the first
 # 32-row tile edge, and contexts of about DECODE_LONG (bytes-bound), each
@@ -234,8 +252,21 @@ def rows_read(torch, cur, bs, T, Hkv, keep=None):
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(torch, cfg):
+def phase_matmul(torch, cfg, sweep=False):
+    """The matmul kernels against ``ref.matmul`` on the card: the main
+    path's shapes (M = slots at decode, slots x prompt in a prefill wave) in
+    bf16 and fp32; the edges of the tensor-core tiles (every M of MM_EDGE_MS
+    at K and N that are not whole K steps or column tiles, and K shorter
+    than the ring); forced split counts on every route; bf16 operands off a
+    16-byte boundary, which must take the CUDA cores; every bf16 route
+    twice on the same inputs, bit for bit.  Then the decode step's 197
+    calls and the prefill wave's 196, each shape timed on its own weight
+    buffers past the L2, beside ``torch.matmul`` and the bytes bound; at
+    M = 4 the two bf16 routes side by side; the CNNs' fp32 fc at M = 64.
+    ``sweep`` also times the tensor-core route at forced split counts."""
+    from repro_torch.kernels.matmul import matmul as mm_k
     from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import plan as mm_plan
     from repro_torch.kernels.matmul import ref as mm_ref
 
     dev = "cuda"
@@ -244,6 +275,12 @@ def phase_kernels(torch, cfg):
     def rnd(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
+    def operands(M, K, N, dt):
+        return rnd((M, K), dt), rnd((K, N), dt, 1 / math.sqrt(K))
+
+    def tol(dt):
+        return TOL[str(dt).split(".")[1]]
+
     d, hd, Hq, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     # (K, N, calls per decode step) of every projection and the LM head
     proj = [(d, Hq * hd, 2 * cfg.n_layers),          # wq, wo (square)
@@ -251,68 +288,173 @@ def phase_kernels(torch, cfg):
             (d, cfg.d_ff, 2 * cfg.n_layers),         # w1, w3
             (cfg.d_ff, d, cfg.n_layers),             # w2
             (d, cfg.vocab, 1)]                       # LM head
+    bf = torch.bfloat16
     out = {}
 
-    # -- matmul: correctness at decode (M = slots) and prefill (M = slots x
-    # prompt) widths, bf16 and fp32, plus a ragged shape
+    # -- correctness at the main path's widths, bf16 and fp32, plus ragged
+    # shapes that no 16-byte route can take
     worst = 0.0
     for M in (SLOTS, SLOTS * PROMPT):
         for K, N, _ in proj:
-            for dt in (torch.bfloat16, torch.float32):
-                a, b = rnd((M, K), dt), rnd((K, N), dt, 1 / math.sqrt(K))
+            for dt in (bf, torch.float32):
+                a, b = operands(M, K, N, dt)
                 e = check_close(torch, f"matmul {M}x{K}x{N} {dt}",
                                 mm_ops.matmul(a, b), mm_ref.matmul(a, b),
-                                TOL[str(dt).split(".")[1]])
-                if dt == torch.bfloat16:
+                                tol(dt))
+                if dt == bf:
                     worst = max(worst, e)
                 del a, b
     for M, K, N in ((37, 1000, 517), (5, 3583, 130), (129, 100, 70)):
-        for dt in (torch.bfloat16, torch.float32):
-            a, b = rnd((M, K), dt), rnd((K, N), dt, 1 / math.sqrt(K))
+        for dt in (bf, torch.float32):
+            a, b = operands(M, K, N, dt)
             check_close(torch, f"matmul ragged {M}x{K}x{N} {dt}",
-                        mm_ops.matmul(a, b), mm_ref.matmul(a, b),
-                        TOL[str(dt).split(".")[1]])
+                        mm_ops.matmul(a, b), mm_ref.matmul(a, b), tol(dt))
+    # the tensor-core tiles' edges: M around 16 / 64 / 128 rows, K past a
+    # whole K step and shorter than the ring, N past a 128-column tile
+    edge_worst = 0.0
+    for M in MM_EDGE_MS:
+        for K, N in MM_EDGE_KN:
+            for dt in (bf, torch.float32):
+                a, b = operands(M, K, N, dt)
+                e = check_close(torch, f"matmul edge {M}x{K}x{N} {dt}",
+                                mm_ops.matmul(a, b), mm_ref.matmul(a, b),
+                                tol(dt))
+                if dt == bf:
+                    edge_worst = max(edge_worst, e)
+    # forced splits on every route (the last one more than the K steps)
+    n_forced = 0
+    for route, M, K, N in (("mma", 4, d, Hkv * hd), ("mma", 64, 1000, 520),
+                           ("mma", 128, d, d), ("mma", 200, 1000, 520),
+                           ("skinny", 4, 1000, 520),
+                           ("tiled", 128, 1000, 520)):
+        for dt in ((bf,) if route == "mma" else (bf, torch.float32)):
+            a, b = operands(M, K, N, dt)
+            want = mm_ref.matmul(a, b)
+            for splits in (1, 2, 3, 7, 10_000):
+                p = mm_k.plan_for(a, b, route=route, splits=splits)
+                check_close(torch, f"matmul {route} {M}x{K}x{N} {dt} splits "
+                            f"{p.splits}", mm_k.launch(a, b, p), want,
+                            tol(dt))
+                n_forced += 1
+    # bf16 off a 16-byte boundary: the plan must send it to the CUDA cores
+    for M in (SLOTS, SLOTS * PROMPT):
+        K, N = d, Hkv * hd
+        flat = rnd((M * K + 1,), bf)
+        a, b = flat[1:].view(M, K), rnd((K, N), bf, 1 / math.sqrt(K))
+        before = dict(mm_ops.matmul.routes)
+        got = mm_ops.matmul(a, b)
+        took = [r for r in mm_plan.ROUTES
+                if mm_ops.matmul.routes[r] != before[r]]
+        if took != (["skinny"] if M <= mm_plan.SK_MAXM else ["tiled"]):
+            fail(f"matmul misaligned bf16 {M}x{K}x{N}: took route {took}")
+        check_close(torch, f"matmul misaligned bf16 {M}x{K}x{N}", got,
+                    mm_ref.matmul(a, b), tol(bf))
+    # every bf16 route twice on the same inputs: bit for bit
+    for route, M, K, N in (("mma", SLOTS, d, d), ("mma", 64, d, d),
+                           ("mma", SLOTS * PROMPT, d, d),
+                           ("mma", SLOTS * PROMPT, d, Hkv * hd),
+                           ("skinny", SLOTS, d, d),
+                           ("tiled", SLOTS * PROMPT, d, d)):
+        a, b = operands(M, K, N, bf)
+        p = mm_k.plan_for(a, b, route=route)
+        if not torch.equal(mm_k.launch(a, b, p), mm_k.launch(a, b, p)):
+            fail(f"matmul {route} {M}x{K}x{N} bf16 ({p}): two launches on "
+                 "the same inputs differ")
     log(f"phase 1: matmul matches its plain version at {2 * len(proj)} "
-        f"main-path shapes and 3 ragged ones (bf16 max abs err {worst:.3g})")
+        f"main-path shapes x 2 dtypes (bf16 max abs err {worst:.3g}), 3 "
+        f"ragged ones, {len(MM_EDGE_MS) * len(MM_EDGE_KN)} tile-edge shapes "
+        f"x 2 dtypes (bf16 {edge_worst:.3g}), {n_forced} forced splits, 2 "
+        "misaligned bf16 operands on the CUDA cores; each bf16 route is "
+        "bitwise repeatable")
 
-    # -- matmul timing: one decode step's projections + LM head (M = 4)
-    ms = plain = lib = bnd = 0.0
-    for K, N, calls in proj:
-        a = rnd((SLOTS, K), torch.bfloat16)
+    def b_buffers(K, N, dt):
+        """Distinct weight buffers, together past the 50 MB L2."""
         n_buf = max(1, min(16, int(256e6 // (K * N * 2)) + 1))
-        bs = [rnd((K, N), torch.bfloat16, 1 / math.sqrt(K))
-              for _ in range(n_buf)]
-        t_k = time_ms(torch, lambda i: mm_ops.matmul(a, bs[i]), n_buf)
-        t_p = time_ms(torch, lambda i: mm_ref.matmul(a, bs[i]), n_buf, 5)
-        t_l = time_ms(torch, lambda i: torch.matmul(a, bs[i]), n_buf)
-        b_ms, _ = bound(2 * (SLOTS * K + K * N + SLOTS * N),
-                        2 * SLOTS * K * N, H100_BF16)
-        log(f"  matmul bf16 {SLOTS}x{K}x{N} (x{calls}/step): kernel_ms "
-            f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} bound_ms "
-            f"{b_ms:.4f}")
-        ms += calls * t_k
-        plain += calls * t_p
-        lib += calls * t_l
-        bnd += calls * b_ms
-        del a, bs
-    for K, N, _ in proj[:-1]:   # a prefill wave's projections, for the record
-        a = rnd((SLOTS * PROMPT, K), torch.bfloat16)
-        b = rnd((K, N), torch.bfloat16, 1 / math.sqrt(K))
-        t_k = time_ms(torch, lambda i: mm_ops.matmul(a, b), 1, 5)
-        t_l = time_ms(torch, lambda i: torch.matmul(a, b), 1, 5)
-        b_ms, by = bound(2 * (SLOTS * PROMPT * (K + N) + K * N),
-                         2 * SLOTS * PROMPT * K * N, H100_BF16)
-        log(f"  matmul bf16 {SLOTS * PROMPT}x{K}x{N} (prefill): kernel_ms "
-            f"{t_k:.4f} library_ms {t_l:.4f} bound_ms {b_ms:.4f} ({by})")
-        del a, b
-    out["matmul"] = dict(
-        shape=f"one decode step: {7 * cfg.n_layers + 1} calls at M={SLOTS} "
-              f"(28 x q,k,v,o,w1,w3,w2 + LM head), bf16",
-        max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib,
-        bound_ms=bnd, bound_by="bytes")
-    log(f"  matmul decode step: kernel_ms {ms:.3f} plain_ms {plain:.3f} "
-        f"library_ms {lib:.3f} bound_ms {bnd:.3f}")
+        return [rnd((K, N), dt, 1 / math.sqrt(K)) for _ in range(n_buf)]
 
+    def timed(M, K, N, dt=bf, routes=()):
+        a, bs = rnd((M, K), dt), b_buffers(K, N, dt)
+        n = len(bs)
+        t_k = time_ms(torch, lambda i: mm_ops.matmul(a, bs[i]), n)
+        t_p = time_ms(torch, lambda i: mm_ref.matmul(a, bs[i]), n, 5)
+        t_l = time_ms(torch, lambda i: torch.matmul(a, bs[i]), n)
+        alt = {r: time_ms(torch, lambda i: mm_k.matmul_cuda(
+            a, bs[i], route=r), n) for r in routes}
+        peak = H100_BF16 if dt == bf else H100_FP32
+        b_ms, by = bound(a.element_size() * (M * K + K * N + M * N),
+                         2 * M * K * N, peak)
+        p = mm_k.plan_for(a, bs[0])
+        del a, bs
+        return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                    bound_by=by, plan=p, alt=alt)
+
+    def add(total, r, calls):
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            total[k] = total.get(k, 0.0) + calls * r[k]
+
+    # -- one decode step: 197 calls at M = slots; both bf16 routes
+    step = {}
+    for K, N, calls in proj:
+        r = timed(SLOTS, K, N, routes=("mma", "skinny"))
+        add(step, r, calls)
+        for k, v in r["alt"].items():
+            step[f"{k}_ms"] = step.get(f"{k}_ms", 0.0) + calls * v
+        log(f"  matmul bf16 {SLOTS}x{K}x{N} (x{calls}/step, {r['plan']}): "
+            f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f}"
+            f" ({r['bound_by']}); mma_ms {r['alt']['mma']:.4f} skinny_ms "
+            f"{r['alt']['skinny']:.4f}")
+    # -- one prefill wave: 196 calls at M = slots x prompt
+    wave = {}
+    for K, N, calls in proj[:-1]:
+        r = timed(SLOTS * PROMPT, K, N)
+        add(wave, r, calls)
+        log(f"  matmul bf16 {SLOTS * PROMPT}x{K}x{N} (x{calls}/wave, "
+            f"{r['plan']}): kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    n_step = sum(c for _, _, c in proj)
+    n_wave = sum(c for _, _, c in proj[:-1])
+    log(f"  matmul decode step ({n_step} calls at M={SLOTS}): kernel_ms "
+        f"{step['ms']:.3f} plain_ms {step['plain_ms']:.3f} library_ms "
+        f"{step['library_ms']:.3f} bound_ms {step['bound_ms']:.3f}; by "
+        f"route: mma {step['mma_ms']:.3f} skinny {step['skinny_ms']:.3f}")
+    log(f"  matmul prefill wave ({n_wave} calls at M={SLOTS * PROMPT}): "
+        f"kernel_ms {wave['ms']:.3f} plain_ms {wave['plain_ms']:.3f} "
+        f"library_ms {wave['library_ms']:.3f} bound_ms "
+        f"{wave['bound_ms']:.3f}")
+    # -- the CNNs' fc at the paper's batch, fp32 (ResNet-50's)
+    r = timed(CNN_BATCH, 2048, 1000, torch.float32)
+    log(f"  matmul fp32 {CNN_BATCH}x2048x1000 (ResNet-50 fc, {r['plan']}): "
+        f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+        f"{r['library_ms']:.4f} (TF32 off) bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']})")
+    if sweep:
+        for M in (SLOTS, SLOTS * PROMPT):
+            for K, N, _ in proj[:4] + ([proj[4]] if M == SLOTS else []):
+                a, bs = rnd((M, K), bf), b_buffers(K, N, bf)
+                plan = mm_k.plan_for(a, bs[0])
+                row = []
+                for splits in MM_SWEEP:
+                    p = mm_k.plan_for(a, bs[0], route="mma", splits=splits)
+                    if p.splits != splits:
+                        continue
+                    t = time_ms(torch, lambda i: mm_k.launch(a, bs[i], p),
+                                len(bs))
+                    row.append(f"{splits}: {t:.4f}")
+                log(f"  matmul sweep mma {M}x{K}x{N} (plan splits "
+                    f"{plan.splits}): ms by splits " + ", ".join(row))
+                del a, bs
+    out["matmul"] = dict(
+        shape=f"one decode step: {n_step} calls at M={SLOTS} (28 x q,k,v,o,"
+              f"w1,w3,w2 + LM head), bf16; prefill: one wave's {n_wave} "
+              f"calls at M={SLOTS * PROMPT}",
+        max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"],
+        library_ms=step["library_ms"], bound_ms=step["bound_ms"],
+        bound_by="bytes", prefill_ms=wave["ms"],
+        prefill_plain_ms=wave["plain_ms"],
+        prefill_library_ms=wave["library_ms"],
+        prefill_bound_ms=wave["bound_ms"])
     return out
 
 
@@ -1111,11 +1253,13 @@ def phase_cnn_card_vs_cpu(torch):
 def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
     """One serve CLI run with every count set to 0 just before it and read
     just after; every request must complete.  Returns the run's record."""
+    from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.launch import serve
 
     for w in wrappers.values():
         w.launches = 0
+    mm_ops.matmul.routes.update(dict.fromkeys(mm_ops.matmul.routes, 0))
     for w in (pa_ops.paged_decode_sparse, pa_ops.paged_decode_quant):
         w.dropped_blocks.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1125,6 +1269,7 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    routes = dict(mm_ops.matmul.routes)
     dropped = {k: w.dropped_blocks.value for k, w in
                (("paged_decode_sparse", pa_ops.paged_decode_sparse),
                 ("paged_decode_quant", pa_ops.paged_decode_quant))}
@@ -1138,8 +1283,10 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
         f"tokens in {wall:.2f} s wall ({tokens / wall:.2f} generated tokens "
         f"per wall second), max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
-        f"{launches}, dropped blocks {dropped}")
-    return dict(launches=launches, dropped=dropped, wall=wall, tokens=tokens)
+        f"{launches}, matmul launches by route {routes}, dropped blocks "
+        f"{dropped}")
+    return dict(launches=launches, routes=routes, dropped=dropped, wall=wall,
+                tokens=tokens)
 
 
 # the kernels each phase-3 run must launch (launch count above 0)
@@ -1168,6 +1315,11 @@ def phase_serve(torch, cfg, wrappers):
             if runs[name]["launches"][k] == 0:
                 fail(f"serve {name}: kernel {k} was never launched on the "
                      f"run that carries it")
+    # every prefill wave (M = slots x prompt > 16, bf16) on the tensor cores
+    for name, r in runs.items():
+        if r["routes"]["mma"] == 0 or r["routes"]["tiled"] != 0:
+            fail(f"serve {name}: matmul launches by route {r['routes']}: the "
+                 f"bf16 prefill matmuls did not all take mm_mma")
     for name, k in (("int8+sparse", "paged_decode_quant"),
                     ("sparse+prefix", "paged_decode_sparse")):
         if runs[name]["dropped"][k] == 0:
@@ -1347,7 +1499,9 @@ def phase_cnn(torch, wrappers, card_params):
 
 
 # --only NAME: the sources to build and the phase-1 function to run
-ONLY = {"flash_attention": (["flash_attention"], phase_flash_attention),
+ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
+            torch, cfg, sweep=True)),
+        "flash_attention": (["flash_attention"], phase_flash_attention),
         "decode_attention": (["paged_attention", "flash_decode"],
                              phase_decode_kernels)}
 
@@ -1422,7 +1576,7 @@ def main() -> None:
         log(f"chip_smoke: --only {args.only} passed (one kernel's phase 1, "
             "not a full run: no result line)")
         return
-    stats = phase_kernels(torch, cfg)
+    stats = phase_matmul(torch, cfg)
     stats.update(phase_flash_attention(torch, cfg))
     stats.update(phase_decode_kernels(torch, cfg))
     phase_card_vs_cpu(torch, cfg)
@@ -1475,7 +1629,12 @@ def main() -> None:
                         "library_ms": s["library_ms"], "shape": s["shape"],
                         **{key: s[key] for key in (
                             "long_ms", "long_library_ms", "long_bound_ms",
-                            "splits", "long_splits") if key in s},
+                            "splits", "long_splits", "prefill_ms",
+                            "prefill_plain_ms", "prefill_library_ms",
+                            "prefill_bound_ms") if key in s},
+                        **({"routes_by_run": {
+                            run: r["routes"] for run, r in runs.items()
+                            if "routes" in r}} if name == "matmul" else {}),
                         **({"in_forward_ms": s["in_forward_ms"]}
                            if "in_forward_ms" in s else {})})
     log(smi)      # again here: long runs push the first lines out of a tail

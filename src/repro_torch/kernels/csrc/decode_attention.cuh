@@ -202,20 +202,6 @@ __device__ __forceinline__ void store16(T* dst, const float* x) {
   }
 }
 
-// 16 bytes global -> shared, bypassing L1; full == false writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Byte offsets of the dynamic shared memory, the same on host and device.
 template <typename T, typename P, bool QUANT, bool KEEP, bool DENSE, bool VEC>
 struct Smem {
@@ -421,7 +407,7 @@ __global__ void __launch_bounds__(1024) kernel(Args a) {
   if (VEC && i_lo < i_hi) issue(i_lo, 0);
   int st = 0;
   for (int i0 = i_lo; i0 < i_hi; i0 += KT, st ^= 1) {
-    if (VEC) cp_async_wait_all();   // this thread's chunks of tile i0
+    if (VEC) cp_async_wait<0>();   // this thread's chunks of tile i0
     __syncthreads();                // ... everyone's; the last tile is consumed
     if (VEC && i0 + KT < i_hi) issue(i0 + KT, st ^ 1);
     const T* kt;                    // the tile's K and V rows, `ts` apart

@@ -5,37 +5,48 @@
 //
 // What bounds it on an H100: bytes.  On the serving path B is a weight
 // matrix and M is small: M = slots (4) at decode, slots x prompt (<= 128)
-// in a prefill wave.  2*M FLOPs per B element read stays far below the
-// ~295 FLOP/byte at which the card's bf16 tensor cores, not HBM, would be
-// the limit, so the weights must stream from HBM once per call, with
-// enough loads in flight on every SM to fill the memory pipe.
+// in a prefill wave.  2*M FLOPs per B element read stays below the ~295
+// FLOP/byte at which the card's bf16 tensor cores, not HBM, would be the
+// limit, so the weights must stream from HBM once per call, with enough
+// loads in flight on every SM to fill the memory pipe, and the products
+// must keep up with them: at M = 128 the CUDA cores' f32 FMAs cannot.
 //
-// What the design does about it:
-//  * M <= 16 (decode): mm_skinny.  A CTA owns a 256-column stripe of B for
-//    every row of A; each lane owns 8 columns and reads them as one or two
-//    16-byte vectors per row of B (scalar loads where N or the pointer is
-//    not 16-byte aligned), four rows ahead, so every element of B is read
-//    once, by one lane, in 512-byte warp rows.  The 4 warps split the CTA's
-//    K range and are summed through shared memory.
-//  * M > 16 (prefill): mm_tiled, a 128 x 64 output tile per CTA with a
-//    16-deep K step staged in shared memory, 8 x 4 outputs per thread.  The
-//    row tile of 128 covers a whole smoke-sized prefill wave, so B is read
-//    once there too.  The FMAs run on the CUDA cores in f32; the tensor
-//    cores (mma.sync / wgmma) and TMA staging are later work.
-//  * Split K: where N / stripe gives too few CTAs to keep ~4 per SM busy
-//    (every projection but the LM head), the K range is split over
-//    gridDim.z CTAs that write f32 partial sums to a workspace the caller
-//    allocates; mm_reduce adds the splits in a fixed order (deterministic)
-//    and rounds once to the output dtype.
-// Ragged edges (M, N, K not multiples of the tiles) are masked, never
-// asserted: loads past an edge read zero, stores past an edge are dropped.
+// The route, row tile and K split come from the wrapper's shapes-only plan
+// (kernels/matmul/plan.py), which this file checks and never overrides:
+//  * mma (bf16; N % 8 == K % 8 == 0, A and B 16-byte aligned): mm_mma<BM>,
+//    a BM x 128 output tile per CTA, BM in {16, 64, 128} covering M.  A
+//    and B tiles of 64 K rows go global -> shared by 16-byte cp.async.cg
+//    into a ring of 3 (BM = 128) or 4 stages (2-3 K steps in flight while
+//    one is consumed, two CTAs an SM; one barrier a K step), rows padded
+//    by 8 bf16 so ldmatrix hits no bank twice.  4 warps a CTA, each with a
+//    16 x 32, 32 x 64 or 64 x 64 tile: A fragments by ldmatrix.x4, B's
+//    (K, N) row-major tile by ldmatrix.x4.trans, mma.sync m16n8k16 bf16 x
+//    bf16 -> f32 in registers, rounded once to bf16 (nearest even).  Rows
+//    past M, columns past N and K rows past the split's end are zero-filled
+//    by cp.async's src-size operand; stores past an edge are dropped.
+//  * skinny (M <= 16 on the CUDA cores; f32, and bf16 the mma route cannot
+//    take): a CTA owns a 256-column stripe of B for every row of A; each
+//    lane owns 8 columns and reads them as one or two 16-byte vectors per
+//    row of B (scalar loads where N or the pointer is not 16-byte aligned),
+//    four rows ahead, so every element of B is read once, by one lane, in
+//    512-byte warp rows.  The 4 warps split the CTA's K range and are
+//    summed through shared memory.
+//  * tiled (M > 16 on the CUDA cores, f32 and misaligned bf16): a 128 x 64
+//    output tile per CTA with a 16-deep K step staged in shared memory as
+//    f32, 8 x 4 outputs per thread.  f32 stays off the tensor cores: TF32
+//    would break the reference's 2e-4 tolerance.
+//  * Split K (all routes): where the output tiles leave SMs idle, the K
+//    range is split over gridDim.z CTAs that write f32 partial sums to a
+//    workspace the caller allocates; mm_reduce adds the splits in a fixed
+//    order (bitwise deterministic) and rounds once to the output dtype.
+// A launch allocates nothing and synchronises nothing.  Ragged edges (M,
+// N, K not multiples of the tiles) are masked, never asserted.
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int CTAS_PER_SM = 4;        // split-K target occupancy
 
 // -- skinny (M <= 16) ---------------------------------------------------------
 constexpr int SK_WARPS = 4;
@@ -43,7 +54,6 @@ constexpr int SK_COLS = 8;            // columns per lane
 constexpr int SK_STRIPE = 32 * SK_COLS;   // 256 columns per CTA
 constexpr int SK_AHEAD = 4;           // rows of B in flight per lane
 constexpr int SK_MAXM = 16;
-constexpr int SK_MIN_ROWS = 64;       // fewest K rows a split may own
 
 // 8 consecutive elements of B at p (16-byte aligned), as floats
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
@@ -152,7 +162,6 @@ mm_skinny(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
 constexpr int TM = 128, TN = 64, TK = 16;   // CTA tile
 constexpr int TR = 8, TC = 4;               // outputs per thread (rows, cols)
 constexpr int T_THREADS = (TM / TR) * (TN / TC);  // 256
-constexpr int T_MIN_ROWS = 256;             // fewest K rows a split may own
 
 template <typename T>
 __global__ void __launch_bounds__(T_THREADS)
@@ -214,33 +223,185 @@ mm_tiled(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
   }
 }
 
+// -- tensor cores (bf16, 16-byte rows) ------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int MMA_BN = 128;          // columns per CTA
+
+// BM = 16 (decode), 64, 128 (prefill), each 4 warps: WM x WN warps of
+// MT x 16 rows by NT x 8 columns (16 x 32, 32 x 64, 64 x 64; the larger a
+// warp's tile, the fewer ldmatrix bytes a product); K steps of 64; a ring
+// of STAGES stages (STAGES - 1 K steps in flight), small enough that two
+// CTAs fit an SM's 227 KB
+template <int BM>
+struct MmaCfg {
+  static constexpr int WM = BM == 16 ? 1 : 2;        // warps along M
+  static constexpr int WN = 4 / WM;                  // warps along N
+  static constexpr int MT = BM / (16 * WM);          // m16 tiles a warp
+  static constexpr int NT = MMA_BN / (8 * WN);       // n8 tiles a warp
+  static constexpr int THREADS = WM * WN * 32;
+  static constexpr int BK = 64;                      // K rows a stage
+  static constexpr int STAGES = BM == 128 ? 3 : 4;
+  static constexpr int AS = BK + 8;                  // row strides (bf16),
+  static constexpr int BS = MMA_BN + 8;              // 16 B of padding
+  static constexpr int A_TILE = BM * AS;
+  static constexpr int B_TILE = BK * BS;
+  static constexpr size_t SMEM =
+      sizeof(bf16) * (size_t)STAGES * (A_TILE + B_TILE);
+  // a thread stages 16-byte chunks of one column, rows AR (A) / BR (B) apart
+  static constexpr int ACH = BK / 8, BCH = MMA_BN / 8;   // chunks a row
+  static constexpr int AR = THREADS / ACH, BR = THREADS / BCH;
+  static_assert(THREADS % ACH == 0 && BM % AR == 0, "A chunks");
+  static_assert(THREADS % BCH == 0 && BK % BR == 0, "B chunks");
+  static_assert(NT % 2 == 0 && MT >= 1, "warp tile");
+};
+
+// K rows [k0, k0 + BK) of the CTA's A rows and B columns into one stage;
+// every 16-byte chunk is wholly inside or wholly outside the problem (N,
+// K and the split's first row are multiples of 8): outside, zeros
+template <int BM>
+__device__ __forceinline__ void mma_stage(
+    const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* as,
+    bf16* bs, int M, int N, int K, int m0, int n0, int k0, int k_end,
+    int tid) {
+  using Cfg = MmaCfg<BM>;
+  const int ar = tid / Cfg::ACH, ac = (tid % Cfg::ACH) * 8;
+  const int br = tid / Cfg::BCH, bc = (tid % Cfg::BCH) * 8;
+  const bool a_in = k0 + ac < k_end, b_in = n0 + bc < N;
+#pragma unroll
+  for (int j = 0; j < BM / Cfg::AR; ++j) {
+    const int r = ar + j * Cfg::AR;
+    const bool ok = a_in && m0 + r < M;
+    cp_async16(as + r * Cfg::AS + ac,
+               ok ? A + (size_t)(m0 + r) * K + k0 + ac : A, ok);
+  }
+#pragma unroll
+  for (int j = 0; j < Cfg::BK / Cfg::BR; ++j) {
+    const int r = br + j * Cfg::BR;
+    const bool ok = b_in && k0 + r < k_end;
+    cp_async16(bs + r * Cfg::BS + bc,
+               ok ? B + (size_t)(k0 + r) * N + n0 + bc : B, ok);
+  }
+}
+
+// grid (N tiles, M tiles, splits); each split owns K rows [z * rows,
+// min(K, (z + 1) * rows)), rows a multiple of BK when splits > 1
+template <int BM>
+__global__ void __launch_bounds__(MmaCfg<BM>::THREADS)
+mm_mma(const bf16* __restrict__ A, const bf16* __restrict__ B,
+       bf16* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
+       int rows) {
+  using Cfg = MmaCfg<BM>;
+  constexpr int BK = Cfg::BK, AS = Cfg::AS, BS = Cfg::BS;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, STAGES = Cfg::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][BM][AS]
+  bf16* Bs = As + STAGES * Cfg::A_TILE;           // [STAGES][BK][BS]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Cfg::WN, wn = warp % Cfg::WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * MMA_BN;
+  const int k_begin = blockIdx.z * rows;
+  const int k_end = min(K, k_begin + rows);
+  const int steps = (k_end - k_begin + BK - 1) / BK;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < steps)   // K step t into stage t
+      mma_stage<BM>(A, B, As + t * Cfg::A_TILE, Bs + t * Cfg::B_TILE, M, N,
+                    K, m0, n0, k_begin + t * BK, k_end, tid);
+    cp_async_commit();              // empty groups keep the count aligned
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<STAGES - 2>();    // this thread's chunks of step t
+    __syncthreads();                // everyone's; step t - 1 is consumed
+    const int tn = t + STAGES - 1;  // into the stage step t - 1 used
+    if (tn < steps)
+      mma_stage<BM>(A, B, As + (tn % STAGES) * Cfg::A_TILE,
+                    Bs + (tn % STAGES) * Cfg::B_TILE, M, N, K, m0, n0,
+                    k_begin + tn * BK, k_end, tid);
+    cp_async_commit();
+    const bf16* as = As + (t % STAGES) * Cfg::A_TILE + wm * MT * 16 * AS;
+    const bf16* bs = Bs + (t % STAGES) * Cfg::B_TILE + wn * NT * 8;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[MT][4], bfr[NT / 2][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)   // rows i*16 + lane%16, k lo | hi
+        ldsm_x4(af[i], as + (i * 16 + (lane & 15)) * AS + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j)   // k lo | hi of columns 16j..+7, +8..+15
+        ldsm_x4_trans(bfr[j],
+                      bs + (kk + (lane & 15)) * BS + j * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_bf16(acc[i][j], af[i], bfr[j / 2][2 * (j & 1)],
+                   bfr[j / 2][2 * (j & 1) + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // thread holds rows g, g + 8 and columns 2 t4, 2 t4 + 1 of each 16 x 8 tile
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = n0 + (wn * NT + j) * 8 + 2 * t4;
+      if (col >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + (wm * MT + i) * 16 + g + 8 * h;
+        if (row >= M) continue;
+        const float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
+        if (gridDim.z == 1)
+          *reinterpret_cast<uint32_t*>(C + (size_t)row * N + col) =
+              pack_bf16(x, y);
+        else
+          *reinterpret_cast<float2*>(
+              ws + ((size_t)blockIdx.z * M + row) * N + col) = make_float2(x, y);
+      }
+    }
+  }
+}
+
 // -- split-K reduction --------------------------------------------------------
-template <typename T>
+// C[i] = sum over z in order of ws[z][i], rounded once; VEC: 4 elements a
+// thread by 16-byte loads (MN % 4 == 0), the same sums in the same order
+template <typename T, bool VEC>
 __global__ void mm_reduce(const float* __restrict__ ws, T* __restrict__ C,
                           int splits, size_t MN) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < MN;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += ws[z * MN + i];
-    C[i] = from_f<T>(s);
+  constexpr int V = VEC ? 4 : 1;
+  for (size_t i = (blockIdx.x * (size_t)blockDim.x + threadIdx.x) * V; i < MN;
+       i += (size_t)gridDim.x * blockDim.x * V) {
+    float s[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) s[v] = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      const float* p = ws + z * MN + i;
+      if constexpr (VEC) {
+        const float4 w = *reinterpret_cast<const float4*>(p);
+        s[0] += w.x;
+        s[1] += w.y;
+        s[2] += w.z;
+        s[3] += w.w;
+      } else {
+        s[0] += *p;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) C[i + v] = from_f<T>(s[v]);
   }
 }
 
 int ceil_div(long a, long b) { return (int)((a + b - 1) / b); }
-
-int splits_for(int M, int N, int K, int n_sm) {
-  long tiles;
-  int min_rows;
-  if (M <= SK_MAXM) {
-    tiles = ceil_div(N, SK_STRIPE);
-    min_rows = SK_MIN_ROWS;
-  } else {
-    tiles = (long)ceil_div(N, TN) * ceil_div(M, TM);
-    min_rows = T_MIN_ROWS;
-  }
-  const int want = ceil_div((long)CTAS_PER_SM * n_sm, tiles);
-  return std::max(1, std::min(want, K / min_rows));
-}
 
 template <typename T, int MT>
 void launch_skinny(const T* A, const T* B, T* C, float* ws, int M, int N,
@@ -254,57 +415,107 @@ void launch_skinny(const T* A, const T* B, T* C, float* ws, int M, int N,
     mm_skinny<T, MT, false><<<grid, SK_WARPS * 32, 0, s>>>(A, B, C, ws, M, N, K, rows);
 }
 
+template <int BM>
+cudaError_t launch_mma(const bf16* A, const bf16* B, bf16* C, float* ws, int M,
+                       int N, int K, int splits, int rows, cudaStream_t s) {
+  using Cfg = MmaCfg<BM>;
+  if (splits > 1 && rows % Cfg::BK != 0) return cudaErrorInvalidValue;
+  static bool smem_set = false;   // above 48 KB needs an opt-in, once
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mm_mma<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Cfg::SMEM);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  dim3 grid(ceil_div(N, MMA_BN), ceil_div(M, BM), splits);
+  mm_mma<BM><<<grid, Cfg::THREADS, Cfg::SMEM, s>>>(A, B, C, ws, M, N, K, rows);
+  return cudaSuccess;
+}
+
+enum { ROUTE_MMA = 0, ROUTE_SKINNY = 1, ROUTE_TILED = 2 };
+
 template <typename T>
-void launch(const void* a, const void* b, void* c, float* ws, int M, int N,
-            int K, int splits, cudaStream_t s) {
+cudaError_t launch(const void* a, const void* b, void* c, float* ws, int M,
+                   int N, int K, int route, int bm, int splits, int rows,
+                   cudaStream_t s) {
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
   T* C = static_cast<T*>(c);
-  const int rows = ceil_div(K, splits);
-  if (M <= 1)
-    launch_skinny<T, 1>(A, B, C, ws, M, N, K, splits, rows, s);
-  else if (M <= 2)
-    launch_skinny<T, 2>(A, B, C, ws, M, N, K, splits, rows, s);
-  else if (M <= 4)
-    launch_skinny<T, 4>(A, B, C, ws, M, N, K, splits, rows, s);
-  else if (M <= 8)
-    launch_skinny<T, 8>(A, B, C, ws, M, N, K, splits, rows, s);
-  else if (M <= SK_MAXM)
-    launch_skinny<T, SK_MAXM>(A, B, C, ws, M, N, K, splits, rows, s);
-  else {
+  if (route == ROUTE_MMA) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      const uintptr_t pa = reinterpret_cast<uintptr_t>(a),
+                      pb = reinterpret_cast<uintptr_t>(b);
+      if (N % 8 || K % 8 || pa % 16 || pb % 16) return cudaErrorInvalidValue;
+      cudaError_t e;
+      if (bm == 16 && M <= 16)
+        e = launch_mma<16>(A, B, C, ws, M, N, K, splits, rows, s);
+      else if (bm == 64 && M <= 64)
+        e = launch_mma<64>(A, B, C, ws, M, N, K, splits, rows, s);
+      else if (bm == 128)
+        e = launch_mma<128>(A, B, C, ws, M, N, K, splits, rows, s);
+      else
+        return cudaErrorInvalidValue;
+      if (e != cudaSuccess) return e;
+    } else {
+      return cudaErrorInvalidValue;   // f32 stays off the tensor cores
+    }
+  } else if (route == ROUTE_SKINNY) {
+    if (M <= 1)
+      launch_skinny<T, 1>(A, B, C, ws, M, N, K, splits, rows, s);
+    else if (M <= 2)
+      launch_skinny<T, 2>(A, B, C, ws, M, N, K, splits, rows, s);
+    else if (M <= 4)
+      launch_skinny<T, 4>(A, B, C, ws, M, N, K, splits, rows, s);
+    else if (M <= 8)
+      launch_skinny<T, 8>(A, B, C, ws, M, N, K, splits, rows, s);
+    else if (M <= SK_MAXM)
+      launch_skinny<T, SK_MAXM>(A, B, C, ws, M, N, K, splits, rows, s);
+    else
+      return cudaErrorInvalidValue;
+  } else if (route == ROUTE_TILED) {
     dim3 grid(ceil_div(N, TN), ceil_div(M, TM), splits);
     mm_tiled<T><<<grid, T_THREADS, 0, s>>>(A, B, C, ws, M, N, K, rows);
+  } else {
+    return cudaErrorInvalidValue;
   }
   if (splits > 1) {
     const size_t MN = (size_t)M * N;
-    const int blocks = (int)std::min<size_t>((MN + 255) / 256, (size_t)4096);
-    mm_reduce<T><<<blocks, 256, 0, s>>>(ws, C, splits, MN);
+    const bool vec = MN % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0;
+    const size_t per = vec ? 4 * 256 : 256;
+    const int blocks = (int)std::min<size_t>((MN + per - 1) / per, (size_t)4096);
+    if (vec)
+      mm_reduce<T, true><<<blocks, 256, 0, s>>>(ws, C, splits, MN);
+    else
+      mm_reduce<T, false><<<blocks, 256, 0, s>>>(ws, C, splits, MN);
   }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// K splits the launch will use for this shape on a card with n_sm SMs; the
-// caller allocates a (splits, M, N) f32 workspace when it is above 1.
-extern "C" int mm_splits(int M, int N, int K, int n_sm) {
-  return splits_for(M, N, K, n_sm);
-}
-
-// C = A @ B on `stream`; dtype is DT_F32 or DT_BF16 for all three matrices;
-// ws: (splits, M, N) f32 scratch, unused when splits == 1.
-extern "C" int mm_launch(const void* a, const void* b, void* c, void* ws,
-                         int M, int N, int K, int splits, int dtype,
-                         void* stream) {
+// C = A @ B on `stream` by the wrapper's plan (kernels/matmul/plan.py):
+// route 0 mma (bf16 only, bm 16 / 64 / 128), 1 skinny (M <= 16), 2 tiled;
+// K split into `splits` ranges of `rows` rows (the last may be shorter,
+// none empty); ws: (splits, M, N) f32 scratch, unused when splits == 1;
+// dtype DT_F32 or DT_BF16 for all three matrices.  A plan the kernels
+// cannot take returns cudaErrorInvalidValue and launches nothing.
+extern "C" int mm_run(const void* a, const void* b, void* c, void* ws, int M,
+                      int N, int K, int route, int bm, int splits, int rows,
+                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || N < 1 || K < 1 || splits < 1 || (splits > 1 && ws == nullptr))
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || rows < 1 ||
+      (long)rows * splits < K || (long)rows * (splits - 1) >= K ||
+      (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   float* w = static_cast<float*>(ws);
-  if (dtype == DT_F32) {
-    launch<float>(a, b, c, w, M, N, K, splits, s);
-  } else if (dtype == DT_BF16) {
-    launch<__nv_bfloat16>(a, b, c, w, M, N, K, splits, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = launch<float>(a, b, c, w, M, N, K, route, bm, splits, rows, s);
+  else if (dtype == DT_BF16)
+    e = launch<bf16>(a, b, c, w, M, N, K, route, bm, splits, rows, s);
+  else
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,22 +1,25 @@
-"""Launch of the CUDA matmul kernel (``kernels/csrc/matmul.cu``).
+"""Launch of the CUDA matmul kernels (``kernels/csrc/matmul.cu``).
 
 Replaces ``repro/kernels/matmul/matmul.py::matmul_pallas``.  Unlike the
 Pallas kernel it takes any M, K, N: ragged edges are masked in the kernel.
-Where the kernel splits K over several CTAs it needs an f32 workspace of
-(splits, M, N), allocated here.
+The route (tensor cores or CUDA cores), row tile and K split come from
+``plan.plan``, a function of the shapes, dtype and alignment alone; where
+the plan splits K, the f32 workspace of (splits, M, N) is allocated here.
 """
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
+from . import plan as mm_plan
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"mm_splits": [_I, _I, _I, _I],
-              "mm_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
+SIGNATURES = {"mm_run": [_P, _P, _P, _P] + [_I] * 8 + [_P]}
 
 
 @lru_cache(maxsize=None)
@@ -24,25 +27,44 @@ def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a: (M, K) @ b: (K, N) -> (M, N), both CUDA, contiguous, one dtype."""
+def plan_for(a: torch.Tensor, b: torch.Tensor, *, route: Optional[str] = None,
+             splits: Optional[int] = None) -> mm_plan.Plan:
+    """The launch plan of ``a @ b`` on a's card (``route`` / ``splits``
+    force a choice, as in ``plan.plan``)."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    M, K = a.shape
+    N = b.shape[1]
+    return mm_plan.plan(
+        M, N, K, bf16=a.dtype == torch.bfloat16,
+        is_aligned=mm_plan.aligned(N, K, a.data_ptr(), b.data_ptr()),
+        n_sm=_n_sm(a.device.index or 0), route=route, splits=splits)
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, p: mm_plan.Plan) -> torch.Tensor:
+    """a: (M, K) @ b: (K, N) -> (M, N) by plan ``p``; both CUDA,
+    contiguous, one dtype."""
     if a.dtype != b.dtype:
         raise TypeError(f"matmul: dtypes differ ({a.dtype}, {b.dtype})")
     _build.check_inputs("matmul", a, b)
     M, K = a.shape
     N = b.shape[1]
-    if min(M, K, N) == 0:
-        raise ValueError(f"matmul: empty operand {(M, K, N)}")
     code = _build.dtype_code(a)
     lib = _build.load("matmul", SIGNATURES)
-    splits = lib.mm_splits(M, N, K, _n_sm(a.device.index or 0))
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    ws = torch.empty((splits, M, N) if splits > 1 else (0,),
-                     dtype=torch.float32, device=a.device)
-    err = lib.mm_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                        ws.data_ptr() if splits > 1 else None, M, N, K,
-                        splits, code, _build.stream_of(a))
-    _build.check(lib, err, "mm_launch")
+    ws = torch.empty(mm_plan.workspace_shape(p, M, N), dtype=torch.float32,
+                     device=a.device)
+    err = lib.mm_run(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                     ws.data_ptr() if p.splits > 1 else None, M, N, K,
+                     mm_plan.ROUTE_CODES[p.route], p.bm, p.splits, p.rows,
+                     code, _build.stream_of(a))
+    _build.check(lib, err, f"mm_run ({p})")
     return c
+
+
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                route: Optional[str] = None,
+                splits: Optional[int] = None) -> torch.Tensor:
+    """a: (M, K) @ b: (K, N) -> (M, N), both CUDA, contiguous, one dtype,
+    by the plan for these operands (or the forced ``route`` / ``splits``)."""
+    return launch(a, b, plan_for(a, b, route=route, splits=splits))

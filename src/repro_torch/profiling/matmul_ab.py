@@ -1,0 +1,211 @@
+"""The matmul kernels against another version of their source, on one card,
+in turns.
+
+  PYTHONPATH=src python -m repro_torch.profiling.matmul_ab OTHER
+
+OTHER is the root of another checkout of this repository (an earlier
+commit unpacked with ``git archive``, say).  Its
+``src/repro_torch/kernels/csrc/matmul.cu`` (with the ``common.cuh`` beside
+it) is compiled with the same ``nvcc`` flags into ``build/kernels/ab/`` and
+called through its own C entry points: ``mm_run`` with OTHER's own plan
+(its ``kernels/matmul/plan.py``, loaded from its file) where OTHER has
+them, else the earlier ``mm_splits`` (OTHER's own split) and
+``mm_launch``.
+
+At qwen2-7b's widths, bf16: the five shapes of a decode step (M = 4 slots:
+wq / wo, wk / wv, w1 / w3, w2, the LM head) and the four of a prefill wave
+(M = 128, 4 slots x 32 prompt tokens), then the CNNs' fp32 fc at the
+paper's batch (64 x 2048 x 1000, ResNet-50's).  Each shape's timed
+launches cycle over distinct weight buffers, together past the 50 MB L2,
+as on the serving path where each layer's weights are read once a step.
+Both versions are held against the plain version (3e-2 bf16, 2e-4 fp32)
+and timed with CUDA events in the order other, this, this, other.  Prints
+one line per shape, the decode step's 197-call and the prefill wave's
+196-call totals, and one JSON line.  A card is required; without one it
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import importlib.util
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve
+from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import matmul as mm_k
+from repro_torch.kernels.matmul import ref as mm_ref
+
+SLOTS, PROMPT, CNN_BATCH = 4, 32, 64
+ITERS = 20
+L2_SPAN = 256e6              # bytes of weight buffers a shape cycles over
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _shapes():
+    """(tag, M, K, N, dtype, calls) of the cases, calls per decode step or
+    prefill wave (0: timed alone)."""
+    cfg = get_config("qwen2-7b")
+    d, L = cfg.d_model, cfg.n_layers
+    proj = [(d, cfg.n_heads * cfg.head_dim, 2 * L),
+            (d, cfg.n_kv_heads * cfg.head_dim, 2 * L),
+            (d, cfg.d_ff, 2 * L), (cfg.d_ff, d, L), (d, cfg.vocab, 1)]
+    out = [("decode", SLOTS, K, N, torch.bfloat16, c) for K, N, c in proj]
+    out += [("prefill", SLOTS * PROMPT, K, N, torch.bfloat16, c)
+            for K, N, c in proj[:-1]]
+    out.append(("cnn fc", CNN_BATCH, 2048, 1000, torch.float32, 0))
+    return out
+
+
+def _other_lib(root: Path):
+    """Compile OTHER's matmul.cu; returns (lib, OTHER's plan module or None
+    for the entry points before ``mm_run``)."""
+    src = root / "src" / "repro_torch" / "kernels" / "csrc" / "matmul.cu"
+    out_dir = _build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / "libmatmul-other.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for OTHER's matmul.cu:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    if "mm_run(" not in src.read_text():
+        lib.mm_splits.argtypes = [_I] * 4
+        lib.mm_splits.restype = ctypes.c_int
+        lib.mm_launch.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        lib.mm_launch.restype = ctypes.c_int
+        return lib, None
+    lib.mm_run.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+    lib.mm_run.restype = ctypes.c_int
+    spec = importlib.util.spec_from_file_location(
+        "other_matmul_plan",
+        root / "src" / "repro_torch" / "kernels" / "matmul" / "plan.py")
+    plan = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = plan       # dataclasses look their module up
+    spec.loader.exec_module(plan)
+    return lib, plan
+
+
+def _run_other(lib, plan, a, b):
+    M, K = a.shape
+    N = b.shape[1]
+    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    code = _build.dtype_code(a)
+    n_sm = torch.cuda.get_device_properties(a.device).multi_processor_count
+    if plan is not None:
+        p = plan.plan(M, N, K, bf16=a.dtype == torch.bfloat16,
+                      is_aligned=plan.aligned(N, K, a.data_ptr(),
+                                              b.data_ptr()), n_sm=n_sm)
+        ws = torch.empty(plan.workspace_shape(p, M, N),
+                         dtype=torch.float32, device=a.device)
+        err = lib.mm_run(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                         ws.data_ptr() if p.splits > 1 else None, M, N, K,
+                         plan.ROUTE_CODES[p.route], p.bm, p.splits,
+                         p.rows, code, _build.stream_of(a))
+    else:
+        splits = lib.mm_splits(M, N, K, n_sm)
+        ws = torch.empty((splits, M, N) if splits > 1 else (0,),
+                         dtype=torch.float32, device=a.device)
+        err = lib.mm_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                            ws.data_ptr() if splits > 1 else None, M, N, K,
+                            splits, code, _build.stream_of(a))
+    _build.check(lib, err, "other matmul")
+    return c
+
+
+def _time_ms(fn, n_sets) -> float:
+    """Mean device ms of ``fn(i)`` over ITERS launches cycling over the
+    weight buffers, queued behind a ~10 ms spin so that the events bracket
+    device work only."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    t0.record()
+    for i in range(ITERS):
+        fn(i % n_sets)
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / ITERS
+
+
+def main(argv=None) -> None:
+    args = sys.argv[1:] if argv is None else argv
+    if len(args) != 1:
+        raise SystemExit("usage: python -m repro_torch.profiling.matmul_ab "
+                         "OTHER_CHECKOUT_ROOT")
+    dev = resolve("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib, other_plan = _other_lib(Path(args[0]))
+    g = torch.Generator(device=dev).manual_seed(0)
+    results, totals = {}, {}
+    for tag, M, K, N, dt, calls in _shapes():
+        a = torch.randn((M, K), generator=g, device=dev).to(dt)
+        n_buf = max(1, min(16, int(L2_SPAN // (K * N * a.element_size()))
+                           + 1))
+        bs = [(torch.randn((K, N), generator=g, device=dev)
+               / math.sqrt(K)).to(dt) for _ in range(n_buf)]
+        tol = 3e-2 if dt == torch.bfloat16 else 2e-4
+        want = mm_ref.matmul(a, bs[0]).float()
+        errs = {}
+        for who, fn in (("other", lambda b: _run_other(lib, other_plan, a,
+                                                       b)),
+                        ("this", lambda b: mm_k.matmul_cuda(a, b))):
+            got = fn(bs[0]).float()
+            torch.cuda.synchronize()
+            errs[who] = float((got - want).abs().max())
+            if not torch.isfinite(got).all() or bool(
+                    ((got - want).abs() > tol + tol * want.abs()).any()):
+                raise SystemExit(f"{who} kernel disagrees with the plain "
+                                 f"version at {M}x{K}x{N} {dt} (max abs err "
+                                 f"{errs[who]:.3g})")
+
+        def run_other(i):
+            return _run_other(lib, other_plan, a, bs[i])
+
+        def run_this(i):
+            return mm_k.matmul_cuda(a, bs[i])
+
+        turns = [("other", _time_ms(run_other, n_buf)),
+                 ("this", _time_ms(run_this, n_buf)),
+                 ("this", _time_ms(run_this, n_buf)),
+                 ("other", _time_ms(run_other, n_buf))]
+        r = {who: [t for k, t in turns if k == who] for who in ("other",
+                                                              "this")}
+        r.update(max_abs_err=errs, calls=calls,
+                 plan=str(mm_k.plan_for(a, bs[0])))
+        name = f"{tag} {M}x{K}x{N} {str(dt).split('.')[1]}"
+        results[name] = r
+        for who in ("other", "this"):
+            key = (tag, who)
+            totals[key] = totals.get(key, 0.0) + calls * sum(r[who]) / 2
+        print(f"{name} ({r['plan']}): other ms {r['other'][0]:.4f} / "
+              f"{r['other'][1]:.4f}, this ms {r['this'][0]:.4f} / "
+              f"{r['this'][1]:.4f}", flush=True)
+        del a, bs
+    for tag in ("decode", "prefill"):
+        n = sum(c for t, *_, c in _shapes() if t == tag)
+        print(f"{tag} total ({n} calls): other ms "
+              f"{totals[(tag, 'other')]:.3f}, this ms "
+              f"{totals[(tag, 'this')]:.3f}", flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "other": str(args[0]),
+                      "other_has_mm_run": other_plan is not None,
+                      "cases": results,
+                      "totals": {f"{t} {w}": v for (t, w), v in
+                                 totals.items() if t != "cnn fc"}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
