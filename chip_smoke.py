@@ -12,7 +12,10 @@ kernel, never to be taken for a full run.  ``--only matmul`` does the same
 for ``matmul.cu``, and also times the tensor-core route at forced split
 counts.  ``--only decode_attention`` does
 the same for ``paged_attention.cu`` and ``flash_decode.cu`` (the four entry
-points of the decode template).
+points of the decode template).  ``--only conv2d`` does the same for
+``conv2d.cu``, with the conv shapes taken from shape-only batch-1 CPU
+forwards of the three CNNs (``profiling/conv2d_ab.conv_shapes``), and also
+times the tensor-core route at forced column tiles and split counts.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -45,10 +48,14 @@ Phases (each raises on failure; nothing is caught):
    Then each kernel's time beside its plain version's, one PyTorch library
    call's (a yardstick the port never calls) and its roofline bound.
    conv2d is held to its plain version at every distinct conv shape of
-   ResNet-50 at 224 (20), GoogLeNet's two 5x5 branch shapes and VGG-16's
-   first conv, bf16 (3e-2) and fp32 (2e-4), plus a ragged shape; it is
-   timed at ResNet-50's shapes at batch 64 beside the plain version and
-   ``F.conv2d`` (channels_last, TF32 off), cycling over input sets that
+   ResNet-50 at 224 (20), GoogLeNet's 5x5 branch shapes and VGG-16's
+   first conv, bf16 (3e-2) and fp32 (2e-4), plus a ragged shape; over the
+   tensor-core tiles' edges (CONV_EDGE_*); at forced splits and column
+   tiles on each route; with operands that must take the CUDA cores; and
+   by two launches of each tensor-core plan (bit for bit).  It is timed
+   at ResNet-50's shapes at batch 64 on the plan's route and on the CUDA
+   cores beside the plain version and ``F.conv2d`` (channels_last, TF32
+   off; TF32 on logged for information), cycling over input sets that
    overflow the L2.  These checks take their shapes from what phase 2's
    CPU forwards passed to the conv2d wrapper, so they run after it.
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
@@ -80,7 +87,8 @@ Phases (each raises on failure; nothing is caught):
    output's scale), one times the kernels inside the forward with CUDA
    events, then the timed forwards (device ms per forward, images/s, peak
    memory, the conv2d and matmul launches per forward, which must equal
-   the op tables' 53+1, 57+1, 13+3), and ``repro_torch.core.shaping_sim
+   the op tables' 53+1, 57+1, 13+3, with every conv but the C = 3 stem,
+   52 / 56 / 12, on the tensor cores), and ``repro_torch.core.shaping_sim
    .partition_sweep`` reproduces the paper's Fig. 5 sweep for each net on
    the host, held to the reference's own reproduction gates.
 
@@ -142,6 +150,17 @@ CNN_TOL = 1e-3               # relative to max|cpu logits|
 CNN_LAUNCHES = {"resnet50": (53, 1), "googlenet": (57, 1),
                 "vgg16": (13, 3)}     # (conv2d, matmul) per forward
 CNN_SWEEP = (2, 4, 8, 16)    # partitions of the Fig. 5 sweep
+# the conv2d tensor-core tiles (128 rows, 64 / 128 columns, depth steps of
+# 64 bf16 / 32 f32): 1-2 images of 9 / 12 / 13 rows put M = 81 to 338 on
+# both sides of a row tile; Cout 8, 72, 200 end inside a column tile; C = 8,
+# 16, 24 with 3x3 / 5x5 / 7x7 taps give R that are not whole steps
+CONV_EDGE_TAPS = (1, 3, 5, 7)
+CONV_EDGE_CS = (8, 16, 24, 64)
+CONV_EDGE_HS = (9, 12, 13)
+CONV_EDGE_KOUT = (8, 72, 200)
+CONV_SWEEP = (1, 2, 3, 4, 6, 8)
+# conv2d launches per forward on the tensor cores: all but the C = 3 stem
+CNN_CONV_MMA = {"resnet50": 52, "googlenet": 56, "vgg16": 12}
 SWEEP_BATCH = 64             # its total batch (benchmarks/common.py SIM_KW)
 
 SERVE_ARGS = ["--arch", "qwen2-7b", "--partitions", "2", "--stagger",
@@ -923,28 +942,55 @@ def phase_decode_kernels(torch, cfg):
     return out
 
 
-def phase_conv_kernel(torch, shapes):
-    """Phase 1 for conv2d, at the conv shapes phase 2's CPU forwards passed
+def phase_conv_kernel(torch, shapes, sweep=False):
+    """Phase 1 for conv2d, at the conv shapes the CNNs' CPU forwards passed
     to the wrapper (``shapes``: {net: {(H, Cin, Cout, k, stride): calls per
     forward}}): every distinct shape of ResNet-50 at 224, GoogLeNet's 5x5
     branch shapes and VGG-16's first conv, bf16 and fp32 at batch
-    ``CNN_CHECK_BATCH``, plus a ragged shape; then ResNet-50's shapes timed
-    at batch 64, each cycling over input sets that together overflow the
-    L2, as the forward reads each layer's weights once."""
+    ``CNN_CHECK_BATCH``, plus a ragged shape; the tensor-core tiles' edges
+    (CONV_EDGE_*: ragged M, Cout and R; C 8 / 16 / 24 / 64; strides 1 and
+    2; 1x1 to 7x7); forced splits and column tiles on each route; operands
+    that must take the CUDA cores (C = 3, bf16 C = 12, Cout = 70, x or w
+    off a 16-byte boundary); each tensor-core plan twice on the same
+    inputs, bit for bit.  Then ResNet-50's shapes timed at batch 64 on each
+    route beside the plain version and ``F.conv2d`` (TF32 off; TF32 on
+    logged for information only: another function), each cycling over
+    input sets that together overflow the L2, as the forward reads each
+    layer's weights once.  ``sweep`` also times the tensor-core route at
+    forced column tiles and split counts on the 28x28 to 7x7 stages."""
+    import itertools
+
     import torch.nn.functional as F
 
+    from repro_torch.kernels.conv2d import conv2d as cv_k
     from repro_torch.kernels.conv2d import ops as cv_ops
+    from repro_torch.kernels.conv2d import plan as cv_plan
     from repro_torch.kernels.conv2d import ref as cv_ref
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(5)
     bf, f32 = torch.bfloat16, torch.float32
+    name_of = {bf: "bfloat16", f32: "float32"}
 
     def operands(N, H, C, K, k, dt):
         x = torch.randn((N, H, H, C), generator=g, device=dev).to(dt)
         w = (torch.randn((k, k, C, K), generator=g, device=dev)
              * math.sqrt(2.0 / (k * k * C))).to(dt)
         return x, w
+
+    def want_of(x, w, st):
+        return cv_ref.conv2d(cv_ops.pad_same(x, w.shape[0], w.shape[1], st),
+                             w, stride=st)
+
+    def routed(tag, x, w, st, route, padding="SAME"):
+        """The wrapper's output; fails unless it took ``route``."""
+        before = dict(cv_ops.conv2d.routes)
+        got = cv_ops.conv2d(x, w, stride=st, padding=padding)
+        took = [r for r in cv_plan.ROUTES
+                if cv_ops.conv2d.routes[r] != before[r]]
+        if took != [route]:
+            fail(f"conv2d {tag}: took route {took}, expected {route}")
+        return got
 
     resnet = shapes["resnet50"]
     if len(resnet) != 20 or sum(resnet.values()) != 53:
@@ -959,11 +1005,11 @@ def phase_conv_kernel(torch, shapes):
     for N, H, C, K, k, st in cases:
         for dt in (bf, f32):
             x, w = operands(N, H, C, K, k, dt)
+            route = "mma" if cv_plan.aligned(C, K, bf16=dt == bf) \
+                else "cuda_core"
             e = check_close(torch, f"conv2d {(N, H, C, K, k, st)} {dt}",
-                            cv_ops.conv2d(x, w, stride=st),
-                            cv_ref.conv2d(cv_ops.pad_same(x, k, k, st), w,
-                                          stride=st),
-                            TOL[str(dt).split(".")[1]])
+                            routed((N, H, C, K, k, st), x, w, st, route),
+                            want_of(x, w, st), TOL[name_of[dt]])
             if (H, C, K, k, st) in resnet:
                 worst[dt] = max(worst[dt], e)
             del x, w
@@ -973,13 +1019,107 @@ def phase_conv_kernel(torch, shapes):
         f"err at ResNet-50's shapes: fp32 {worst[f32]:.3g}, bf16 "
         f"{worst[bf]:.3g})")
 
+    # the tensor-core tiles' edges: M around a 128-row tile, Cout around
+    # the 64 / 128 column tiles, R not whole 64 (bf16) / 32 (f32) steps
+    edges = [(1 + i % 2, CONV_EDGE_HS[i % 3], C, CONV_EDGE_KOUT[i // 2 % 3],
+              k, st) for i, (k, C, st) in enumerate(itertools.product(
+                  CONV_EDGE_TAPS, CONV_EDGE_CS, (1, 2)))]
+    edge_worst = {bf: 0.0, f32: 0.0}
+    for N, H, C, K, k, st in edges:
+        for dt in (bf, f32):
+            x, w = operands(N, H, C, K, k, dt)
+            e = check_close(torch, f"conv2d edge {(N, H, C, K, k, st)} {dt}",
+                            routed((N, H, C, K, k, st), x, w, st, "mma"),
+                            want_of(x, w, st), TOL[name_of[dt]])
+            edge_worst[dt] = max(edge_worst[dt], e)
+    # forced splits and column tiles on each route (the last split count
+    # more than the depth steps; the CUDA cores hold any count to 1)
+    n_forced = 0
+    for route, (N, H, C, K, k, st) in (
+            ("mma", (CNN_CHECK_BATCH, 7, 512, 512, 3, 1)),
+            ("mma", (3, 13, 24, 72, 5, 2)),
+            ("mma", (CNN_BATCH, 7, 512, 512, 3, 1)),
+            ("cuda_core", (CNN_CHECK_BATCH, 14, 256, 256, 3, 1))):
+        for dt in (bf, f32):
+            x, w = operands(N, H, C, K, k, dt)
+            xp = cv_ops.pad_same(x, k, k, st)
+            want = cv_ref.conv2d(xp, w, stride=st)
+            for splits, bn in itertools.product(
+                    (1, 2, 3, 7, 10_000),
+                    cv_plan.MMA_BNS if route == "mma" else (None,)):
+                p = cv_k.plan_for(xp, w, stride=st, route=route,
+                                  splits=splits, bn=bn)
+                if route == "cuda_core" and p.splits != 1:
+                    fail(f"conv2d cuda_core plan {p}: splits past 1")
+                check_close(torch, f"conv2d {route} {(N, H, C, K, k, st)} "
+                            f"{dt} {p}", cv_k.launch(xp, w, p, stride=st),
+                            want, TOL[name_of[dt]])
+                n_forced += 1
+            del x, w, xp, want
+    # operands the tensor cores cannot stage: the plan sends them to the
+    # CUDA cores (x or w off a 16-byte boundary: VALID, so no pad copy)
+    n_cc = 0
+    for N, H, C, K, k, st, dts in (
+            (CNN_CHECK_BATCH, 32, 3, 64, 7, 2, (bf, f32)),   # a stem
+            (CNN_CHECK_BATCH, 9, 12, 64, 3, 1, (bf,)),       # 12 % 8
+            (CNN_CHECK_BATCH, 9, 6, 64, 3, 1, (f32,)),       # 6 % 4
+            (CNN_CHECK_BATCH, 9, 64, 70, 3, 1, (bf, f32))):  # Cout % 8
+        for dt in dts:
+            x, w = operands(N, H, C, K, k, dt)
+            check_close(torch, f"conv2d misfit {(N, H, C, K, k, st)} {dt}",
+                        routed((N, H, C, K, k, st), x, w, st, "cuda_core"),
+                        want_of(x, w, st), TOL[name_of[dt]])
+            n_cc += 1
+    for dt in (bf, f32):
+        for off_x in (True, False):
+            x, w = operands(CNN_CHECK_BATCH, 9, 64, 64, 3, dt)
+            flat = torch.empty(x.numel() + 1 if off_x else w.numel() + 1,
+                               dtype=dt, device=dev)
+            if off_x:
+                x = flat[1:].view(x.shape).copy_(x)
+            else:
+                w = flat[1:].view(w.shape).copy_(w)
+            check_close(torch, f"conv2d misaligned {'x' if off_x else 'w'} "
+                        f"{dt}", routed("misaligned", x, w, 1, "cuda_core",
+                                        padding="VALID"),
+                        cv_ref.conv2d(x, w, stride=1), TOL[name_of[dt]])
+            n_cc += 1
+    # each tensor-core plan twice on the same inputs: bit for bit
+    n_bits = 0
+    for (N, H, C, K, k, st), splits, bn in (
+            ((CNN_BATCH, 7, 512, 512, 3, 1), None, None),   # split 2
+            ((CNN_CHECK_BATCH, 28, 128, 128, 3, 1), 1, 128),
+            ((CNN_CHECK_BATCH, 28, 128, 64, 3, 1), None, 64),
+            ((CNN_CHECK_BATCH, 28, 128, 64, 3, 1), 2, 128),
+            ((CNN_CHECK_BATCH, 14, 256, 256, 3, 1), 3, None),
+            ((3, 13, 24, 72, 5, 2), None, None)):
+        for dt in (bf, f32):
+            x, w = operands(N, H, C, K, k, dt)
+            xp = cv_ops.pad_same(x, k, k, st)
+            p = cv_k.plan_for(xp, w, stride=st, splits=splits, bn=bn)
+            if p.route != "mma" or not torch.equal(
+                    cv_k.launch(xp, w, p, stride=st),
+                    cv_k.launch(xp, w, p, stride=st)):
+                fail(f"conv2d {(N, H, C, K, k, st)} {dt} ({p}): two launches "
+                     "on the same inputs differ")
+            n_bits += 1
+            del x, w, xp
+    log(f"phase 1: conv2d matches its plain version at {len(edges)} tile-edge "
+        f"shapes x 2 dtypes on the tensor cores (max abs err fp32 "
+        f"{edge_worst[f32]:.3g}, bf16 {edge_worst[bf]:.3g}), {n_forced} "
+        f"forced plans, {n_cc} operands the plan sends to the CUDA cores; "
+        f"{n_bits} tensor-core plans are bitwise repeatable")
+
     # one ResNet-50 forward's convs at batch 64, each shape timed on the
-    # input the wrapper would pad: kernel (through the wrapper, VALID on the
-    # padded input), plain version, F.conv2d on channels_last tensors
-    tot = {dt: dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0) for dt in (f32, bf)}
+    # input the wrapper would pad: kernel on the plan's route (through the
+    # wrapper, VALID on the padded input) and on the CUDA cores, plain
+    # version, F.conv2d on channels_last tensors
+    keys = ("ms", "cuda_core", "plain", "lib", "lib_tf32", "bound",
+            "bound_cuda_core", "bound_bytes", "bound_operations")
+    tot = {dt: dict.fromkeys(keys, 0.0) for dt in (f32, bf)}
     for (H, C, K, k, st), calls in sorted(resnet.items()):
         line = []
-        for dt, peak in ((f32, H100_FP32), (bf, H100_BF16)):
+        for dt in (f32, bf):
             sets = []
             while len(sets) < 2 or (len(sets) < 4 and len(sets) * sum(
                     t.numel() * t.element_size() for t in sets[0][:2])
@@ -991,40 +1131,95 @@ def phase_conv_kernel(torch, shapes):
                                  memory_format=torch.channels_last)))
                 del x, w
             n = len(sets)
-            t_k = time_ms(torch, lambda i: cv_ops.conv2d(
-                sets[i][0], sets[i][1], stride=st, padding="VALID"), n, 2 * n)
-            t_p = time_ms(torch, lambda i: cv_ref.conv2d(
+            p = cv_k.plan_for(sets[0][0], sets[0][1], stride=st)
+            t = dict(ms=time_ms(torch, lambda i: cv_ops.conv2d(
+                sets[i][0], sets[i][1], stride=st, padding="VALID"), n, 2 * n))
+            pc = cv_k.plan_for(sets[0][0], sets[0][1], stride=st,
+                               route="cuda_core")
+            t["cuda_core"] = time_ms(torch, lambda i: cv_k.launch(
+                sets[i][0], sets[i][1], pc, stride=st), n, 2 * n)
+            t["plain"] = time_ms(torch, lambda i: cv_ref.conv2d(
                 sets[i][0], sets[i][1], stride=st), n, n)
-            t_l = time_ms(torch, lambda i: F.conv2d(
+            t["lib"] = time_ms(torch, lambda i: F.conv2d(
                 sets[i][2], sets[i][3], stride=st), n, 2 * n)
+            if dt == f32:   # cuDNN's default for f32: not the same function
+                torch.backends.cudnn.allow_tf32 = True
+                t["lib_tf32"] = time_ms(torch, lambda i: F.conv2d(
+                    sets[i][2], sets[i][3], stride=st), n, 2 * n)
+                torch.backends.cudnn.allow_tf32 = False
             xp, w = sets[0][:2]
-            Ho = (xp.shape[1] - k) // st + 1
-            M = CNN_BATCH * Ho * Ho
-            b_ms, by = bound(xp.element_size() * (xp.numel() + w.numel()
-                                                  + M * K),
-                             2.0 * M * K * k * k * C, peak)
-            for key, v in (("ms", t_k), ("plain", t_p), ("lib", t_l),
-                           ("bound", b_ms)):
+            M, _, R, _, _ = cv_plan.gemm_dims(xp.shape, w.shape, st)
+            byts = xp.element_size() * (xp.numel() + w.numel() + M * K)
+            flops = 2.0 * M * K * R
+            # the bound is the dtype's, whatever the route: bf16 at the
+            # tensor cores' rate, f32 as their three bf16 passes; each
+            # route's own bound is kept for information
+            passes = 3 if dt == f32 else 1
+            t["bound"], by = bound(byts, passes * flops, H100_BF16)
+            t["bound_cuda_core"], _ = bound(byts, flops, H100_FP32)
+            t[f"bound_{by}"] = t["bound"]
+            for key, v in t.items():
                 tot[dt][key] += calls * v
-            line.append(f"{str(dt).split('.')[1]} kernel_ms {t_k:.4f} "
-                        f"plain_ms {t_p:.4f} library_ms {t_l:.4f} bound_ms "
-                        f"{b_ms:.4f} ({by}; {n} input sets)")
+            line.append(f"{name_of[dt]} ({p.route}, bn {p.bn}, splits "
+                        f"{p.splits}) kernel_ms {t['ms']:.4f} cuda_core_ms "
+                        f"{t['cuda_core']:.4f} plain_ms {t['plain']:.4f} "
+                        f"library_ms {t['lib']:.4f}" + (
+                            f" (TF32 on {t['lib_tf32']:.4f})" if dt == f32
+                            else "") + f" bound_ms {t['bound']:.4f} ({by}) "
+                        f"({n} input sets)")
             del sets, xp, w
         log(f"  conv2d {CNN_BATCH}x{H}x{H}x{C} -> {K} k{k} s{st} (x{calls}"
             f"/forward): " + "; ".join(line))
     for dt in (f32, bf):
         t = tot[dt]
         log(f"  conv2d one ResNet-50 forward's 53 convs, batch {CNN_BATCH}, "
-            f"{str(dt).split('.')[1]}: kernel_ms {t['ms']:.3f} plain_ms "
-            f"{t['plain']:.3f} library_ms {t['lib']:.3f} bound_ms "
-            f"{t['bound']:.3f}")
-    t = tot[f32]
+            f"{name_of[dt]}: kernel_ms {t['ms']:.3f} (plan's routes) "
+            f"cuda_core_ms {t['cuda_core']:.3f} plain_ms {t['plain']:.3f} "
+            f"library_ms {t['lib']:.3f}" + (
+                f" (TF32 on, for information: {t['lib_tf32']:.3f})"
+                if dt == f32 else "") + f" bound_ms {t['bound']:.3f} (the "
+            f"dtype's on the tensor cores, {t['bound_operations']:.3f} of it "
+            f"operations-bound; cuda_core route {t['bound_cuda_core']:.3f})")
+    if sweep:
+        for (H, C, K, k, st), _ in sorted(resnet.items()):
+            if H > 28 or st != 1:
+                continue
+            for dt in (f32, bf):
+                x, w = operands(CNN_BATCH, H, C, K, k, dt)
+                xp = cv_ops.pad_same(x, k, k, st)
+                plan = cv_k.plan_for(xp, w, stride=st)
+                row = []
+                for bn, splits in itertools.product(cv_plan.MMA_BNS,
+                                                    CONV_SWEEP):
+                    p = cv_k.plan_for(xp, w, stride=st, bn=bn, splits=splits)
+                    if p.splits != splits:
+                        continue
+                    ms = time_ms(torch, lambda i: cv_k.launch(
+                        xp, w, p, stride=st), 1)
+                    row.append(f"{p.bm}x{bn} x{splits}: {ms:.4f}")
+                log(f"  conv2d sweep {CNN_BATCH}x{H}x{H}x{C} -> {K} k{k} "
+                    f"{name_of[dt]} (plan {plan.bm}x{plan.bn} splits "
+                    f"{plan.splits}): ms " + ", ".join(row))
+                del x, w, xp
+    t, tb = tot[f32], tot[bf]
     return {"conv2d": dict(
         shape=f"one ResNet-50 forward at 224, batch {CNN_BATCH}, fp32: 53 "
-              f"calls at 20 distinct shapes, each timed alone (library: "
-              f"F.conv2d, channels_last, TF32 off)",
+              f"calls at 20 distinct shapes, each timed alone on the plan's "
+              f"route (library: F.conv2d, channels_last, TF32 off)",
         max_abs_err=worst[f32], ms=t["ms"], plain_ms=t["plain"],
-        library_ms=t["lib"], bound_ms=t["bound"], bound_by="operations")}
+        library_ms=t["lib"], bound_ms=t["bound"],
+        bound_by=max(("bytes", "operations"), key=lambda b: t[f"bound_{b}"]),
+        route_ms={"cuda_core": t["cuda_core"]},
+        route_bound_ms={"mma": t["bound"],
+                        "cuda_core": t["bound_cuda_core"]},
+        library_tf32_ms=t["lib_tf32"], bf16_ms=tb["ms"],
+        bf16_plain_ms=tb["plain"], bf16_library_ms=tb["lib"],
+        bf16_bound_ms=tb["bound"],
+        bf16_bound_by=max(("bytes", "operations"),
+                          key=lambda b: tb[f"bound_{b}"]),
+        bf16_route_ms={"cuda_core": tb["cuda_core"]},
+        bf16_route_bound_ms={"mma": tb["bound"],
+                             "cuda_core": tb["bound_cuda_core"]})}
 
 
 # ---------------------------------------------------------------------------
@@ -1202,6 +1397,7 @@ def phase_cnn_card_vs_cpu(torch):
     from collections import Counter
 
     from repro_torch.models import cnn
+    from repro_torch.profiling.conv2d_ab import recording_conv
 
     card, shapes = {}, {}
     real_conv = cnn.conv2d
@@ -1213,12 +1409,7 @@ def phase_cnn_card_vs_cpu(torch):
                         generator=torch.Generator().manual_seed(20 + i))
         got = cnn.apply_cnn(params["cuda"], name, x.to("cuda")).cpu()
         calls = shapes[name] = Counter()
-
-        def recording(x, w, *, stride=1, padding="SAME"):
-            calls[(x.shape[1], w.shape[2], w.shape[3], w.shape[0],
-                   stride)] += 1
-            return real_conv(x, w, stride=stride, padding=padding)
-        cnn.conv2d = recording
+        cnn.conv2d = recording_conv(calls, real_conv)
         try:
             want = cnn.apply_cnn(params["cpu"], name, x)
         finally:
@@ -1366,8 +1557,7 @@ def phase_cnn(torch, wrappers, card_params):
     from repro_torch.kernels.matmul import ref as mm_ref
     from repro_torch.models import cnn
 
-    real_conv, real_mm, real_launch = cnn.conv2d, cnn.matmul, \
-        cv_ops.conv2d_cuda
+    real_conv, real_mm, real_launch = cnn.conv2d, cnn.matmul, cv_ops.launch
     tol = TOL["float32"]
     runs = {}
     for i, name in enumerate(CNN_NETS):
@@ -1419,7 +1609,7 @@ def phase_cnn(torch, wrappers, card_params):
                  f"expected {CNN_LAUNCHES[name]}")
         torch.cuda.synchronize()
         torch.cuda._sleep(50_000_000)   # the host queues ahead of the card
-        cv_ops.conv2d_cuda = timed(real_launch, "conv2d")
+        cv_ops.launch = timed(real_launch, "conv2d")
         cnn.matmul = timed(real_mm, "matmul")
         try:
             t0 = torch.cuda.Event(enable_timing=True)
@@ -1428,7 +1618,7 @@ def phase_cnn(torch, wrappers, card_params):
             cnn.apply_cnn(params, name, x)
             t1.record()
         finally:
-            cv_ops.conv2d_cuda, cnn.matmul = real_launch, real_mm
+            cv_ops.launch, cnn.matmul = real_launch, real_mm
         t1.synchronize()
         fwd_ms = t0.elapsed_time(t1)
         in_fwd = {k: sum(a.elapsed_time(b) for a, b in ev)
@@ -1438,6 +1628,7 @@ def phase_cnn(torch, wrappers, card_params):
         torch.cuda.reset_peak_memory_stats()
         for w in wrappers.values():
             w.launches = 0
+        cv_ops.conv2d.routes.update(dict.fromkeys(cv_ops.conv2d.routes, 0))
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -1446,6 +1637,7 @@ def phase_cnn(torch, wrappers, card_params):
         t1.record()
         t1.synchronize()
         launches = {k: w.launches for k, w in wrappers.items()}
+        routes = dict(cv_ops.conv2d.routes)
         ms = t0.elapsed_time(t1) / CNN_REPS
         peak = torch.cuda.max_memory_allocated() / 1e9
         if out.shape != (CNN_BATCH, 1000) or not torch.isfinite(out).all():
@@ -1455,6 +1647,13 @@ def phase_cnn(torch, wrappers, card_params):
         if launches["conv2d"] == 0 or per != CNN_LAUNCHES[name]:
             fail(f"cnn {name}: (conv2d, matmul) launches per forward {per}, "
                  f"expected {CNN_LAUNCHES[name]}")
+        # every conv but the C = 3 stem on the tensor cores, by plan
+        want = {"mma": CNN_CONV_MMA[name] * CNN_REPS,
+                "cuda_core": (CNN_LAUNCHES[name][0] - CNN_CONV_MMA[name])
+                * CNN_REPS}
+        if routes != want:
+            fail(f"cnn {name}: conv2d launches by route {routes} in "
+                 f"{CNN_REPS} forwards, expected {want}")
         for k, wk in worst.items():
             log(f"phase 3 [cnn {name}]: all {wk['calls']} {k} calls of a "
                 f"batch-{CNN_BATCH} forward match their plain version on "
@@ -1464,11 +1663,13 @@ def phase_cnn(torch, wrappers, card_params):
         log(f"phase 3 [cnn {name}]: batch {CNN_BATCH} at 224, fp32: "
             f"{ms:.3f} device ms per forward ({CNN_BATCH / ms * 1e3:.1f} "
             f"images/s), max_memory_allocated {peak:.2f} GB, launches per "
-            f"forward conv2d {per[0]:g} matmul {per[1]:g}; inside one "
+            f"forward conv2d {per[0]:g} (by route, {CNN_REPS} forwards: "
+            f"{routes}) matmul {per[1]:g}; inside one "
             f"event-bracketed forward ({fwd_ms:.3f} ms) the conv2d kernels "
             f"take {in_fwd['conv2d']:.3f} ms and the matmuls "
             f"{in_fwd['matmul']:.3f} ms")
-        runs[f"cnn {name}"] = dict(launches=launches, ms=ms, peak_gb=peak,
+        runs[f"cnn {name}"] = dict(launches=launches, conv_routes=routes,
+                                   ms=ms, peak_gb=peak,
                                    conv_ms=in_fwd["conv2d"],
                                    matmul_ms=in_fwd["matmul"])
         del params, x, out
@@ -1503,7 +1704,17 @@ ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
             torch, cfg, sweep=True)),
         "flash_attention": (["flash_attention"], phase_flash_attention),
         "decode_attention": (["paged_attention", "flash_decode"],
-                             phase_decode_kernels)}
+                             phase_decode_kernels),
+        "conv2d": (["conv2d"], lambda torch, cfg: phase_conv_kernel(
+            torch, cnn_conv_shapes(), sweep=True))}
+
+
+def cnn_conv_shapes():
+    """{net: {(H, Cin, Cout, k, stride): calls per forward}} of each CNN at
+    224, recorded by the shape-only forward of ``profiling/conv2d_ab``."""
+    from repro_torch.profiling.conv2d_ab import conv_shapes
+
+    return {name: conv_shapes(name) for name in CNN_NETS}
 
 
 def ptxas_entries(text: str):
@@ -1631,10 +1842,19 @@ def main() -> None:
                             "long_ms", "long_library_ms", "long_bound_ms",
                             "splits", "long_splits", "prefill_ms",
                             "prefill_plain_ms", "prefill_library_ms",
-                            "prefill_bound_ms") if key in s},
+                            "prefill_bound_ms", "route_ms", "route_bound_ms",
+                            "library_tf32_ms", "bf16_ms", "bf16_plain_ms",
+                            "bf16_library_ms", "bf16_bound_ms",
+                            "bf16_bound_by",
+                            "bf16_route_ms", "bf16_route_bound_ms")
+                           if key in s},
                         **({"routes_by_run": {
                             run: r["routes"] for run, r in runs.items()
                             if "routes" in r}} if name == "matmul" else {}),
+                        **({"routes": {
+                            run: r["conv_routes"] for run, r in runs.items()
+                            if "conv_routes" in r}} if name == "conv2d"
+                           else {}),
                         **({"in_forward_ms": s["in_forward_ms"]}
                            if "in_forward_ms" in s else {})})
     log(smi)      # again here: long runs push the first lines out of a tail

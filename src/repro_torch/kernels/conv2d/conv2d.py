@@ -1,27 +1,36 @@
-"""Launch of the CUDA conv2d kernel (``kernels/csrc/conv2d.cu``).
+"""Launch of the CUDA conv2d kernels (``kernels/csrc/conv2d.cu``).
 
 Replaces ``repro/kernels/conv2d/conv2d.py::conv2d_pallas``: a VALID,
 stride-s convolution of an already padded NHWC input with HWIO weights,
 f32 accumulation, output in the input dtype.  Unlike the Pallas kernel it
 takes any C and K (ragged tile edges are masked in the kernel) and has no
-on-chip budget to respect: it walks the reduction in chunks.
+on-chip budget to respect: it walks the reduction in steps.  The route
+(tensor cores or CUDA cores), column tile and R split come from
+``plan.plan``, a function of the shapes, dtype and alignment alone; where
+the plan splits R, the f32 workspace of (splits, M, K) is allocated here.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
+from . import plan as cv_plan
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"conv_launch": [_P, _P, _P] + [_I] * 11 + [_P]}
+SIGNATURES = {"conv_run": [_P] * 4 + [_I] * 16 + [_P]}
 
 
-def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1
-                ) -> torch.Tensor:
-    """x: (N, Hp, Wp, C), padded; w: (kh, kw, C, K); both CUDA, contiguous,
-    one dtype.  Returns (N, Ho, Wo, K)."""
+@lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, stride: int) -> None:
     if x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"conv2d: shapes x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)} (NHWC x HWIO)")
@@ -32,15 +41,55 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1
     if stride < 1 or Hp < kh or Wp < kw or min(N, C, K, kh, kw) == 0:
         raise ValueError(f"conv2d: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"stride {stride}")
+    M, _, R, _, _ = cv_plan.gemm_dims(x.shape, w.shape, stride)
+    if M >= 2**31 or R >= 2**31:
+        raise ValueError(f"conv2d: GEMM rows {M} or depth {R} past the "
+                         f"kernels' int32 range")
+
+
+def plan_for(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+             route: Optional[str] = None, splits: Optional[int] = None,
+             bn: Optional[int] = None) -> cv_plan.Plan:
+    """The launch plan of the VALID conv of x (N, Hp, Wp, C) with w (kh,
+    kw, C, K) on x's card (``route`` / ``splits`` / ``bn`` force a choice,
+    as in ``plan.plan``).  The output is allocated by ``launch``,
+    on the allocator's 16-byte (and coarser) boundaries."""
+    _check(x, w, stride)
+    M, K, R, _, _ = cv_plan.gemm_dims(x.shape, w.shape, stride)
+    bf16 = x.dtype == torch.bfloat16
+    return cv_plan.plan(
+        M, K, R, bf16=bf16,
+        is_aligned=cv_plan.aligned(x.shape[3], K, x.data_ptr(), w.data_ptr(),
+                                   bf16=bf16),
+        n_sm=_n_sm(x.device.index or 0), route=route, splits=splits, bn=bn)
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, p: cv_plan.Plan, *,
+           stride: int = 1) -> torch.Tensor:
+    """x: (N, Hp, Wp, C), padded; w: (kh, kw, C, K); both CUDA,
+    contiguous, one dtype.  Returns (N, Ho, Wo, K) by plan ``p``."""
+    _check(x, w, stride)
     _build.check_inputs("conv2d", x, w)
-    Ho, Wo = (Hp - kh) // stride + 1, (Wp - kw) // stride + 1
-    if N * Ho * Wo >= 2**31 or kh * kw * C >= 2**31:
-        raise ValueError(f"conv2d: GEMM rows {N * Ho * Wo} or depth "
-                         f"{kh * kw * C} past the kernel's int32 range")
-    out = torch.empty((N, Ho, Wo, K), dtype=x.dtype, device=x.device)
+    N, Hp, Wp, C = x.shape
+    kh, kw, _, K = w.shape
+    M, _, _, Ho, Wo = cv_plan.gemm_dims(x.shape, w.shape, stride)
+    code = _build.dtype_code(x)
     lib = _build.load("conv2d", SIGNATURES)
-    err = lib.conv_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                          N, Hp, Wp, C, K, kh, kw, stride, Ho, Wo,
-                          _build.dtype_code(x), _build.stream_of(x))
-    _build.check(lib, err, "conv_launch")
+    out = torch.empty((N, Ho, Wo, K), dtype=x.dtype, device=x.device)
+    ws = torch.empty(cv_plan.workspace_shape(p, M, K), dtype=torch.float32,
+                     device=x.device)
+    err = lib.conv_run(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                       ws.data_ptr() if p.splits > 1 else None,
+                       N, Hp, Wp, C, K, kh, kw, stride, Ho, Wo,
+                       cv_plan.ROUTE_CODES[p.route], p.bm, p.bn, p.splits,
+                       p.rows, code, _build.stream_of(x))
+    _build.check(lib, err, f"conv_run ({p})")
     return out
+
+
+def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, *,
+                stride: int = 1) -> torch.Tensor:
+    """x: (N, Hp, Wp, C), padded; w: (kh, kw, C, K) -> (N, Ho, Wo, K), both
+    CUDA, contiguous, one dtype, by the plan for these operands (a forced
+    plan goes through ``plan_for`` and ``launch``)."""
+    return launch(x, w, plan_for(x, w, stride=stride), stride=stride)

@@ -3,8 +3,9 @@
 ``conv2d`` pads for SAME exactly as ``repro/kernels/conv2d/ops.py`` does
 (asymmetric: the extra row and column go below and to the right, and a
 negative pad is clipped to 0), then a CPU tensor goes to the plain version
-(``ref.conv2d``) and a CUDA tensor launches the CUDA kernel and adds one to
-``conv2d.launches``.  There is no fallback: any other device, or a tensor
+(``ref.conv2d``) and a CUDA tensor launches the CUDA kernel its plan picks,
+adds one to ``conv2d.launches`` and one to that route's count in
+``conv2d.routes``.  There is no fallback: any other device, or a tensor
 the kernel does not take, raises.
 """
 from __future__ import annotations
@@ -13,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from . import ref
-from .conv2d import conv2d_cuda
+from .conv2d import launch, plan_for
+from .plan import ROUTES
 
 
 def same_pads(size: int, k: int, stride: int):
@@ -47,9 +49,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         return ref.conv2d(x, w, stride=stride)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d: no kernel for device {x.device}")
-    out = conv2d_cuda(x, w, stride=stride)
+    p = plan_for(x, w, stride=stride)
+    out = launch(x, w, p, stride=stride)
     conv2d.launches += 1
+    conv2d.routes[p.route] += 1
     return out
 
 
 conv2d.launches = 0
+conv2d.routes = dict.fromkeys(ROUTES, 0)   # launches by route

@@ -1,7 +1,10 @@
 // Shared helpers of the port's CUDA kernels: element conversion to and from
 // the f32 the kernels accumulate in, warp reductions, the PTX wrappers of
-// cp.async, ldmatrix and the bf16 mma.sync, the C error hook.
+// cp.async, ldmatrix and the bf16 mma.sync, the fixed-order sum of a split
+// launch's partials, the C error hook.
 #pragma once
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +97,50 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The second pass of a split launch (matmul's split K, conv2d's split R):
+// C[i] = sum over z in order of ws[z][i], rounded once to T, so the result
+// does not depend on which CTA of the first pass ended first.  VEC: 4
+// elements a thread by 16-byte loads (MN % 4 == 0), the same sums in the
+// same order.
+template <typename T, bool VEC>
+__global__ void split_reduce(const float* __restrict__ ws, T* __restrict__ C,
+                             int splits, size_t MN) {
+  constexpr int V = VEC ? 4 : 1;
+  for (size_t i = (blockIdx.x * (size_t)blockDim.x + threadIdx.x) * V; i < MN;
+       i += (size_t)gridDim.x * blockDim.x * V) {
+    float s[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) s[v] = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      const float* p = ws + z * MN + i;
+      if constexpr (VEC) {
+        const float4 w = *reinterpret_cast<const float4*>(p);
+        s[0] += w.x;
+        s[1] += w.y;
+        s[2] += w.z;
+        s[3] += w.w;
+      } else {
+        s[0] += *p;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) C[i + v] = from_f<T>(s[v]);
+  }
+}
+
+// split_reduce over the MN outputs of a (splits, MN) workspace, on s
+template <typename T>
+inline void launch_split_reduce(const float* ws, T* C, int splits, size_t MN,
+                                cudaStream_t s) {
+  const bool vec = MN % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0;
+  const size_t per = vec ? 4 * 256 : 256;
+  const int blocks = (int)std::min<size_t>((MN + per - 1) / per, (size_t)4096);
+  if (vec)
+    split_reduce<T, true><<<blocks, 256, 0, s>>>(ws, C, splits, MN);
+  else
+    split_reduce<T, false><<<blocks, 256, 0, s>>>(ws, C, splits, MN);
 }
 
 extern "C" const char* error_string(int err) {

@@ -11,37 +11,79 @@
 // the Pallas kernel); w is already the row-major (R, K) matrix B; y is the
 // row-major (M, K) matrix C.
 //
-// What bounds it on an H100: operations.  The paper's CNNs run fp32, and
-// at batch 64 the 3x3 / 5x5 / 7x7 convs and the wide 1x1s do 60-600 FLOPs
-// per byte they must move, above the ~20 FLOP/byte at which the 67 TFLOP/s
-// fp32 CUDA cores, not HBM, become the limit (only narrow 1x1s such as
-// ResNet-50's 64 -> 64 sit below it).  So the kernel must keep the FMA
-// pipes fed from registers and shared memory.
+// What bounds it on an H100: operations, 2*M*K*R of them.  At batch 64 the
+// 3x3 / 5x5 / 7x7 convs and the wide 1x1s of the paper's CNNs do 60-600
+// FLOPs per byte they must move.  On the tensor cores (mma route) bf16
+// takes 2*M*K*R / 989 TFLOP/s; f32 runs as three bf16 passes, 3 x that
+// (ResNet-50's 53 convs at batch 64: bf16 0.50 ms of products, 0.94 ms
+// with the bytes of the 1x1s that HBM bounds; f32 1.50 and 2.17 ms).  On
+// the CUDA cores (cuda_core route) f32 FMAs at 67 TFLOP/s.
 //
-// What the design does about it (the Pallas kernel staged a whole image in
-// VMEM and unrolled kh*kw dots; a CTA here holds a 128 x 64 output tile):
-//  * 128 threads, each owning an 8 x 8 register micro-tile (two 4-row and
-//    two 4-column strips), so one k step reads 4 float4 from shared memory
-//    for 64 FMAs.
-//  * R is walked in chunks of 16.  Each thread gathers one row of the A
-//    chunk (its output pixel's base offset in x is computed once) and an
-//    8-wide piece of the B chunk into registers while the CTA computes on
-//    the previous chunk; the two shared-memory buffers alternate, one
-//    barrier per chunk.  bf16 is widened to f32 as it is staged.
-//  * Where C is a multiple of 16 (every conv of the three nets but the
-//    C = 3 stem and GoogLeNet's two C = 24 5x5 convs) a chunk is one tap
-//    (i, j) and 16 contiguous channels: 16-byte vector loads.  Otherwise a
-//    scalar gather walks (i, j, c) incrementally.  Where K is a multiple of
-//    8, B rows load and C rows store as vectors.
-//  * M (up to 3.2 M rows at batch 64) is on gridDim.x; offsets into x and
-//    y are 64-bit (VGG-16's first activations at batch 64 are 822 MB).
-//  * Ragged edges (M, K, R not tile multiples) are masked: loads past an
-//    edge read zero, stores past an edge are dropped.
-// The FMAs run on the CUDA cores in f32; tensor cores (mma.sync / wgmma),
-// TMA and a deeper cp.async pipeline are later work.
+// The route, column tile and R split come from the wrapper's shapes-only
+// plan (kernels/conv2d/plan.py), which this file checks and never
+// overrides:
+//  * mma (bf16 with C % 8 == 0, f32 with C % 4 == 0; K % 8 == 0; x, w, y
+//    16-byte aligned): conv_mma<T, BN>, a 128 x BN output tile per CTA (BN
+//    64 or 128 by K), 4 warps of 64 x BN/2.  Each thread finds its output
+//    pixel's corner in x once (a table of the CTA's 128 row bases in shared
+//    memory).  A depth step is 128 bytes a row (64 bf16 or 32 f32): each
+//    16-byte chunk of the A tile is 8 bf16 or 4 f32 channels of one tap
+//    (i, j) of one pixel, gathered straight from x by cp.async.cg; B rows
+//    as mm_mma stages them.  Rows past M, columns past K and depth past the
+//    split's end are zero-filled by cp.async's src-size operand.  A ring of
+//    3-4 stages in <= 112 KB, so two CTAs share an SM (at ResNet-50's
+//    shapes a 256-row, 8-warp tile, one CTA an SM, ran 0-15 % slower, and
+//    8 warps of 32 rows up to 19 % slower in f32, 1-8 % faster in bf16);
+//    rows padded so the fragment reads hit no bank twice.  The output tile,
+//    rounded to T, goes through shared memory and out in 16-byte chunks,
+//    whole sectors (bf16 fragments' 4-byte stores fill half of one).
+//    - bf16: A fragments by ldmatrix.x4, B's by ldmatrix.x4.trans,
+//      mma.sync m16n8k16 bf16 x bf16 -> f32, rounded once (nearest even).
+//    - f32: the fragments are read at their m16n8k16 positions (A by
+//      64-bit, B by 32-bit loads; ldmatrix cannot split an f32) and split
+//      in registers into hi = bf16(v) and lo = bf16(v - hi); three
+//      mma.sync into one f32 accumulator: a_lo*b_hi + a_hi*b_lo +
+//      a_hi*b_hi (jax's Precision.HIGH: "3 bfloat16 passes").
+//      Error: v - hi is exact in f32 and |v - hi - lo| <= 2^-16 |v|, and
+//      each bf16 product is exact in f32, so a product a*b carries at most
+//      (2^-16 + 2^-16 + 2^-16) |a*b| (the dropped a_lo*b_lo and the two
+//      residues) against f32's 2^-24: the sum over R is off by at most
+//      ~4.6e-5 * sum |a*b| plus f32's own rounding.  Emulated in float64
+//      at 3x3 convs with C = 64 and 512, He-scaled weights: max |err| =
+//      2.0-2.1e-5 x rms(out), under a tenth of the reference's 2e-4.  The
+//      named alternative, 3xTF32 on mma.sync.m16n8k8.tf32 (~2e-7 x rms),
+//      runs at half this rate; it is not needed at these shapes.
+//  * cuda_core (everything else: the C = 3 stems, ragged channel counts,
+//    misaligned operands): conv_igemm below, f32 FMAs, 128 x 64 tiles,
+//    no split.
+//  * Split R (mma): where the output tiles leave the SMs' CTA slots idle,
+//    the depth is split over gridDim.z CTAs that write f32 partial sums to
+//    a workspace the caller allocates; split_reduce (common.cuh) adds them
+//    in split order (bitwise deterministic) and rounds once.
+// A launch allocates nothing and synchronises nothing.  M (up to 3.2 M
+// rows at batch 64) is walked by a linear CTA index, column tiles fastest,
+// so the CTAs on the card at one time share their A rows; offsets into x,
+// y and the workspace are 64-bit (VGG-16's first activations at batch 64
+// are 822 MB).
+//
+// Next (left out here): the three eager scale / shift / ReLU passes after
+// each conv fused into the epilogue; the SAME pad copies removed (the
+// gather zero-fills out-of-image taps instead); wgmma fed by TMA's im2col
+// mode; a persistent tile walk for the 14x14 / 7x7 layers' last wave.
+#include <climits>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
+
+// -- CUDA cores (conv_igemm, the first kernel) ------------------------------
+// 128 threads, each owning an 8 x 8 register micro-tile of a 128 x 64 output
+// tile; R walked in chunks of 16 staged in registers while the previous
+// chunk is consumed; bf16 widened to f32 as it is staged; 16-byte vector
+// loads where C % 16 == 0 (one tap a chunk) and K % 8 == 0, a scalar gather
+// otherwise; ragged edges masked.
+namespace cc {
 
 constexpr int BM = 128, BN = 64, BK = 16;   // CTA tile and depth chunk
 constexpr int THREADS = 128;                // 16 row lanes x 8 column lanes
@@ -254,20 +296,347 @@ void launch(const void* xv, const void* wv, void* yv, const Geom& g,
     conv_igemm<T, false, false><<<grid, THREADS, 0, s>>>(x, w, y, g);
 }
 
+}  // namespace cc
+
+using cc::Geom;
+
+// -- tensor cores (conv_mma) --------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+// 128 x BN output tile, 4 warps (2 x 2) of 64 x BN/2: MT m16 tiles by NT
+// n8 tiles a warp; depth steps of 128 bytes a row; a ring of STAGES stages
+// (at most 4) within 112 KB, so two CTAs share an SM
+template <typename T, int BN>
+struct MmaCfg {
+  static constexpr bool BF16 = std::is_same<T, bf16>::value;
+  static constexpr int BM = 128, THREADS = 128;
+  static constexpr int WM = 2, WN = 2;              // warps along M, N
+  static constexpr int MT = BM / (16 * WM);         // 4
+  static constexpr int NT = BN / (8 * WN);          // 8 or 4
+  static constexpr int BUDGET = 112 * 1024;
+  static constexpr int CH = 16 / (int)sizeof(T);    // elements a chunk
+  static constexpr int BK = 8 * CH;                 // 64 bf16 / 32 f32
+  // row strides (elements): A's 144 / 160 bytes put ldmatrix's 8 rows, or
+  // the f32 pairs of rows g = 0..3, on distinct banks; B's (BN + 4) f32
+  // puts depth rows 2 t4 on banks 8 t4 apart
+  static constexpr int AS = BK + 8;
+  static constexpr int BS = BN + (BF16 ? 8 : 4);
+  static constexpr int A_TILE = BM * AS, B_TILE = BK * BS;
+  static constexpr int STAGE = (int)sizeof(T) * (A_TILE + B_TILE);
+  static constexpr int STAGES = BUDGET / STAGE < 4 ? BUDGET / STAGE : 4;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE;
+  // the epilogue's output tile, in the ring's memory: rows of BN + 8
+  // elements put the fragments' 4- (bf16) or 8-byte (f32) writes on
+  // distinct banks
+  static constexpr int CS = BN + 8;
+  // a thread stages 16-byte chunks of one column, rows AR (A) / BR (B) apart
+  static constexpr int ACH = BK / CH, AR = THREADS / ACH;
+  static constexpr int BCH = BN / CH, BR = THREADS / BCH;
+  static_assert(THREADS == BM, "one row base a thread");
+  static_assert(BM % AR == 0 && THREADS % BCH == 0 && BK % BR == 0,
+                "chunks");
+  static_assert(STAGES >= 3 && NT % 2 == 0, "ring, warp tile");
+  static_assert((size_t)BM * CS * sizeof(T) <= SMEM, "output tile");
+};
+
+// depth rows [k0, k0 + BK) of the CTA's pixels (A, gathered from x) and
+// columns (B) into one stage.  C is a multiple of CH, so a chunk is one
+// tap's channels, and K and the split's first row are multiples of CH, so
+// every chunk is wholly inside or wholly outside the problem: outside,
+// zeros.  rowbase[row] < 0 marks a row past M.
+template <typename T, int BN>
+__device__ __forceinline__ void mma_stage(
+    const T* __restrict__ x, const T* __restrict__ w, T* as, T* bs,
+    const long long* rowbase, const Geom& g, int n0, int k0, int k_end,
+    int tid) {
+  using Cfg = MmaCfg<T, BN>;
+  const int ar = tid / Cfg::ACH, ac = (tid % Cfg::ACH) * Cfg::CH;
+  const int r = k0 + ac;
+  const bool a_in = r < k_end;
+  long long tap = 0;   // offset of depth row r from a pixel's corner
+  if (a_in) {
+    const int t = r / g.C, c = r - t * g.C;
+    const int i = t / g.kw, j = t - i * g.kw;
+    tap = ((long long)i * g.Wp + j) * g.C + c;
+  }
+#pragma unroll
+  for (int q = 0; q < Cfg::BM / Cfg::AR; ++q) {
+    const int row = ar + q * Cfg::AR;
+    const long long base = rowbase[row];
+    const bool ok = a_in && base >= 0;
+    cp_async16(as + row * Cfg::AS + ac, ok ? x + base + tap : x, ok);
+  }
+  const int br = tid / Cfg::BCH, bc = (tid % Cfg::BCH) * Cfg::CH;
+  const bool b_in = n0 + bc < g.K;
+#pragma unroll
+  for (int q = 0; q < Cfg::BK / Cfg::BR; ++q) {
+    const int rr = br + q * Cfg::BR;
+    const bool ok = b_in && k0 + rr < k_end;
+    cp_async16(bs + rr * Cfg::BS + bc,
+               ok ? w + (long long)(k0 + rr) * g.K + n0 + bc : w, ok);
+  }
+}
+
+// an f32 pair split into its bf16 pair hi (nearest even) and the bf16 pair
+// of what hi missed (a - hi is exact in f32); low half = first element
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
+}
+
+// two adjacent outputs rounded to T
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+// grid (M tiles x K tiles, 1, splits), column tiles fastest; each split
+// owns depth rows [z * rows, min(R, (z + 1) * rows)), rows a multiple of
+// BK when splits > 1
+template <typename T, int BN>
+__global__ void __launch_bounds__(MmaCfg<T, BN>::THREADS)
+conv_mma(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+         float* __restrict__ ws, Geom g, int rows) {
+  using Cfg = MmaCfg<T, BN>;
+  constexpr int BM = Cfg::BM, BK = Cfg::BK, AS = Cfg::AS, BS = Cfg::BS;
+  constexpr int CS = Cfg::CS;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, STAGES = Cfg::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ long long rowbase[BM];
+  T* As = reinterpret_cast<T*>(smem_raw);     // [STAGES][BM][AS]
+  T* Bs = As + STAGES * Cfg::A_TILE;           // [STAGES][BK][BS]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Cfg::WN, wn = warp % Cfg::WN;
+  const int col_tiles = (g.K + BN - 1) / BN;
+  const int m0 = (int)(blockIdx.x / col_tiles) * BM;
+  const int n0 = (int)(blockIdx.x % col_tiles) * BN;
+  const int k_begin = blockIdx.z * rows;
+  const int k_end = min(g.R, k_begin + rows);
+  const int steps = (k_end - k_begin + BK - 1) / BK;
+
+  {   // this thread's output pixel m0 + tid: its window's corner in x
+    const int m = m0 + tid;
+    long long base = -1;
+    if (m < g.M) {
+      const int n = m / g.HoWo, rem = m - n * g.HoWo;
+      const int ho = rem / g.Wo, wo = rem - ho * g.Wo;
+      base = n * g.img + ((long long)ho * g.stride * g.Wp +
+                          (long long)wo * g.stride) * g.C;
+    }
+    rowbase[tid] = base;
+  }
+  __syncthreads();
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < steps)   // depth step t into stage t
+      mma_stage<T, BN>(x, w, As + t * Cfg::A_TILE, Bs + t * Cfg::B_TILE,
+                       rowbase, g, n0, k_begin + t * BK, k_end, tid);
+    cp_async_commit();              // empty groups keep the count aligned
+  }
+  const int gq = lane >> 2, t4 = lane & 3;
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<STAGES - 2>();    // this thread's chunks of step t
+    __syncthreads();                // everyone's; step t - 1 is consumed
+    const int tn = t + STAGES - 1;  // into the stage step t - 1 used
+    if (tn < steps)
+      mma_stage<T, BN>(x, w, As + (tn % STAGES) * Cfg::A_TILE,
+                       Bs + (tn % STAGES) * Cfg::B_TILE, rowbase, g, n0,
+                       k_begin + tn * BK, k_end, tid);
+    cp_async_commit();
+    const T* as = As + (t % STAGES) * Cfg::A_TILE + wm * MT * 16 * AS;
+    const T* bs = Bs + (t % STAGES) * Cfg::B_TILE + wn * NT * 8;
+    if constexpr (Cfg::BF16) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t af[MT][4], bfr[NT / 2][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)   // rows i*16 + lane%16, k lo | hi
+          ldsm_x4(af[i],
+                  as + (i * 16 + (lane & 15)) * AS + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j)   // k lo | hi of columns 16j.., +8..
+          ldsm_x4_trans(bfr[j], bs + (kk + (lane & 15)) * BS + j * 16 +
+                                    (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mma_bf16(acc[i][j], af[i], bfr[j / 2][2 * (j & 1)],
+                     bfr[j / 2][2 * (j & 1) + 1]);
+      }
+    } else {
+      // A fragment: rows g, g + 8 x depth 2 t4 (+1), 2 t4 + 8 (+1);
+      // B fragment: depth 2 t4, +1, +8, +9 x column g
+      const float* pa = as + gq * AS + 2 * t4;
+      const float* pb = bs + 2 * t4 * BS + gq;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float* p = pa + i * 16 * AS + kk;
+          const float2 v0 = *reinterpret_cast<const float2*>(p);
+          const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * AS);
+          const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+          const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * AS + 8);
+          split_bf16(v0.x, v0.y, ah[i][0], al[i][0]);
+          split_bf16(v1.x, v1.y, ah[i][1], al[i][1]);
+          split_bf16(v2.x, v2.y, ah[i][2], al[i][2]);
+          split_bf16(v3.x, v3.y, ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float* q = pb + kk * BS + j * 8;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_bf16(q[0], q[BS], bh0, bl0);
+          split_bf16(q[8 * BS], q[9 * BS], bh1, bl1);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {   // the small terms first
+            mma_bf16(acc[i][j], al[i], bh0, bh1);
+            mma_bf16(acc[i][j], ah[i], bl0, bl1);
+            mma_bf16(acc[i][j], ah[i], bh0, bh1);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // thread holds rows g, g + 8 and columns 2 t4, 2 t4 + 1 of each 16 x 8 tile
+  if (gridDim.z > 1) {   // f32 partial sums, straight to the workspace
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = n0 + (wn * NT + j) * 8 + 2 * t4;
+        if (col >= g.K) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + (wm * MT + i) * 16 + gq + 8 * h;
+          if (row < g.M)
+            store2(ws + ((size_t)blockIdx.z * g.M + row) * g.K + col,
+                   acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+      }
+    }
+    return;
+  }
+  // rounded to T into an output tile in the ring's memory, then written
+  // out in 16-byte chunks, a warp's lanes along a row (whole sectors)
+  __syncthreads();   // every warp is done with the ring
+  T* Cs = As;        // [BM][CS]
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(Cs + ((wm * MT + i) * 16 + gq + 8 * h) * CS +
+                   (wn * NT + j) * 8 + 2 * t4,
+               acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  __syncthreads();
+  constexpr int CH = Cfg::CH, ROW_CH = BN / CH;   // chunks a row
+#pragma unroll 4
+  for (int c = tid; c < BM * ROW_CH; c += Cfg::THREADS) {
+    const int r = c / ROW_CH, col = (c % ROW_CH) * CH;
+    if (m0 + r < g.M && n0 + col < g.K)
+      *reinterpret_cast<uint4*>(y + (size_t)(m0 + r) * g.K + n0 + col) =
+          *reinterpret_cast<const uint4*>(Cs + r * CS + col);
+  }
+}
+
+template <typename T, int BN>
+cudaError_t launch_mma(const T* x, const T* w, T* y, float* ws, const Geom& g,
+                       int splits, int rows, cudaStream_t s) {
+  using Cfg = MmaCfg<T, BN>;
+  if (splits > 1 && rows % Cfg::BK != 0) return cudaErrorInvalidValue;
+  const long long ctas = (long long)((g.M + Cfg::BM - 1) / Cfg::BM) *
+                         ((g.K + BN - 1) / BN);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  static bool attrs_set = false;   // above 48 KB needs an opt-in, once
+  if (!attrs_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        conv_mma<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Cfg::SMEM);
+    if (e == cudaSuccess)   // all of the SM's 228 KB as shared memory
+      e = cudaFuncSetAttribute(conv_mma<T, BN>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    attrs_set = true;
+  }
+  const dim3 grid((unsigned)ctas, 1, splits);
+  conv_mma<T, BN><<<grid, Cfg::THREADS, Cfg::SMEM, s>>>(x, w, y, ws, g, rows);
+  return cudaSuccess;
+}
+
+enum { ROUTE_MMA = 0, ROUTE_CUDA_CORE = 1 };
+
+template <typename T>
+cudaError_t launch(const void* xv, const void* wv, void* yv, float* ws,
+                   const Geom& g, int route, int bm, int bn, int splits,
+                   int rows, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  const T* w = static_cast<const T*>(wv);
+  T* y = static_cast<T*>(yv);
+  if (route == ROUTE_CUDA_CORE) {
+    if (splits != 1 || bm != cc::BM || bn != cc::BN ||
+        (g.K + cc::BN - 1) / cc::BN > 65535)
+      return cudaErrorInvalidValue;
+    cc::launch<T>(xv, wv, yv, g, s);
+    return cudaSuccess;
+  }
+  if (route != ROUTE_MMA || bm != 128) return cudaErrorInvalidValue;
+  constexpr int CH = 16 / (int)sizeof(T);
+  if (g.C % CH || g.K % 8 || !cc::aligned16(xv) || !cc::aligned16(wv) ||
+      !cc::aligned16(yv))
+    return cudaErrorInvalidValue;
+  cudaError_t e;
+  if (bn == 128)
+    e = launch_mma<T, 128>(x, w, y, ws, g, splits, rows, s);
+  else if (bn == 64)
+    e = launch_mma<T, 64>(x, w, y, ws, g, splits, rows, s);
+  else
+    return cudaErrorInvalidValue;
+  if (e != cudaSuccess) return e;
+  if (splits > 1) launch_split_reduce<T>(ws, y, splits, (size_t)g.M * g.K, s);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // y (N, Ho, Wo, K) = VALID conv of x (N, Hp, Wp, C) with w (kh, kw, C, K)
-// at `stride` on `stream`, Ho = (Hp - kh) / stride + 1 (likewise Wo);
-// dtype is DT_F32 or DT_BF16 for all three tensors.
-extern "C" int conv_launch(const void* x, const void* w, void* y, int N,
-                           int Hp, int Wp, int C, int K, int kh, int kw,
-                           int stride, int Ho, int Wo, int dtype,
-                           void* stream) {
+// at `stride` on `stream`, Ho = (Hp - kh) / stride + 1 (likewise Wo), by
+// the wrapper's plan (kernels/conv2d/plan.py): route 0 mma (bm 128, bn 64
+// or 128), 1 cuda_core (bm 128, bn 64, splits 1); depth R = kh*kw*C split
+// into `splits` ranges of `rows` rows (the last may be shorter, none
+// empty); ws: (splits, M, K) f32 scratch, unused when splits == 1; dtype
+// DT_F32 or DT_BF16 for all three tensors.  A plan the kernels cannot take
+// returns cudaErrorInvalidValue and launches nothing.
+extern "C" int conv_run(const void* x, const void* w, void* y, void* ws,
+                        int N, int Hp, int Wp, int C, int K, int kh, int kw,
+                        int stride, int Ho, int Wo, int route, int bm, int bn,
+                        int splits, int rows, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = (long long)N * Ho * Wo, R = (long long)kh * kw * C;
   if (N < 1 || C < 1 || K < 1 || kh < 1 || kw < 1 || stride < 1 || Ho < 1 ||
       Wo < 1 || (Ho - 1) * stride + kh > Hp || (Wo - 1) * stride + kw > Wp ||
-      M > 0x7fffffffLL || R > 0x7fffffffLL || (K + BN - 1) / BN > 65535)
+      M > 0x7fffffffLL || R > 0x7fffffffLL || splits < 1 || splits > 65535 ||
+      rows < 1 || (long long)rows * splits < R ||
+      (long long)rows * (splits - 1) >= R || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Geom g;
   g.M = (int)M;
@@ -280,12 +649,14 @@ extern "C" int conv_launch(const void* x, const void* w, void* y, int N,
   g.HoWo = Ho * Wo;
   g.Wo = Wo;
   g.img = (long long)Hp * Wp * C;
-  if (dtype == DT_F32) {
-    launch<float>(x, w, y, g, s);
-  } else if (dtype == DT_BF16) {
-    launch<__nv_bfloat16>(x, w, y, g, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  float* wsf = static_cast<float*>(ws);
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = launch<float>(x, w, y, wsf, g, route, bm, bn, splits, rows, s);
+  else if (dtype == DT_BF16)
+    e = launch<bf16>(x, w, y, wsf, g, route, bm, bn, splits, rows, s);
+  else
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

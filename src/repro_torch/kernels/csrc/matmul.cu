@@ -37,8 +37,9 @@
 //    would break the reference's 2e-4 tolerance.
 //  * Split K (all routes): where the output tiles leave SMs idle, the K
 //    range is split over gridDim.z CTAs that write f32 partial sums to a
-//    workspace the caller allocates; mm_reduce adds the splits in a fixed
-//    order (bitwise deterministic) and rounds once to the output dtype.
+//    workspace the caller allocates; split_reduce (common.cuh) adds the
+//    splits in a fixed order (bitwise deterministic) and rounds once to the
+//    output dtype.
 // A launch allocates nothing and synchronises nothing.  Ragged edges (M,
 // N, K not multiples of the tiles) are masked, never asserted.
 #include <algorithm>
@@ -372,35 +373,6 @@ mm_mma(const bf16* __restrict__ A, const bf16* __restrict__ B,
   }
 }
 
-// -- split-K reduction --------------------------------------------------------
-// C[i] = sum over z in order of ws[z][i], rounded once; VEC: 4 elements a
-// thread by 16-byte loads (MN % 4 == 0), the same sums in the same order
-template <typename T, bool VEC>
-__global__ void mm_reduce(const float* __restrict__ ws, T* __restrict__ C,
-                          int splits, size_t MN) {
-  constexpr int V = VEC ? 4 : 1;
-  for (size_t i = (blockIdx.x * (size_t)blockDim.x + threadIdx.x) * V; i < MN;
-       i += (size_t)gridDim.x * blockDim.x * V) {
-    float s[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) s[v] = 0.f;
-    for (int z = 0; z < splits; ++z) {
-      const float* p = ws + z * MN + i;
-      if constexpr (VEC) {
-        const float4 w = *reinterpret_cast<const float4*>(p);
-        s[0] += w.x;
-        s[1] += w.y;
-        s[2] += w.z;
-        s[3] += w.w;
-      } else {
-        s[0] += *p;
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v) C[i + v] = from_f<T>(s[v]);
-  }
-}
-
 int ceil_div(long a, long b) { return (int)((a + b - 1) / b); }
 
 template <typename T, int MT>
@@ -479,16 +451,7 @@ cudaError_t launch(const void* a, const void* b, void* c, float* ws, int M,
   } else {
     return cudaErrorInvalidValue;
   }
-  if (splits > 1) {
-    const size_t MN = (size_t)M * N;
-    const bool vec = MN % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0;
-    const size_t per = vec ? 4 * 256 : 256;
-    const int blocks = (int)std::min<size_t>((MN + per - 1) / per, (size_t)4096);
-    if (vec)
-      mm_reduce<T, true><<<blocks, 256, 0, s>>>(ws, C, splits, MN);
-    else
-      mm_reduce<T, false><<<blocks, 256, 0, s>>>(ws, C, splits, MN);
-  }
+  if (splits > 1) launch_split_reduce<T>(ws, C, splits, (size_t)M * N, s);
   return cudaSuccess;
 }
 
