@@ -16,6 +16,11 @@ points of the decode template).  ``--only conv2d`` does the same for
 ``conv2d.cu``, with the conv shapes taken from shape-only batch-1 CPU
 forwards of the three CNNs (``profiling/conv2d_ab.conv_shapes``), and also
 times the tensor-core route at forced column tiles and split counts.
+``--only serving_graph`` builds the four sources of the serving path
+(``matmul.cu``, ``flash_attention.cu``, ``paged_attention.cu``,
+``flash_decode.cu``), runs phase 2's CUDA-graph checks and then
+``profiling/decode_profile``'s A/B of eager decode steps against graph
+replays, and exits 0 without the result line.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -66,7 +71,18 @@ Phases (each raises on failure; nothing is caught):
    sparse int8 pool (the keep masks first compared equal, any flip
    reported by slot, head, block and estimated mass; then 1e-3 and 5e-2)
    and the dense slab (1e-3).  A prefix-cache hit on the card gives
-   logits bit-identical to a cold engine.  ResNet-50, GoogLeNet and VGG-16
+   logits bit-identical to a cold engine.  The decode step as a CUDA graph
+   (``serving/step_graph.py``): one bf16 ``mm_mma`` and one ``pa_launch``
+   captured through ctypes replay bit for bit like their eager launches;
+   a graph engine and a ``cuda_graph=False`` engine in lockstep (the
+   2-layer fp32 model in the same six layouts, then full-width bf16
+   qwen2-7b on the float pool, refills included) give the same tokens and
+   live slots' logits bit for bit and the same dropped-block counts every
+   step, with 1 eager step and the rest replays.  The graph engine's
+   wrappers count its eager and its captured step as the eager engine's
+   count theirs and nothing on a replay, and a profiler trace of one
+   replay shows the same kernels by name as one eager step.
+   ResNet-50, GoogLeNet and VGG-16
    at 224, fp32, batch 2, built from one seed on both devices: logits
    within 1e-3 * max|cpu| (f32 on both sides, summed in other orders
    through up to 53 convs and 16 unnormalised residual adds), identical
@@ -77,10 +93,13 @@ Phases (each raises on failure; nothing is caught):
    float pool, with ``--kv-dtype int8 --sparse-threshold T``, with
    ``--kv-dtype fp8``, with ``--sparse-threshold T --prefix-cache`` and
    with ``--dense``.  Every request must complete, every bf16 prefill
-   matmul must take the tensor-core route,
-   every kernel's launch count must rise on the run that carries it (the
-   counts are set to 0 just before each run and read just after), and the
-   sparse runs must drop blocks.  The CNN slice: ``repro_torch.models.cnn
+   matmul must take the tensor-core route, every kernel's launch count
+   must rise on the run that carries it (the counts are set to 0 just
+   before each run and read just after; they count the launches issued
+   eagerly and those recorded into each engine's graph, not its
+   replays), every engine must run one eager decode step, one capture and
+   replays (each run logs them and the capture's seconds), and the sparse
+   runs must drop blocks.  The CNN slice: ``repro_torch.models.cnn
    .apply_cnn`` runs each of ResNet-50, GoogLeNet and VGG-16 at 224, batch
    64, fp32 on the card: one forward holds every conv2d and matmul call
    against its plain version on the call's own inputs (2e-4 of the
@@ -167,6 +186,9 @@ SERVE_ARGS = ["--arch", "qwen2-7b", "--partitions", "2", "--stagger",
               "demand", "--requests", "8", "--batch", "4", "--prompt-len",
               "32", "--gen", "16", "--device", "cuda"]
 SLOTS, PROMPT, GEN = 4, 32, 16
+# the graph lockstep's step traced under the profiler: its third decode
+# step, the graph engine's first replay after the one that follows capture
+TRACED_STEP = 2
 # the lever runs: prompts of 64 tokens span 5 blocks of 16 once decode
 # starts, so a threshold of 0.25 > 1/5 leaves at least two blocks of every
 # (slot, kv head) below it, one of which is not the current block: blocks
@@ -1387,6 +1409,200 @@ def phase_prefix_bitwise(torch, cfg2, params):
         f"cold engines")
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (continued): the decode step captured as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def phase_graph_probe(torch):
+    """One bf16 ``mm_mma`` launch and one ``pa_launch`` through ctypes,
+    captured in a CUDA graph: each replay equals the eager launch on the
+    same inputs bit for bit, also after the inputs change in place (so the
+    replay really runs and reads them)."""
+    from repro_torch.kernels.matmul import matmul as mm_k
+    from repro_torch.kernels.paged_attention import paged_attention as pa_k
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    a, b = rnd((SLOTS, 3584)), rnd((3584, 4608), 0.02)
+    plan = mm_k.plan_for(a, b)
+    if plan.route != "mma":
+        fail(f"graph probe: the bf16 decode matmul plans {plan}, not mm_mma")
+    tables, N = paged_tables(torch, [40, 35, 47, 33], 16, "cuda",
+                             inactive=False)
+    q, kp, vp = rnd((SLOTS, 28, 128)), rnd((N, 16, 4, 128)), \
+        rnd((N, 16, 4, 128))
+    cur = torch.tensor([40, 35, 47, 33], dtype=torch.int32, device="cuda")
+    launches = {"mm_mma": (lambda: mm_k.launch(a, b, plan), a),
+                "pa_launch": (lambda: pa_k.paged_decode_cuda(
+                    q, kp, vp, tables, cur), q)}
+    for name, (fn, x) in launches.items():
+        eager = fn()                       # loads the library, warms up
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            fail(f"graph probe: a replayed {name} differs from its eager "
+                 f"launch (max abs diff "
+                 f"{float((out.float() - eager.float()).abs().max()):.3g})")
+        x.copy_(rnd(tuple(x.shape)))
+        graph.replay()
+        if not torch.equal(out, fn()):
+            fail(f"graph probe: a replayed {name} on new inputs differs "
+                 "from its eager launch")
+        del graph
+    log("phase 2: graph probe: one bf16 mm_mma and one pa_launch, captured "
+        "through ctypes and replayed, equal their eager launches bit for "
+        "bit (and again on new inputs)")
+
+
+def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps, **kw):
+    """A graph engine and a ``cuda_graph=False`` engine on one stream in
+    lockstep: after every decode step the same occupancy, tokens and live
+    slots' logits bit for bit and the same dropped blocks.  The wrappers'
+    counts (by wrapper and matmul route) of the graph engine's eager and
+    captured steps equal the eager engine's, and a replay adds none; the
+    port's kernels in a profiler trace of step ``TRACED_STEP`` are the
+    same, by name, in the replay and in the eager step.  Inactive slots
+    are left out of the logits: their rows all go to null block 0 by one
+    scatter, whose order among duplicate indices the card does not fix.
+    Returns the number of steps."""
+    import numpy as np
+
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import api as mapi
+    from repro_torch.profiling.decode_profile import port_kernels
+    from repro_torch.serving import PartitionEngine, RequestQueue
+    from repro_torch.serving.step_graph import WRAPPERS
+
+    api = mapi.build(cfg2, "cuda")
+    engines = {}
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg2.vocab, size=(n,)).astype(np.int32)
+               for n in lens]
+    for mode in ("graph", "eager"):
+        eng = engines[mode] = PartitionEngine(
+            cfg2, api, params, slots=SLOTS, max_len=max(lens) + max(gens),
+            cuda_graph=mode == "graph", **kw)
+        q = RequestQueue()
+        for prompt, gen in zip(prompts, gens):
+            q.submit(prompt, gen)
+        eng.assign(q.pop(len(prompts)))
+        eng.prefill_wave(0.0)
+    dropped = (pa_ops.paged_decode_sparse, pa_ops.paged_decode_quant)
+    ge, ee = engines["graph"], engines["eager"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    traced = {}
+    steps = 0
+    while ee.busy:
+        live = [i for i, r in enumerate(ee.active) if r is not None]
+        if [r and r.rid for r in ge.active] != \
+                [r and r.rid for r in ee.active]:
+            fail(f"graph lockstep {name}: occupancy differs at step {steps}")
+        seen = {}
+        for mode, eng in engines.items():
+            for w in dropped:
+                w.dropped_blocks.reset()
+            before = counts.snapshot(WRAPPERS)
+            if steps == TRACED_STEP:
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=acts) as prof:
+                    pend = eng.issue_decode()
+                    torch.cuda.synchronize()
+                traced[mode] = port_kernels(prof.key_averages())
+            else:
+                pend = eng.issue_decode()
+            decoded = counts.snapshot(WRAPPERS)
+            eng.commit_op(pend, pend.cost.duration)      # retire, refill
+            seen[mode] = (counts.diff(decoded, before),
+                          counts.diff(counts.snapshot(WRAPPERS), decoded),
+                          [w.dropped_blocks.value for w in dropped])
+        # the graph engine's wrappers issue its eager step and, into the
+        # graph, its captured one; a replay issues nothing from Python.
+        # Refills run eagerly in both engines.
+        issued, refilled, eager_dropped = seen["eager"]
+        want = (issued if steps < 2 else
+                tuple((0, dict.fromkeys(r, 0)) for _, r in issued),
+                refilled, eager_dropped)
+        if seen["graph"] != want:
+            fail(f"graph lockstep {name}: step {steps} counts differ: graph "
+                 f"{seen['graph']}, want {want}")
+        a, b = ge.last_logits[live], ee.last_logits[live]
+        if not np.array_equal(a, b):
+            fail(f"graph lockstep {name}: live slots' logits differ at step "
+                 f"{steps} (max abs diff {float(np.abs(a - b).max()):.3g})")
+        steps += 1
+    if ge.busy or ge.slot_tokens != ee.slot_tokens:
+        fail(f"graph lockstep {name}: generated tokens differ")
+    gr = ge.graph
+    if steps < min_steps or gr.n_eager != 1 or gr.n_replays != steps - 1:
+        fail(f"graph lockstep {name}: {steps} steps, {gr.n_eager} eager, "
+             f"{gr.n_replays} replays (want >= {min_steps} steps, 1 eager, "
+             "the rest replays)")
+    if not traced["eager"] or traced["graph"] != traced["eager"]:
+        fail(f"graph lockstep {name}: the port's kernels in a profiler trace "
+             f"of step {TRACED_STEP}: replay {traced['graph']}, eager step "
+             f"{traced['eager']}")
+    log(f"phase 2: graph lockstep {name}: {steps} decode steps ({ge.n_refills}"
+        f" refills), 1 eager + {gr.n_replays} replays (capture "
+        f"{gr.capture_s:.3f} s) equal the eager engine bit for bit in tokens "
+        f"and live logits, and in dropped blocks every step; the wrappers "
+        f"issued the eager and the captured step as the eager engine did and "
+        f"nothing on a replay; a profiler trace of step {TRACED_STEP} shows "
+        f"the same port kernels in the replay as in the eager step: "
+        f"{traced['graph']}")
+    return steps
+
+
+def phase_graph(torch, cfg, profile=False):
+    """The decode step as a CUDA graph: the ctypes probe; replay against
+    eager at the 2-layer full-width fp32 model in the six layouts of the
+    card-vs-CPU phase; and at full-width bf16 qwen2-7b on the float pool.
+    With ``profile`` (``--only serving_graph``) also
+    ``profiling/decode_profile``'s A/B of eager steps against replays.
+    Returns no kernel stats (the kernels are phase 1's)."""
+    from repro_torch.models import transformer as TF
+
+    phase_graph_probe(torch)
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    params = TF.init_lm(cfg2, torch.Generator(device="cuda").manual_seed(2),
+                        "cuda")
+    lens, gens = [PROMPT, 20, 27, 9, 14, 25], [8, 3, 7, 6, 5, 4]
+    layouts = {"fp32": {}, "int8": dict(kv_dtype="int8"),
+               "fp8": dict(kv_dtype="fp8"),
+               "fp32+sparse": dict(sparse_threshold=THRESHOLD, block_size=8),
+               "int8+sparse": dict(kv_dtype="int8",
+                                   sparse_threshold=THRESHOLD, block_size=8),
+               "dense": dict(paged=False)}
+    for name, kw in layouts.items():
+        graph_lockstep(torch, cfg2, params, name, lens, gens, 6, **kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = TF.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    graph_lockstep(torch, cfg, params, "full-width bf16 float pool",
+                   [PROMPT] * SLOTS + [24, 40], [8, 4, 8, 7, 5, 4], 6)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if profile:
+        from repro_torch.profiling import decode_profile
+
+        decode_profile.report(decode_profile.run())
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {}
+
+
 def phase_cnn_card_vs_cpu(torch):
     """ResNet-50, GoogLeNet and VGG-16 at 224, fp32, batch 2: the same
     weights (one seed, drawn on the CPU by ``init_cnn`` for both devices)
@@ -1456,7 +1672,8 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = serve.main(argv)
+    engines = []
+    outs = serve.main(argv, engines_out=engines)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
@@ -1464,7 +1681,16 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
     dropped = {k: w.dropped_blocks.value for k, w in
                (("paged_decode_sparse", pa_ops.paged_decode_sparse),
                 ("paged_decode_quant", pa_ops.paged_decode_quant))}
+    gs = [e.graph for e in engines]
+    graphs = dict(eager=sum(g.n_eager for g in gs),
+                  replays=sum(g.n_replays for g in gs),
+                  captures=sum(g.graph is not None for g in gs),
+                  capture_s=sum(g.capture_s for g in gs))
     tokens = sum(len(s) for s in outs)
+    if graphs["replays"] == 0 or \
+            any(g.n_eager != 1 or g.graph is None for g in gs):
+        fail(f"serve {name}: decode graphs {graphs}: every engine must run "
+             "one eager step, capture once and replay the rest")
     if tokens != n_req * gen:
         fail(f"serve {name}: {tokens} tokens generated, expected {n_req} "
              f"requests x {gen} (a request did not complete)")
@@ -1475,9 +1701,11 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
         f"per wall second), max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
         f"{launches}, matmul launches by route {routes}, dropped blocks "
-        f"{dropped}")
+        f"{dropped}; decode steps {graphs['eager']} eager, "
+        f"{graphs['replays']} replayed, {graphs['captures']} captures in "
+        f"{graphs['capture_s']:.3f} s")
     return dict(launches=launches, routes=routes, dropped=dropped, wall=wall,
-                tokens=tokens)
+                tokens=tokens, graphs=graphs)
 
 
 # the kernels each phase-3 run must launch (launch count above 0)
@@ -1706,7 +1934,10 @@ ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
         "decode_attention": (["paged_attention", "flash_decode"],
                              phase_decode_kernels),
         "conv2d": (["conv2d"], lambda torch, cfg: phase_conv_kernel(
-            torch, cnn_conv_shapes(), sweep=True))}
+            torch, cnn_conv_shapes(), sweep=True)),
+        "serving_graph": (["matmul", "flash_attention", "paged_attention",
+                           "flash_decode"], lambda torch, cfg: phase_graph(
+            torch, cfg, profile=True))}
 
 
 def cnn_conv_shapes():
@@ -1791,6 +2022,7 @@ def main() -> None:
     stats.update(phase_flash_attention(torch, cfg))
     stats.update(phase_decode_kernels(torch, cfg))
     phase_card_vs_cpu(torch, cfg)
+    phase_graph(torch, cfg)
     cnn_params, conv_shapes = phase_cnn_card_vs_cpu(torch)
     stats.update(phase_conv_kernel(torch, conv_shapes))
     torch.cuda.empty_cache()

@@ -23,21 +23,30 @@ from .paged_attention import (paged_decode_cuda, paged_decode_quant_cuda,
 
 class BlockCount:
     """Blocks dropped by keep masks, summed on each mask's device so that
-    counting adds no host sync; ``value`` syncs once to read the total."""
+    counting adds no host sync; ``value`` syncs once to read the total.
+
+    Each device has one persistent int64 accumulator, updated in place
+    (``add_``) and zeroed in place by ``reset``: a decode step captured as
+    a CUDA graph records the add against the accumulator's address, so
+    every replay keeps counting into the same tensor."""
 
     def __init__(self):
         self._sums = {}
 
     def add(self, n: torch.Tensor) -> None:
-        prev = self._sums.get(n.device)
-        self._sums[n.device] = n if prev is None else prev + n
+        acc = self._sums.get(n.device)
+        if acc is None:
+            acc = self._sums[n.device] = torch.zeros(
+                (), dtype=torch.int64, device=n.device)
+        acc.add_(n)
 
     @property
     def value(self) -> int:
         return sum(int(v) for v in self._sums.values())
 
     def reset(self) -> None:
-        self._sums = {}
+        for acc in self._sums.values():
+            acc.zero_()
 
 
 def _count_dropped(counter: BlockCount, keep, cur_pos, bs: int,

@@ -18,9 +18,18 @@ and the fluid-simulation validation of the shaping claim.
 the CPU.  The bandwidth levers run on both: ``--kv-dtype int8/fp8``
 (packed KV pages), ``--sparse-threshold T`` (blockwise-sparse decode) and
 ``--prefix-cache``, in any mix, and ``--dense`` serves from the dense KV
-slab instead of the paged pool.  Flags whose slice has not landed are
-refused with the ROADMAP.md item that will bring them: ``--cluster``,
-``--cost-model measured``, ``--profile`` and ``--trace``.
+slab instead of the paged pool.  Every engine runs its decode steps as
+replays of one captured CUDA graph on the card
+(``serving/step_graph.py``); each engine's eager, replayed and capture
+counts are printed at the end.
+
+``--cost-model measured`` prices the demand-shaping rule from wall-clocked
+phase ops instead of the analytic decomposition; with ``--profile PATH``
+the run loads an existing calibration profile (frozen deterministic
+replay) or, when the file does not exist yet, calibrates live and writes
+it at exit, as the reference does.  Flags whose slice has not landed are
+refused with the ROADMAP.md item that will bring them: ``--cluster`` and
+``--trace``.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from repro_torch.device import resolve
 from repro_torch.models import api as mapi
 from repro_torch.obs import (format_summary, observe_phase_durations,
                              registry_from_engines)
+from repro_torch.profiling import make_cost_model, save_profile
 from repro_torch.profiling.cost_model import KV_PRICE_BYTES
 from repro_torch.serving import (CLOCKS, EventScheduler, PartitionEngine,
                                  RequestQueue, decode_cost, make_scheduler,
@@ -46,10 +56,6 @@ from repro_torch.serving.trace_sim import phase_balanced_bandwidth
 _NOT_PORTED = [
     ("--cluster N", lambda a: a.cluster is not None,
      "Queue 1 item 8 (cluster and PD with torch workers)"),
-    ("--cost-model measured", lambda a: a.cost_model == "measured",
-     "Queue 1 item 9 (measured cost on torch)"),
-    ("--profile", lambda a: a.profile is not None,
-     "Queue 1 item 9 (measured cost on torch)"),
     ("--trace", lambda a: a.trace is not None,
      "Queue 1 item 15 (tracing)"),
 ]
@@ -100,22 +106,29 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="T",
                     help="blockwise-sparse paged attention: skip KV blocks "
                          "whose estimated attention mass is below T")
+    ap.add_argument("--cost-model", default="analytic",
+                    choices=["analytic", "measured"],
+                    help="phase pricing: 'analytic' (the deterministic "
+                         "default) or 'measured' (wall-clocked phase ops "
+                         "over the analytic bytes / FLOPs)")
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="with --cost-model measured: replay this "
+                         "calibration profile (frozen) if it exists, else "
+                         "calibrate live and write it at exit")
     # the reference's flags whose slices have not landed (see _NOT_PORTED)
     ap.add_argument("--cluster", type=int, default=None, metavar="N",
                     help="controller + N worker cluster (not ported yet)")
     ap.add_argument("--simulated", action="store_true",
                     help="with --cluster: simulated workers (not ported yet)")
-    ap.add_argument("--cost-model", default="analytic",
-                    choices=["analytic", "measured"],
-                    help="phase pricing; only 'analytic' is ported")
-    ap.add_argument("--profile", default=None, metavar="PATH",
-                    help="measured-cost profile (not ported yet)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="Chrome-trace export (not ported yet)")
     return ap
 
 
-def main(argv=None):
+def main(argv=None, engines_out=None):
+    """Serve the load ``argv`` describes; returns each slot's token stream.
+    A list passed as ``engines_out`` gets the fleet's engines appended, so
+    a caller can read their counters after the run."""
     ap = build_parser()
     args = ap.parse_args(argv)
     for flag, is_set, item in _NOT_PORTED:
@@ -138,6 +151,17 @@ def main(argv=None):
     args.clock = args.clock if args.clock is not None else "event"
     slots = args.batch
     peak_per_part = hw.H100_PEAK_FLOPS / P  # partitions split one device
+
+    # --- phase pricing: one cost model shared by the whole fleet (same
+    # shapes, same device -> shared EMA buckets warm P times faster).
+    # measured + existing profile = frozen deterministic replay; measured
+    # without one = live calibration (saved to --profile at exit, if set).
+    cost_model = None  # None -> engines default to AnalyticCostModel
+    if args.cost_model == "measured":
+        cost_model = make_cost_model(
+            "measured", cfg, peak_per_part, profile=args.profile,
+            kv_dtype=args.kv_dtype,
+            sparse_keep=1.0 - args.sparse_threshold)
     max_len = args.prompt_len + 4 * args.gen + (cfg.n_meta_tokens or 0) + \
         (cfg.n_img_tokens or 0)
 
@@ -152,10 +176,13 @@ def main(argv=None):
                                peak_flops=peak_per_part,
                                paged=not args.dense,
                                block_size=args.block_size,
+                               cost_model=cost_model,
                                prefix_cache=args.prefix_cache,
                                kv_dtype=args.kv_dtype,
                                sparse_threshold=args.sparse_threshold)
                for p in range(P)]
+    if engines_out is not None:
+        engines_out.extend(engines)
 
     # --- request load + admission control ---
     kv_price = KV_PRICE_BYTES.get(args.kv_dtype)
@@ -195,6 +222,19 @@ def main(argv=None):
           f"dense={args.dense} slots={P}x{slots} "
           f"completed={s['requests_completed']}/{queue.n_submitted} "
           f"rejected={queue.n_rejected}")
+    for eng in engines:
+        g = eng.graph
+        if g is not None:
+            print(f"  decode graph p{eng.pid}: {g.n_eager} eager steps, "
+                  f"{g.n_replays} replays, capture {g.capture_s:.3f} s")
+    if cost_model is not None:
+        mode = "replay" if cost_model.timer is None else "calibrating"
+        print(f"  cost model: measured ({mode}) "
+              f"warm_buckets={cost_model.n_warm} "
+              f"observations={cost_model.n_observations}")
+        if cost_model.timer is not None and args.profile is not None:
+            out = save_profile(cost_model, args.profile)
+            print(f"  cost model: calibration profile written to {out}")
     reg = registry_from_engines(engines, queue=queue)
     observe_phase_durations(reg, getattr(sched, "trace", ()))
     achieved = sched.achieved_bw_stats() \

@@ -1,20 +1,37 @@
-"""Phase cost models: the analytic half.
+"""Phase cost models: analytic pricing, measured pricing, JSON profiles.
 
-The port's own copy of the reference's ``profiling/cost_model.py`` up to
-``AnalyticCostModel`` (logic unchanged, so the virtual clock prices every
-op exactly as the reference does).  A ``PhaseCost`` is (FLOPs, bytes,
-full-speed duration); its ``demand`` (bytes/s while running) is the
-quantity the scheduler's demand policy and the fluid simulator price their
-spacing and contention from.  ``AnalyticCostModel`` derives durations from
-the per-layer (FLOPs, bytes) decomposition (``core.traffic``) priced at
-``KIND_EFF`` efficiencies.  The measured model and profile persistence wait
-for their slice (ROADMAP.md, Queue 1 item 9).
+The port's own copy of the reference's ``profiling/cost_model.py``, logic
+unchanged, so the virtual clock prices every op exactly as the reference
+does; only the import paths and the default pricing rate
+(``hw.H100_PEAK_FLOPS``, the H100 data sheet's) differ.  A ``PhaseCost`` is
+(FLOPs, bytes, full-speed duration); its ``demand`` (bytes/s while
+running) is the quantity the scheduler's demand policy and the fluid
+simulator price their spacing and contention from.
+
+``AnalyticCostModel`` derives durations from the per-layer (FLOPs, bytes)
+decomposition (``core.traffic``) priced at ``KIND_EFF`` efficiencies: the
+deterministic default.
+
+``MeasuredCostModel`` keeps FLOPs and bytes analytic (shape arithmetic)
+but replaces the DURATION by the ``PhaseTimer`` EMA of the op's shape
+bucket once that bucket is warm (``min_samples`` observations), optionally
+blended with the analytic duration (``blend`` = weight of the measured
+term); cold buckets fall back to the analytic duration exactly.  On the
+card the engine feeds the timer from wall-clocked phase ops
+(``PartitionEngine._run_timed``), decode steps as graph replays.
+
+Profiles: ``save_profile`` writes the timer's EMA table (plus the config
+identity and pricing parameters) as JSON in the reference's format;
+``load_profile`` rebuilds a frozen, timer-less ``MeasuredCostModel`` from
+it, so one calibration run replays deterministically.
 """
 from __future__ import annotations
 
+import json
 from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
+from pathlib import Path
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -23,7 +40,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hw
 from repro_torch.core.shaping_sim import KIND_EFF
 from repro_torch.core.traffic import decode_kv_bytes, lm_layer_traces
-from repro_torch.profiling.timer import PhaseTimer
+from repro_torch.profiling.timer import PhaseTimer, shape_key
+
+PROFILE_VERSION = 1
+COST_MODELS = ("analytic", "measured")
 
 # Pricing-side byte width of one KV-cache element per pool layout.  ``None``
 # means "the model's own dtype_bytes" — the unquantized layout and the exact
@@ -259,3 +279,203 @@ class AnalyticCostModel(CostModel):
         return decode_cost(self.cfg, len(ctxs), ctxs, self.peak_flops,
                            self.dtype_bytes, kv_dtype_bytes=self._kv_bytes,
                            kv_keep=self.sparse_keep)
+
+
+class MeasuredCostModel(CostModel):
+    """Measured durations over the analytic bytes/FLOPs decomposition.
+
+    Every query first prices the op analytically, then replaces the
+    *duration* with the timer's EMA for the op's shape bucket when that
+    bucket is warm:
+
+        duration = blend * ema + (1 - blend) * analytic      (warm bucket)
+        duration = analytic                                  (cold bucket)
+
+    ``blend`` defaults to 1.0 (fully measured once warm); lower it to keep
+    the analytic prior in the mix on noisy devices.  Bytes and FLOPs stay
+    analytic (shape arithmetic), so ``demand = bytes / duration`` tracks
+    the measurement: an op the device runs slower than the roofline claims
+    demands fewer bytes/s but occupies the pipe longer — exactly the
+    correction the demand-spacing rule needs to see.
+    """
+
+    kind = "measured"
+
+    def __init__(self, cfg: ModelConfig,
+                 peak_flops: float = hw.H100_PEAK_FLOPS,
+                 dtype_bytes: int = 2, *,
+                 timer: Optional[PhaseTimer] = None, blend: float = 1.0,
+                 kv_dtype: str = "fp32", sparse_keep: float = 1.0):
+        if not 0.0 <= blend <= 1.0:
+            raise ValueError(f"blend must be in [0, 1], got {blend}")
+        self.analytic = AnalyticCostModel(cfg, peak_flops, dtype_bytes,
+                                          kv_dtype=kv_dtype,
+                                          sparse_keep=sparse_keep)
+        self.cfg = cfg
+        self.peak_flops = float(peak_flops)
+        self.dtype_bytes = int(dtype_bytes)
+        self.kv_dtype = kv_dtype
+        self.sparse_keep = float(sparse_keep)
+        # a frozen (replay) model has estimates but no live timer; keep the
+        # estimate store separate from the observation hook so both modes
+        # read through the same path
+        self._store = timer if timer is not None else PhaseTimer()
+        self.timer = timer
+        self.blend = float(blend)
+
+    # -- pricing -------------------------------------------------------------
+    def _priced(self, ana: PhaseCost, phase: str, batch: int,
+                tokens: int) -> PhaseCost:
+        ema = self._store.estimate(shape_key(phase, batch, tokens))
+        if ema is None:
+            return ana  # cold start: the analytic duration, exactly
+        dur = self.blend * ema + (1.0 - self.blend) * ana.duration
+        return PhaseCost(ana.flops, ana.byts, max(dur, 1e-15))
+
+    def prefill(self, batch: int, prompt_len: int,
+                cached: int = 0) -> PhaseCost:
+        # bucket on the EFFECTIVE (post-hit) length: a cached-prefix wave
+        # runs like a short one, and must share the short waves' EMA
+        eff = _eff_len(prompt_len, cached)
+        return self._priced(self.analytic.prefill(batch, prompt_len, cached),
+                            "prefill", batch, eff)
+
+    def prefill_ragged(self, lens: Sequence[int],
+                       cached_lens: Optional[Sequence[int]] = None
+                       ) -> PhaseCost:
+        effs = [int(l) for l in lens] if cached_lens is None else \
+            [_eff_len(l, c) for l, c in zip(lens, cached_lens)]
+        return self._priced(self.analytic.prefill_ragged(lens, cached_lens),
+                            "prefill", len(lens), max(effs))
+
+    def decode(self, ctxs: Sequence[int]) -> PhaseCost:
+        return self._priced(self.analytic.decode(ctxs),
+                            "decode", len(ctxs), sum(int(c) for c in ctxs))
+
+    # -- calibration state ---------------------------------------------------
+    @property
+    def n_observations(self) -> int:
+        return self._store.n_observations
+
+    @property
+    def n_warm(self) -> int:
+        return self._store.n_warm
+
+    def observe(self, phase: str, batch: int, tokens: int,
+                seconds: float) -> None:
+        """Inject one observation directly (tests / synthetic calibration;
+        the engine feeds the live ``timer`` itself)."""
+        self._store.observe(shape_key(phase, batch, tokens), seconds)
+
+
+# ---------------------------------------------------------------------------
+# profile persistence + factory
+# ---------------------------------------------------------------------------
+
+
+def save_profile(model: MeasuredCostModel, path) -> Path:
+    """Write the model's calibration state as JSON (deterministic layout:
+    sorted keys, so identical calibrations diff clean)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)  # a calibration run
+    # must never lose its data to a missing output directory at exit
+    doc = {
+        "version": PROFILE_VERSION,
+        "arch": getattr(model.cfg, "name", str(model.cfg)),
+        "peak_flops": model.peak_flops,
+        "dtype_bytes": model.dtype_bytes,
+        "kv_dtype": model.kv_dtype,
+        "sparse_keep": model.sparse_keep,
+        "blend": model.blend,
+        "alpha": model._store.alpha,
+        "min_samples": model._store.min_samples,
+        "stats": model._store.to_dict(),
+    }
+    path.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
+    return path
+
+
+def load_profile(path, cfg: ModelConfig, *,
+                 peak_flops: Optional[float] = None,
+                 live: bool = False) -> MeasuredCostModel:
+    """Rebuild a ``MeasuredCostModel`` from a saved profile.
+
+    The default is a FROZEN model (``timer is None``): it prices from the
+    saved EMAs and never changes — the deterministic replay mode simulation
+    and CI use.  ``live=True`` re-attaches the loaded store as a live timer
+    so a new run keeps calibrating on top of the profile.
+
+    ``peak_flops`` overrides the saved pricing rate for the analytic
+    fallback/bytes side (a profile calibrated at P=4's 1/4-device rate
+    replayed in a differently sized fleet); the measured EMAs are raw
+    seconds and carry over as-is.  A profile saved for a different arch is
+    rejected — durations do not transfer across models.
+    """
+    path = Path(path)
+    doc = json.loads(path.read_text())
+    if doc.get("version") != PROFILE_VERSION:
+        raise ValueError(f"{path}: unsupported profile version "
+                         f"{doc.get('version')!r} (want {PROFILE_VERSION})")
+    arch = getattr(cfg, "name", str(cfg))
+    if doc.get("arch") != arch:
+        raise ValueError(f"{path}: profile was calibrated for "
+                         f"{doc.get('arch')!r}, not {arch!r}")
+    store = PhaseTimer.from_dict(doc["stats"], alpha=doc.get("alpha", 0.25),
+                                 min_samples=doc.get("min_samples", 3))
+    model = MeasuredCostModel(
+        cfg,
+        peak_flops=float(peak_flops if peak_flops is not None
+                         else doc["peak_flops"]),
+        dtype_bytes=int(doc.get("dtype_bytes", 2)),
+        timer=store, blend=float(doc.get("blend", 1.0)),
+        kv_dtype=doc.get("kv_dtype", "fp32"),
+        sparse_keep=float(doc.get("sparse_keep", 1.0)))
+    if not live:
+        model.timer = None  # frozen: estimates stay, observation hook off
+    return model
+
+
+def make_cost_model(name: str, cfg: ModelConfig,
+                    peak_flops: float = hw.H100_PEAK_FLOPS, *,
+                    profile=None, dtype_bytes: int = 2,
+                    blend: Optional[float] = None,
+                    kv_dtype: str = "fp32",
+                    sparse_keep: float = 1.0) -> CostModel:
+    """One factory for the CLI / WorkerSpec axis.
+
+    ``analytic``                    -> the deterministic default;
+    ``measured``                    -> live calibration (fresh PhaseTimer);
+    ``measured`` + existing profile -> frozen deterministic replay.
+
+    ``blend=None`` means "the profile's saved value" on replay and the
+    fully-measured 1.0 for a fresh calibration; an explicit ``blend``
+    overrides either (a loaded profile keeps its saved ``dtype_bytes`` —
+    durations were calibrated against that layout).  ``kv_dtype`` /
+    ``sparse_keep`` reprice KV traffic for quantized / blockwise-sparse
+    pool layouts; non-default values override a loaded profile's saved
+    layout (bytes are shape arithmetic — the calibrated durations still
+    apply)."""
+    if name not in COST_MODELS:
+        raise ValueError(f"cost model must be one of {COST_MODELS}, "
+                         f"got {name!r}")
+    _check_kv_pricing(kv_dtype, sparse_keep)
+    if name == "analytic":
+        return AnalyticCostModel(cfg, peak_flops, dtype_bytes,
+                                 kv_dtype=kv_dtype, sparse_keep=sparse_keep)
+    if profile is not None and Path(profile).exists():
+        model = load_profile(profile, cfg, peak_flops=peak_flops)
+        if blend is not None:
+            if not 0.0 <= blend <= 1.0:
+                raise ValueError(f"blend must be in [0, 1], got {blend}")
+            model.blend = float(blend)
+        if kv_dtype != "fp32" or sparse_keep != 1.0:
+            model.kv_dtype = kv_dtype
+            model.sparse_keep = float(sparse_keep)
+            model.analytic = AnalyticCostModel(
+                cfg, model.peak_flops, model.dtype_bytes,
+                kv_dtype=kv_dtype, sparse_keep=sparse_keep)
+        return model
+    return MeasuredCostModel(cfg, peak_flops, dtype_bytes,
+                             timer=PhaseTimer(),
+                             blend=1.0 if blend is None else blend,
+                             kv_dtype=kv_dtype, sparse_keep=sparse_keep)

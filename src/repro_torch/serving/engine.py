@@ -44,6 +44,7 @@ from repro_torch.serving.kv_pool import (KV_DTYPES, NULL_BLOCK, BlockPool,
                                          ChainAlloc, PoolExhausted,
                                          kv_dtype_supported)
 from repro_torch.serving.queue import Request
+from repro_torch.serving.step_graph import DecodeGraph
 
 # model families whose per-sequence state does not live (only) in KV blocks:
 # SSM/hybrid recurrent state is a per-slot array (not content-addressable by
@@ -630,6 +631,15 @@ class PartitionEngine(EngineBase):
     ``decode_step`` — same serving semantics, the equivalence oracle.
     Enc-dec models and the KV handoff between engines are not ported yet
     and raise ``NotImplementedError`` naming their ROADMAP.md item.
+
+    Every decode step runs through the engine's ``DecodeGraph``
+    (``serving/step_graph.py``), the counterpart of the reference's jitted
+    step: on a card the first step runs eagerly on its static buffers, the
+    second is captured as a CUDA graph and every later one replays it; on
+    the CPU every step runs the same static-buffer path eagerly.
+    ``cuda_graph=False`` keeps the step that rebuilds its inputs and runs
+    eagerly every time: the equivalence gate and the profiler's A/B use
+    it, nothing else.
     """
 
     def __init__(self, cfg: ModelConfig, api, params, *, slots: int,
@@ -640,7 +650,7 @@ class PartitionEngine(EngineBase):
                  wave_only: bool = False,
                  cost_model: Optional[CostModel] = None,
                  prefix_cache: bool = False, kv_dtype: str = "fp32",
-                 sparse_threshold: float = 0.0):
+                 sparse_threshold: float = 0.0, cuda_graph: bool = True):
         if cfg.family == "encdec":
             raise NotImplementedError("enc-dec serving is not ported yet "
                                       "(ROADMAP.md, Queue 1 item 11)")
@@ -667,6 +677,8 @@ class PartitionEngine(EngineBase):
         self.pages = None          # paged mode: pool tensors (+ scales)
         self._last_tok = None      # (slots, 1) int32 host array
         self.last_logits = None    # (slots, V) np, for equivalence tests
+        self.cuda_graph = bool(cuda_graph)
+        self.graph: Optional[DecodeGraph] = None   # built at the 1st decode
 
     # -- batch assembly ------------------------------------------------------
     def _make_batch(self, prompts: List[np.ndarray]) -> dict:
@@ -730,8 +742,14 @@ class PartitionEngine(EngineBase):
         if self.paged:
             self._install_paged(cache, list(range(len(wave))))
             self.cache = None
-        else:
+        elif self.cache is None:
             self.cache = cache
+        else:
+            # one slab for the engine's life: a captured decode step reads
+            # the addresses of the first wave's slab, so later waves are
+            # copied into it (a refill writes it in place as well)
+            for key in ("k", "v", "len"):
+                self.cache[key].copy_(cache[key])
         first = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         last = np.ones((self.slots, 1), np.int32)
         last[:first.shape[0], 0] = first.reshape(-1)[:self.slots]
@@ -773,16 +791,60 @@ class PartitionEngine(EngineBase):
                          for r, l in zip(self.active, self.slot_lens)],
                         np.int32)
 
+    def _host_tables(self) -> np.ndarray:
+        tables = np.zeros((self.slots, self.table_width), np.int32)
+        for i, tbl in enumerate(self.slot_tables):
+            if self.active[i] is not None:
+                tables[i, :len(tbl)] = tbl
+        return tables
+
+    def _run_timed(self, phase: str, batch: int, tokens: int, fn):
+        # the decode steps that warm up and capture the graph cost what
+        # later steps do not: keep them out of the timer, as the base keeps
+        # out each bucket's first sample
+        if phase == "decode" and self.cuda_graph and \
+                not (self.graph is not None and self.graph.warm):
+            return fn()
+        return super()._run_timed(phase, batch, tokens, fn)
+
+    def _step_on(self, token, lens, tables=None):
+        """The decode step on the graph's static buffers: (logits (slots,
+        V) f32, greedy tokens (slots,) int32).  The pool or slab is
+        updated in place."""
+        if self.paged:
+            pcache = dict(self.pages, tables=tables, lens=lens)
+            logits, _ = self.api.decode_paged(
+                self.params, token, pcache,
+                sparse_threshold=self.sparse_threshold)
+        else:
+            logits, _ = self.api.decode(self.params, token,
+                                        dict(self.cache, len=lens))
+        logits = logits.reshape(self.slots, -1)
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
     def _run_decode(self):
+        if not self.cuda_graph:
+            return self._run_decode_eager()
+        if self.graph is None:
+            self.graph = DecodeGraph(
+                self._step_on, slots=self.slots, device=self.device,
+                table_width=self.table_width if self.paged else None)
+        logits, toks = self.graph(
+            self._last_tok, self._device_lens(),
+            self._host_tables() if self.paged else None)
+        self._last_tok = toks.reshape(self.slots, 1).cpu().numpy()
+        self.last_logits = logits.cpu().numpy()
+        return self._last_tok[:, 0]
+
+    def _run_decode_eager(self):
+        """The step without static buffers (``cuda_graph=False``): inputs
+        rebuilt on the device and every op issued from Python, each step."""
         token = torch.as_tensor(self._last_tok, device=self.device)
         lens = torch.as_tensor(self._device_lens(), device=self.device)
         if self.paged:
-            tables = np.zeros((self.slots, self.table_width), np.int32)
-            for i, tbl in enumerate(self.slot_tables):
-                if self.active[i] is not None:
-                    tables[i, :len(tbl)] = tbl
             pcache = dict(self.pages)
-            pcache["tables"] = torch.as_tensor(tables, device=self.device)
+            pcache["tables"] = torch.as_tensor(self._host_tables(),
+                                               device=self.device)
             pcache["lens"] = lens
             logits, pcache = self.api.decode_paged(
                 self.params, token, pcache,

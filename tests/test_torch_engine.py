@@ -10,8 +10,9 @@
   scheduler and cost model are the reference's code, copied; only the
   wall-clock throughput may differ).
 * The port's serve CLI completes every request on the CPU, with each
-  bandwidth lever and with ``--dense``, and refuses the flags whose slice
-  has not landed.
+  bandwidth lever, with ``--dense`` and with ``--cost-model measured``,
+  and refuses the flags whose slice has not landed (``--cluster``,
+  ``--trace``), naming their ROADMAP.md items.
 """
 import jax
 import numpy as np
@@ -126,7 +127,7 @@ def test_serve_cli_completes_every_request_on_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--dense"], ["--kv-dtype", "int8"], ["--sparse-threshold", "0.1"],
-    ["--prefix-cache"],
+    ["--prefix-cache"], ["--cost-model", "measured"],
 ])
 def test_serve_cli_serves_formerly_refused_flags(flags, capsys):
     outs = serve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
@@ -137,15 +138,14 @@ def test_serve_cli_serves_formerly_refused_flags(flags, capsys):
     assert "completed=6/6" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [
-    ["--cluster", "2"], ["--cost-model", "measured"],
-    ["--profile", "p.json"], ["--trace", "t.json"],
-])
+@pytest.mark.parametrize("flags", [["--cluster", "2"], ["--trace", "t.json"]])
 def test_serve_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
                     *flags])
-    assert "ROADMAP.md" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP.md" in err
+    assert ("item 8" if flags[0] == "--cluster" else "item 15") in err
 
 
 @pytest.mark.parametrize("kw,match", [
