@@ -20,7 +20,8 @@ times the tensor-core route at forced column tiles and split counts.
 (``matmul.cu``, ``flash_attention.cu``, ``paged_attention.cu``,
 ``flash_decode.cu``), runs phase 2's CUDA-graph checks and then
 ``profiling/decode_profile``'s A/B of eager decode steps against graph
-replays, and exits 0 without the result line.
+replays and ``profiling/prefill_profile``'s of eager refills and waves
+against theirs, and exits 0 without the result line.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -76,12 +77,21 @@ Phases (each raises on failure; nothing is caught):
    captured through ctypes replay bit for bit like their eager launches;
    a graph engine and a ``cuda_graph=False`` engine in lockstep (the
    2-layer fp32 model in the same six layouts, then full-width bf16
-   qwen2-7b on the float pool, refills included) give the same tokens and
-   live slots' logits bit for bit and the same dropped-block counts every
-   step, with 1 eager step and the rest replays.  The graph engine's
-   wrappers count its eager and its captured step as the eager engine's
-   count theirs and nothing on a replay, and a profiler trace of one
-   replay shows the same kernels by name as one eager step.
+   qwen2-7b on the float pool, four refills included, three of one
+   shape) give the same tokens, live slots' logits and KV state bit for
+   bit and the same dropped-block counts every step, with 1 eager step
+   and the rest replays; the graph engine's prefills
+   (``serving/prefill_graph.py``) share a cache with two engines that
+   seat a wave of its wave's shape first, so its wave is a replay, and
+   the cache runs each shape as an LRU does: eagerly at its first use,
+   captured at its second, replayed after that.  One more 2-layer run
+   refills more prompt lengths than the cache holds, so shapes are
+   evicted, run eagerly again and captured again.  The graph engine's
+   wrappers count its eager and captured prefills and steps as the eager
+   engine's count theirs and nothing on a replay, and profiler traces of
+   one replayed step and one replayed refill show the same kernels by
+   name as the eager engine's.  A prefix-cache hit seated by a replayed
+   refill gives logits bit-identical to a cold eager engine's.
    ResNet-50, GoogLeNet and VGG-16
    at 224, fp32, batch 2, built from one seed on both devices: logits
    within 1e-3 * max|cpu| (f32 on both sides, summed in other orders
@@ -92,14 +102,19 @@ Phases (each raises on failure; nothing is caught):
    then at a smaller load (1 partition, 4 requests, prompt 64) on the
    float pool, with ``--kv-dtype int8 --sparse-threshold T``, with
    ``--kv-dtype fp8``, with ``--sparse-threshold T --prefix-cache`` and
-   with ``--dense``.  Every request must complete, every bf16 prefill
-   matmul must take the tensor-core route, every kernel's launch count
-   must rise on the run that carries it (the counts are set to 0 just
-   before each run and read just after; they count the launches issued
-   eagerly and those recorded into each engine's graph, not its
-   replays), every engine must run one eager decode step, one capture and
-   replays (each run logs them and the capture's seconds), and the sparse
-   runs must drop blocks.  The CNN slice: ``repro_torch.models.cnn
+   with ``--dense``; then the refill-heavy load (32 requests through 2 x
+   4 slots, 24 refills) and the five lever runs again at a longer load
+   (16 requests x 16 tokens through 4 slots, 12 refills).  Every request
+   must complete, every bf16 prefill matmul must take the tensor-core
+   route, every kernel's launch count must rise on the run that carries
+   it (the counts are set to 0 just before each run and read just after;
+   they count the launches issued eagerly and those recorded into a
+   graph, not its replays), every engine must run one eager decode step,
+   one capture and replays, the fleet's one prefill cache must run each
+   shape eagerly once, capture it at its second use and replay it after
+   that, with nothing evicted (each run logs its graph counts and capture
+   seconds), the loads that repeat a prefill shape must replay it, and
+   the sparse runs must drop blocks.  The CNN slice: ``repro_torch.models.cnn
    .apply_cnn`` runs each of ResNet-50, GoogLeNet and VGG-16 at 224, batch
    64, fp32 on the card: one forward holds every conv2d and matmul call
    against its plain version on the call's own inputs (2e-4 of the
@@ -189,6 +204,9 @@ SLOTS, PROMPT, GEN = 4, 32, 16
 # the graph lockstep's step traced under the profiler: its third decode
 # step, the graph engine's first replay after the one that follows capture
 TRACED_STEP = 2
+# the graph lockstep's refill traced under the profiler: its third, the
+# third use of one refill shape, a replay
+TRACED_REFILL = 2
 # the lever runs: prompts of 64 tokens span 5 blocks of 16 once decode
 # starts, so a threshold of 0.25 > 1/5 leaves at least two blocks of every
 # (slot, kv head) below it, one of which is not the current block: blocks
@@ -197,6 +215,25 @@ LEVER_PROMPT, LEVER_GEN, THRESHOLD = 64, 8, 0.25
 LEVER_ARGS = ["--arch", "qwen2-7b", "--partitions", "1", "--requests", "4",
               "--batch", "4", "--prompt-len", str(LEVER_PROMPT), "--gen",
               str(LEVER_GEN), "--device", "cuda", "--no-sim"]
+
+
+def flag(argv, name: str) -> int:
+    return int(argv[argv.index(name) + 1])
+
+
+def with_flag(argv, name: str, value: int) -> list:
+    out = list(argv)
+    out[out.index(name) + 1] = str(value)
+    return out
+
+
+# the refill-heavy run: the calibration's load (32 requests through 2 x 4
+# slots: 8 in the waves, 24 by refills)
+REFILL_ARGS = with_flag(SERVE_ARGS, "--requests", 32)
+# the lever runs again at a load whose replayed steps and refills dominate
+# (16 requests x 16 tokens through 4 slots: one wave, 12 refills)
+LONG_LEVER_ARGS = with_flag(with_flag(LEVER_ARGS, "--requests", 16),
+                            "--gen", 16)
 LEVER_RUNS = {    # "paged": the float pool at the same load, for comparison
     "paged": [],
     "int8+sparse": ["--kv-dtype", "int8", "--sparse-threshold",
@@ -1408,6 +1445,44 @@ def phase_prefix_bitwise(torch, cfg2, params):
         f"{warm.n_cached_tokens} cached tokens): logits bit-identical to "
         f"cold engines")
 
+    # hits seated by slot refills: one slot, four requests, the refills'
+    # one shape eager, captured, then replayed; against a cold engine
+    # that prefills eagerly
+    order = [prompts[0], prompts[1], prompts[0], prompts[1]]
+
+    def refilled(cache, graph):
+        eng = PartitionEngine(cfg2, api, params, slots=1, max_len=64,
+                              block_size=bs, prefix_cache=cache,
+                              cuda_graph=graph)
+        q = RequestQueue()
+        for prompt in order:
+            q.submit(prompt, 4)
+        eng.assign(q.pop(len(order)))
+        eng.prefill_wave(0.0)
+        out = []
+        while eng.busy:
+            eng.decode_step(0.0)
+            out.append(eng.last_logits[0].copy())
+        return eng, out
+
+    (hit_eng, hit), (_, cold) = refilled(True, True), refilled(False, False)
+    pg = hit_eng.prefill_graphs
+    if hit_eng.n_refills != 3 or pg.n_replays - pg.n_captures < 1 or \
+            hit_eng.n_prefix_hits < 3:
+        fail(f"prefix cache: {hit_eng.n_refills} refills, "
+             f"{hit_eng.n_prefix_hits} hits, prefill graphs {pg.n_eager} "
+             f"eager / {pg.n_captures} captured / {pg.n_replays} replays "
+             "(want 3 refills, all hits, one replayed after its capture)")
+    for i, (h, c) in enumerate(zip(hit, cold, strict=True)):
+        if not np.array_equal(h, c):
+            fail(f"prefix cache: refilled hit logits differ from a cold "
+                 f"eager engine's at decode step {i} (max abs diff "
+                 f"{float(np.abs(h - c).max()):.3g}); bitwise expected")
+    log(f"phase 2: prefix-cache hits seated by refills ({hit_eng.n_prefix_hits}"
+        f" hits; prefills {pg.n_eager} eager, {pg.n_captures} captured, "
+        f"{pg.n_replays} replays): logits over {len(hit)} decode steps "
+        f"bit-identical to a cold eager engine")
+
 
 # ---------------------------------------------------------------------------
 # phase 2 (continued): the decode step captured as a CUDA graph
@@ -1462,45 +1537,174 @@ def phase_graph_probe(torch):
         "bit (and again on new inputs)")
 
 
-def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps, **kw):
+def lru_kinds(keys, bound: int) -> list:
+    """What a ``PrefillGraphs`` of ``bound`` entries does at each use of
+    ``keys``, in order: "eager" at a shape's first use since it was last
+    admitted (the least recently used entry out first when full),
+    "capture" at its second, "replay" after that."""
+    from collections import OrderedDict
+
+    held, out = OrderedDict(), []
+    for k in keys:
+        if k not in held:
+            if len(held) >= bound:
+                held.popitem(last=False)
+            held[k] = False
+            out.append("eager")
+        else:
+            held.move_to_end(k)
+            out.append("replay" if held[k] else "capture")
+            held[k] = True
+    return out
+
+
+def live_state(torch, eng) -> dict:
+    """The KV state an engine's live slots read, as raw bytes: the pool
+    blocks in their tables but the null block (every inactive slot's rows
+    land there by one scatter, in an order the card does not fix), or
+    their rows of the dense slab."""
+    from repro_torch.serving.kv_pool import NULL_BLOCK
+
+    live = [i for i, r in enumerate(eng.active) if r is not None]
+    if eng.paged:
+        rows = sorted({b for i in live for b in eng.slot_tables[i]}
+                      - {NULL_BLOCK})
+        state = eng.pages
+    else:
+        rows, state = live, {k: eng.cache[k] for k in ("k", "v")}
+    idx = torch.tensor(rows, dtype=torch.long, device=eng.device)
+    return {k: t.index_select(1, idx).contiguous().view(torch.uint8)
+            for k, t in state.items()}
+
+
+def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
+                   evicting=False, **kw):
     """A graph engine and a ``cuda_graph=False`` engine on one stream in
-    lockstep: after every decode step the same occupancy, tokens and live
-    slots' logits bit for bit and the same dropped blocks.  The wrappers'
-    counts (by wrapper and matmul route) of the graph engine's eager and
-    captured steps equal the eager engine's, and a replay adds none; the
-    port's kernels in a profiler trace of step ``TRACED_STEP`` are the
-    same, by name, in the replay and in the eager step.  Inactive slots
-    are left out of the logits: their rows all go to null block 0 by one
-    scatter, whose order among duplicate indices the card does not fix.
-    Returns the number of steps."""
+    lockstep: after the wave and every decode step the same occupancy and
+    tokens, and bit for bit the same KV state of the live slots (pool
+    blocks or slab rows); after every step the same live slots' logits
+    and dropped blocks.  The graph engine decodes through its
+    ``DecodeGraph`` and prefills through a ``PrefillGraphs`` it shares
+    with two engines that seat a wave of its wave's shape before it (other
+    tokens, the lengths in another order; eager, then captured), so its
+    own wave is a replay, whose logits equal the eager engine's bit for
+    bit.  ``lens`` after the first SLOTS are the refills' prompt lengths
+    in order; each prefill of the cache does what ``lru_kinds`` says for
+    its bound, ``MAX_GRAPHS`` (with ``evicting``, shapes must be evicted
+    and captured again).  The wrappers' counts (by wrapper and matmul
+    route) of each eager or captured prefill and of the graph
+    engine's eager and captured decode steps equal the eager engine's,
+    and a replay adds none; the port's kernels in a profiler trace of
+    decode step ``TRACED_STEP`` and of refill ``TRACED_REFILL`` (both
+    replays) are the same, by name, as the eager engine's.  Inactive
+    slots are left out of the logits: their rows all go to null block 0 by
+    one scatter, whose order among duplicate indices the card does not
+    fix.  Returns the number of steps."""
     import numpy as np
 
     from repro_torch.kernels import counts
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models import api as mapi
     from repro_torch.profiling.decode_profile import port_kernels
-    from repro_torch.serving import PartitionEngine, RequestQueue
+    from repro_torch.serving import PartitionEngine, PrefillGraphs, \
+        RequestQueue
     from repro_torch.serving.step_graph import WRAPPERS
 
     api = mapi.build(cfg2, "cuda")
-    engines = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, port_kernels(prof.key_averages())
+
+    def zero(issued):
+        return tuple((0, dict.fromkeys(r, 0)) for _, r in issued)
+
+    pg = PrefillGraphs(api)
+    hist = {"primer": [], "graph": [], "eager": []}   # every prefill, in order
+    traced_refill = {}
+
+    def recorded(mode, eng, what, inner):
+        """``inner`` (the engine's wave or refill hook), recording its
+        counts, its cache key and what the cache did, and a wave's logits;
+        tracing refill ``TRACED_REFILL``."""
+        def run(*args):
+            n = sum(r["what"] == what for r in hist[mode])
+            before = counts.snapshot(WRAPPERS)
+            if what == "refill" and n == TRACED_REFILL:
+                out, traced_refill[mode] = traced(lambda: inner(*args))
+            else:
+                out = inner(*args)
+            rec = dict(what=what,
+                       counts=counts.diff(counts.snapshot(WRAPPERS), before))
+            if eng.prefill_graphs is not None:
+                key = next(reversed(pg._entries))    # the entry just used
+                rec.update(key=key, kind=pg._entries[key].last)
+            if what == "wave":
+                rec["logits"] = out[0][:len(args[0])].float().cpu().numpy()
+            hist[mode].append(rec)
+            return out
+        return run
+
     rng = np.random.default_rng(11)
     prompts = [rng.integers(1, cfg2.vocab, size=(n,)).astype(np.int32)
                for n in lens]
-    for mode in ("graph", "eager"):
-        eng = engines[mode] = PartitionEngine(
+    # the primers' wave: the same shape with other tokens and the lengths
+    # in another order, so a replay that kept a stale input shows
+    primed = [rng.integers(1, cfg2.vocab, size=(n,)).astype(np.int32)
+              for n in lens[1:SLOTS] + lens[:1]]
+
+    def engine(mode, prompts, gens):
+        eng = PartitionEngine(
             cfg2, api, params, slots=SLOTS, max_len=max(lens) + max(gens),
-            cuda_graph=mode == "graph", **kw)
+            cuda_graph=mode != "eager",
+            prefill_graphs=pg if mode != "eager" else None, **kw)
+        eng._wave_prefill_cache = recorded(mode, eng, "wave",
+                                           eng._wave_prefill_cache)
+        eng._refill_slot = recorded(mode, eng, "refill", eng._refill_slot)
         q = RequestQueue()
         for prompt, gen in zip(prompts, gens):
             q.submit(prompt, gen)
         eng.assign(q.pop(len(prompts)))
         eng.prefill_wave(0.0)
-    dropped = (pa_ops.paged_decode_sparse, pa_ops.paged_decode_quant)
+        return eng
+
+    for _ in range(2):      # the wave's shape: eager, then captured
+        engine("primer", primed, gens)
+    engines = {mode: engine(mode, prompts, gens) for mode in ("graph",
+                                                              "eager")}
     ge, ee = engines["graph"], engines["eager"]
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    traced = {}
+    wave, got = hist["eager"][0], hist["graph"][0]
+    for rec in hist["primer"] + [got]:
+        want = zero(wave["counts"]) if rec["kind"] == "replay" \
+            else wave["counts"]
+        if rec["counts"] != want:
+            fail(f"graph lockstep {name}: a {rec['kind']} wave's counts "
+                 f"{rec['counts']}, want {want}")
+    if [r["kind"] for r in hist["primer"]] != ["eager", "capture"] or \
+            got["kind"] != "replay" or \
+            not np.array_equal(got["logits"], wave["logits"]):
+        fail(f"graph lockstep {name}: the graph engine's wave "
+             f"({got['kind']}) after the primers' "
+             f"{[r['kind'] for r in hist['primer']]}: logits bit for bit the "
+             f"eager wave's: {np.array_equal(got['logits'], wave['logits'])}")
+
+    def same_state(where):
+        if ge.slot_tokens != ee.slot_tokens:
+            fail(f"graph lockstep {name}: tokens differ {where}")
+        a, b = live_state(torch, ge), live_state(torch, ee)
+        bad = [k for k in b if not torch.equal(a[k], b[k])]
+        if a.keys() != b.keys() or bad:
+            fail(f"graph lockstep {name}: the live slots' KV state differs "
+                 f"{where} in {bad or sorted(a)}")
+
+    same_state("after the wave")
+    dropped = (pa_ops.paged_decode_sparse, pa_ops.paged_decode_quant)
+    traced_step = {}
     steps = 0
     while ee.busy:
         live = [i for i, r in enumerate(ee.active) if r is not None]
@@ -1513,25 +1717,16 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps, **kw):
                 w.dropped_blocks.reset()
             before = counts.snapshot(WRAPPERS)
             if steps == TRACED_STEP:
-                torch.cuda.synchronize()
-                with torch.profiler.profile(activities=acts) as prof:
-                    pend = eng.issue_decode()
-                    torch.cuda.synchronize()
-                traced[mode] = port_kernels(prof.key_averages())
+                pend, traced_step[mode] = traced(eng.issue_decode)
             else:
                 pend = eng.issue_decode()
-            decoded = counts.snapshot(WRAPPERS)
-            eng.commit_op(pend, pend.cost.duration)      # retire, refill
-            seen[mode] = (counts.diff(decoded, before),
-                          counts.diff(counts.snapshot(WRAPPERS), decoded),
+            seen[mode] = (counts.diff(counts.snapshot(WRAPPERS), before),
                           [w.dropped_blocks.value for w in dropped])
+            eng.commit_op(pend, pend.cost.duration)      # retire, refill
         # the graph engine's wrappers issue its eager step and, into the
-        # graph, its captured one; a replay issues nothing from Python.
-        # Refills run eagerly in both engines.
-        issued, refilled, eager_dropped = seen["eager"]
-        want = (issued if steps < 2 else
-                tuple((0, dict.fromkeys(r, 0)) for _, r in issued),
-                refilled, eager_dropped)
+        # graph, its captured one; a replay issues nothing from Python
+        issued, eager_dropped = seen["eager"]
+        want = (issued if steps < 2 else zero(issued), eager_dropped)
         if seen["graph"] != want:
             fail(f"graph lockstep {name}: step {steps} counts differ: graph "
                  f"{seen['graph']}, want {want}")
@@ -1539,26 +1734,76 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps, **kw):
         if not np.array_equal(a, b):
             fail(f"graph lockstep {name}: live slots' logits differ at step "
                  f"{steps} (max abs diff {float(np.abs(a - b).max()):.3g})")
+        same_state(f"after step {steps}")
         steps += 1
-    if ge.busy or ge.slot_tokens != ee.slot_tokens:
-        fail(f"graph lockstep {name}: generated tokens differ")
+    if ge.busy:
+        fail(f"graph lockstep {name}: the graph engine is still busy")
     gr = ge.graph
     if steps < min_steps or gr.n_eager != 1 or gr.n_replays != steps - 1:
         fail(f"graph lockstep {name}: {steps} steps, {gr.n_eager} eager, "
              f"{gr.n_replays} replays (want >= {min_steps} steps, 1 eager, "
              "the rest replays)")
-    if not traced["eager"] or traced["graph"] != traced["eager"]:
+    if not traced_step["eager"] or traced_step["graph"] != \
+            traced_step["eager"]:
         fail(f"graph lockstep {name}: the port's kernels in a profiler trace "
-             f"of step {TRACED_STEP}: replay {traced['graph']}, eager step "
-             f"{traced['eager']}")
-    log(f"phase 2: graph lockstep {name}: {steps} decode steps ({ge.n_refills}"
-        f" refills), 1 eager + {gr.n_replays} replays (capture "
-        f"{gr.capture_s:.3f} s) equal the eager engine bit for bit in tokens "
-        f"and live logits, and in dropped blocks every step; the wrappers "
-        f"issued the eager and the captured step as the eager engine did and "
-        f"nothing on a replay; a profiler trace of step {TRACED_STEP} shows "
-        f"the same port kernels in the replay as in the eager step: "
-        f"{traced['graph']}")
+             f"of step {TRACED_STEP}: replay {traced_step['graph']}, eager "
+             f"step {traced_step['eager']}")
+    # each prefill of the cache as an LRU of MAX_GRAPHS does it; its counts
+    # the eager engine's for an eager run or a capture, none for a replay
+    cached = hist["primer"] + hist["graph"]
+    kinds = [r["kind"] for r in cached]
+    if kinds != lru_kinds([r["key"] for r in cached], pg.max_graphs):
+        fail(f"graph lockstep {name}: the prefill cache did {kinds}, not "
+             f"what an LRU of {pg.max_graphs} does")
+    if [r["what"] for r in hist["graph"]] != \
+            [r["what"] for r in hist["eager"]]:
+        fail(f"graph lockstep {name}: prefills {len(hist['graph'])} and "
+             f"{len(hist['eager'])} (want the same waves and refills)")
+    for k, (got, ref) in enumerate(zip(hist["graph"], hist["eager"])):
+        want = zero(ref["counts"]) if got["kind"] == "replay" \
+            else ref["counts"]
+        if got["counts"] != want:
+            fail(f"graph lockstep {name}: prefill {k} ({got['what']}, "
+                 f"{got['kind']}) counts differ: graph {got['counts']}, "
+                 f"want {want}")
+    refills = [r for r in hist["graph"] if r["what"] == "refill"]
+    n_kinds = {k: kinds.count(k) for k in ("eager", "capture", "replay")}
+    recaptured = n_kinds["capture"] > len({r["key"] for r in cached
+                                           if r["kind"] == "capture"})
+    if len(refills) <= TRACED_REFILL or \
+            refills[TRACED_REFILL]["kind"] != "replay" or \
+            (pg.n_eager, pg.n_captures, pg.n_replays) != (
+                n_kinds["eager"], n_kinds["capture"],
+                n_kinds["capture"] + n_kinds["replay"]) or \
+            len(pg) > pg.max_graphs or \
+            pg.n_evictions != pg.n_eager - len(pg) or \
+            (evicting and not (pg.n_evictions and recaptured)) or \
+            (not evicting and pg.n_evictions):
+        fail(f"graph lockstep {name}: prefill graphs {pg.n_eager} eager, "
+             f"{pg.n_captures} captures, {pg.n_replays} replays, "
+             f"{pg.n_evictions} evictions, {len(pg)} held over uses "
+             f"{n_kinds}; refill {TRACED_REFILL} a replay (want it; "
+             f"evictions and shapes captured again: {evicting})")
+    if not traced_refill["eager"] or traced_refill["graph"] != \
+            traced_refill["eager"]:
+        fail(f"graph lockstep {name}: the port's kernels in a profiler trace "
+             f"of refill {TRACED_REFILL}: replay {traced_refill['graph']}, "
+             f"eager {traced_refill['eager']}")
+    log(
+        f"phase 2: graph lockstep {name}: {steps} decode steps "
+        f"({ge.n_refills} refills), 1 eager + {gr.n_replays} replays (capture "
+        f"{gr.capture_s:.3f} s) equal the eager engine bit for bit in tokens, "
+        f"live logits, dropped blocks and the live slots' KV state every "
+        f"step; its wave a replay (after two other waves of its shape, "
+        f"eager and captured), logits bit for bit the eager wave's; prefills "
+        f"{pg.n_eager} eager, {pg.n_captures} captured, {pg.n_replays} "
+        f"replays, {pg.n_evictions} evictions (capture {pg.capture_s:.3f} s) "
+        f"over {len(pg.uses)} shapes, as an LRU of {pg.max_graphs} does; the "
+        f"wrappers issued the eager and captured prefills and steps as the "
+        f"eager engine did and nothing on a replay; profiler traces of step "
+        f"{TRACED_STEP} and refill {TRACED_REFILL} show the same port "
+        f"kernels replayed as eager: {traced_step['graph']}, "
+        f"{traced_refill['graph']}")
     return steps
 
 
@@ -1570,12 +1815,15 @@ def phase_graph(torch, cfg, profile=False):
     ``profiling/decode_profile``'s A/B of eager steps against replays.
     Returns no kernel stats (the kernels are phase 1's)."""
     from repro_torch.models import transformer as TF
+    from repro_torch.serving.prefill_graph import MAX_GRAPHS
 
     phase_graph_probe(torch)
     cfg2 = cfg.replace(n_layers=2, dtype="float32")
     params = TF.init_lm(cfg2, torch.Generator(device="cuda").manual_seed(2),
                         "cuda")
-    lens, gens = [PROMPT, 20, 27, 9, 14, 25], [8, 3, 7, 6, 5, 4]
+    # the wave, then four refills, three of one shape (eager, capture,
+    # replay)
+    lens, gens = [PROMPT, 20, 27, 9, 14, 14, 14, 25], [8, 3, 7, 6, 5, 4, 3, 4]
     layouts = {"fp32": {}, "int8": dict(kv_dtype="int8"),
                "fp8": dict(kv_dtype="fp8"),
                "fp32+sparse": dict(sparse_threshold=THRESHOLD, block_size=8),
@@ -1584,22 +1832,36 @@ def phase_graph(torch, cfg, profile=False):
                "dense": dict(paged=False)}
     for name, kw in layouts.items():
         graph_lockstep(torch, cfg2, params, name, lens, gens, 6, **kw)
+    # more refill shapes than the cache holds (MAX_GRAPHS + 8 lengths and
+    # the wave's shape): MAX_GRAPHS / 2 + 8 captured, the rest admitted
+    # over them, the first two admitted again (eager) and captured again,
+    # a resident one replayed
+    n_a = MAX_GRAPHS // 2 + 8
+    a = list(range(8, 8 + n_a))
+    b = list(range(a[-1] + 1, 8 + MAX_GRAPHS + 8))
+    evict = [a[0]] * 3 + [n for n in a[1:] for _ in range(2)] + b + \
+        [a[0]] * 3 + [a[1]] * 2 + [a[-1]]
+    graph_lockstep(torch, cfg2, params, "fp32 evicting",
+                   [PROMPT] * SLOTS + evict, [3] * SLOTS + [2] * len(evict),
+                   6, evicting=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     params = TF.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
     graph_lockstep(torch, cfg, params, "full-width bf16 float pool",
-                   [PROMPT] * SLOTS + [24, 40], [8, 4, 8, 7, 5, 4], 6)
+                   [PROMPT] * SLOTS + [24, 24, 24, 40],
+                   [8, 4, 8, 7, 5, 4, 3, 4], 6)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     if profile:
-        from repro_torch.profiling import decode_profile
+        from repro_torch.profiling import decode_profile, prefill_profile
 
-        decode_profile.report(decode_profile.run())
-        gc.collect()
-        torch.cuda.empty_cache()
+        for prof in (decode_profile, prefill_profile):
+            prof.report(prof.run())
+            gc.collect()
+            torch.cuda.empty_cache()
     return {}
 
 
@@ -1691,6 +1953,21 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
             any(g.n_eager != 1 or g.graph is None for g in gs):
         fail(f"serve {name}: decode graphs {graphs}: every engine must run "
              "one eager step, capture once and replay the rest")
+    # one prefill cache for the fleet: each shape one eager run, a capture
+    # at its second use and replays after that; nothing evicted
+    pg = engines[0].prefill_graphs
+    uses = list(pg.uses.values())
+    prefills = dict(shapes=len(uses), uses=sum(uses), eager=pg.n_eager,
+                    captures=pg.n_captures, replays=pg.n_replays,
+                    evictions=pg.n_evictions, capture_s=pg.capture_s)
+    if any(e.prefill_graphs is not pg for e in engines) or \
+            sum(uses) != sum(e.n_prefills + e.n_refills for e in engines) \
+            or pg.n_evictions or pg.n_eager != len(uses) or \
+            pg.n_captures != sum(u >= 2 for u in uses) or \
+            pg.n_replays != sum(u - 1 for u in uses):
+        fail(f"serve {name}: prefill graphs {prefills} over uses {uses}: "
+             "the fleet must share one cache, and each shape run eagerly "
+             "once, be captured at its second use and replay the rest")
     if tokens != n_req * gen:
         fail(f"serve {name}: {tokens} tokens generated, expected {n_req} "
              f"requests x {gen} (a request did not complete)")
@@ -1703,12 +1980,16 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
         f"{launches}, matmul launches by route {routes}, dropped blocks "
         f"{dropped}; decode steps {graphs['eager']} eager, "
         f"{graphs['replays']} replayed, {graphs['captures']} captures in "
-        f"{graphs['capture_s']:.3f} s")
+        f"{graphs['capture_s']:.3f} s; prefills ({prefills['shapes']} "
+        f"shapes) {prefills['eager']} eager, {prefills['replays']} replayed, "
+        f"{prefills['captures']} captures in {prefills['capture_s']:.3f} s, "
+        f"{sum(e.n_refills for e in engines)} of them refills")
     return dict(launches=launches, routes=routes, dropped=dropped, wall=wall,
-                tokens=tokens, graphs=graphs)
+                tokens=tokens, graphs=graphs, prefills=prefills)
 
 
-# the kernels each phase-3 run must launch (launch count above 0)
+# the kernels each phase-3 run must launch (launch count above 0); the
+# refill-heavy run and the long lever runs carry their counterparts'
 CARRIES = {"baseline": ("matmul", "flash_attention", "paged_decode"),
            "paged": ("matmul", "flash_attention", "paged_decode"),
            "int8+sparse": ("matmul", "flash_attention",
@@ -1717,18 +1998,22 @@ CARRIES = {"baseline": ("matmul", "flash_attention", "paged_decode"),
            "sparse+prefix": ("matmul", "flash_attention",
                              "paged_decode_sparse"),
            "dense": ("matmul", "flash_attention", "flash_decode")}
+CARRIES["refill-heavy"] = CARRIES["baseline"]
+CARRIES.update({f"long {k}": CARRIES[k] for k in LEVER_RUNS})
 
 
 def phase_serve(torch, cfg, wrappers):
-    runs = {"baseline": serve_run(
-        torch, cfg, wrappers, "baseline", SERVE_ARGS,
-        int(SERVE_ARGS[SERVE_ARGS.index("--requests") + 1]), GEN)}
-    n_req = int(LEVER_ARGS[LEVER_ARGS.index("--requests") + 1])
-    for name, flags in LEVER_RUNS.items():
+    loads = [("baseline", SERVE_ARGS)]
+    loads += [(name, LEVER_ARGS + flags) for name, flags in LEVER_RUNS.items()]
+    loads += [("refill-heavy", REFILL_ARGS)]
+    loads += [(f"long {name}", LONG_LEVER_ARGS + flags)
+              for name, flags in LEVER_RUNS.items()]
+    runs = {}
+    for name, argv in loads:
         gc.collect()            # the last run's 15 GB of weights, engines
         torch.cuda.empty_cache()  # and pools may sit in reference cycles
-        runs[name] = serve_run(torch, cfg, wrappers, name,
-                               LEVER_ARGS + flags, n_req, LEVER_GEN)
+        runs[name] = serve_run(torch, cfg, wrappers, name, argv,
+                               flag(argv, "--requests"), flag(argv, "--gen"))
     for name, kernels in CARRIES.items():
         for k in kernels:
             if runs[name]["launches"][k] == 0:
@@ -1741,8 +2026,13 @@ def phase_serve(torch, cfg, wrappers):
                  f"bf16 prefill matmuls did not all take mm_mma")
     for name, k in (("int8+sparse", "paged_decode_quant"),
                     ("sparse+prefix", "paged_decode_sparse")):
-        if runs[name]["dropped"][k] == 0:
-            fail(f"serve {name}: the keep masks dropped no block")
+        for run in (name, f"long {name}"):
+            if runs[run]["dropped"][k] == 0:
+                fail(f"serve {run}: the keep masks dropped no block")
+    # the loads that repeat a prefill shape replay it
+    for name in ["refill-heavy"] + [f"long {k}" for k in LEVER_RUNS]:
+        if runs[name]["prefills"]["replays"] == 0:
+            fail(f"serve {name}: no prefill replayed")
     return runs
 
 

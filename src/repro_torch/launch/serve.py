@@ -20,8 +20,10 @@ the CPU.  The bandwidth levers run on both: ``--kv-dtype int8/fp8``
 ``--prefix-cache``, in any mix, and ``--dense`` serves from the dense KV
 slab instead of the paged pool.  Every engine runs its decode steps as
 replays of one captured CUDA graph on the card
-(``serving/step_graph.py``); each engine's eager, replayed and capture
-counts are printed at the end.
+(``serving/step_graph.py``), and its prefill waves and slot refills as
+replays of one graph per shape from a cache the fleet shares
+(``serving/prefill_graph.py``); each engine's decode counts and the
+fleet's prefill counts are printed at the end.
 
 ``--cost-model measured`` prices the demand-shaping rule from wall-clocked
 phase ops instead of the analytic decomposition; with ``--profile PATH``
@@ -49,6 +51,7 @@ from repro_torch.profiling.cost_model import KV_PRICE_BYTES
 from repro_torch.serving import (CLOCKS, EventScheduler, PartitionEngine,
                                  RequestQueue, decode_cost, make_scheduler,
                                  prefill_cost, serving_trace_report)
+from repro_torch.serving.prefill_graph import PrefillGraphs
 from repro_torch.serving.trace_sim import phase_balanced_bandwidth
 
 # flags accepted for parity with the reference CLI whose slice has not
@@ -169,8 +172,11 @@ def main(argv=None, engines_out=None):
     # deployments replicate per partition (the reuse-vs-shaping tradeoff).
     # Built BEFORE the request load so admission control can probe the
     # fleet's prefix caches (a hit-eligible request is priced post-hit).
+    # One cache of prefill graphs for the fleet: each shape is captured
+    # once, not once per partition.
     api = mapi.build(cfg, device)
     params = api.init(torch.Generator(device=device).manual_seed(0))
+    prefill_graphs = PrefillGraphs(api)
     engines = [PartitionEngine(cfg, api, params, slots=slots,
                                max_len=max_len, pid=p,
                                peak_flops=peak_per_part,
@@ -179,7 +185,8 @@ def main(argv=None, engines_out=None):
                                cost_model=cost_model,
                                prefix_cache=args.prefix_cache,
                                kv_dtype=args.kv_dtype,
-                               sparse_threshold=args.sparse_threshold)
+                               sparse_threshold=args.sparse_threshold,
+                               prefill_graphs=prefill_graphs)
                for p in range(P)]
     if engines_out is not None:
         engines_out.extend(engines)
@@ -227,6 +234,10 @@ def main(argv=None, engines_out=None):
         if g is not None:
             print(f"  decode graph p{eng.pid}: {g.n_eager} eager steps, "
                   f"{g.n_replays} replays, capture {g.capture_s:.3f} s")
+    pg = prefill_graphs
+    print(f"  prefill graphs: {len(pg.uses)} shapes, {pg.n_eager} eager "
+          f"runs, {pg.n_captures} captures, {pg.n_replays} replays, "
+          f"{pg.n_evictions} evictions, capture {pg.capture_s:.3f} s")
     if cost_model is not None:
         mode = "replay" if cost_model.timer is None else "calibrating"
         print(f"  cost model: measured ({mode}) "

@@ -93,33 +93,38 @@ def _engine(cfg, api, params, cuda_graph: bool) -> PartitionEngine:
     return engine
 
 
-def _timed_steps(engine, device, n: int):
+def timed(op, device, n: int):
+    """Wall seconds of each of ``n`` calls of ``op()``, with the card
+    synchronised on both edges."""
     walls = []
     for _ in range(n):
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        engine.decode_step(0.0)
+        op()
         torch.cuda.synchronize(device)
         walls.append(time.perf_counter() - t0)
     return walls
 
 
-def _profiled(engine, device):
+def profiled(op, device, n: int):
+    """``n`` calls of ``op()`` under the profiler: its ``key_averages()``
+    rows and the device ms a call (every kernel, copy and memset)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize(device)
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(STEPS):
-            engine.decode_step(0.0)
+        for _ in range(n):
+            op()
         torch.cuda.synchronize(device)
     events = prof.key_averages()
-    return events, sum(_device_us(e) for e in events) / STEPS / 1e3
+    return events, sum(_device_us(e) for e in events) / n / 1e3
 
 
-def _replay_ms(graph, device) -> float:
-    """Mean CUDA-event span of ``REPLAYS`` bare replays (the host queues
-    them all while the card sleeps ~10 ms, so the span is device time).
-    A bare replay rewrites the same K/V rows with the same values."""
+def replay_ms(graph, device) -> float:
+    """Mean CUDA-event span of ``REPLAYS`` bare replays of ``graph`` (the
+    host queues them all while the card sleeps ~10 ms, so the span is
+    device time).  A bare replay of a decode step or a prefill rewrites
+    the same K/V rows with the same values."""
     graph.replay()
     torch.cuda.synchronize(device)
     t0 = torch.cuda.Event(enable_timing=True)
@@ -131,6 +136,29 @@ def _replay_ms(graph, device) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / REPLAYS
+
+
+def in_turns(ops, device, n: int):
+    """``ops`` ({"eager": op, "graph": op}) timed in turns, eager, graph,
+    graph, eager, ``n`` calls a turn, then ``n`` more of each under the
+    profiler.  Returns ({mode: {wall_ms, wall_min_ms, wall_max_ms,
+    device_ms, idle, kernels}}, {mode: profiler rows})."""
+    walls = {m: [] for m in MODES}
+    for mode in ("eager", "graph", "graph", "eager"):
+        walls[mode] += timed(ops[mode], device, n)
+    out, tables = {}, {}
+    for mode in MODES:
+        events, dev_ms = profiled(ops[mode], device, n)
+        tables[mode] = events
+        med = float(np.median(walls[mode]))
+        out[mode] = {
+            "wall_ms": med * 1e3, "wall_min_ms": min(walls[mode]) * 1e3,
+            "wall_max_ms": max(walls[mode]) * 1e3,
+            "device_ms": dev_ms if dev_ms > 0 else None,
+            "idle": 1 - dev_ms / (med * 1e3) if dev_ms > 0 else None,
+            "kernels": {k: c / n
+                        for k, c in sorted(port_kernels(events).items())}}
+    return out, tables
 
 
 def run(arch: str = "qwen2-7b") -> dict:
@@ -147,24 +175,10 @@ def run(arch: str = "qwen2-7b") -> dict:
     for eng in engines.values():
         for _ in range(WARM):
             eng.decode_step(0.0)
-    walls = {m: [] for m in MODES}
-    for mode in ("eager", "graph", "graph", "eager"):
-        walls[mode] += _timed_steps(engines[mode], device, STEPS)
-    out = {}
-    tables = {}
-    for mode in MODES:
-        events, dev_ms = _profiled(engines[mode], device)
-        tables[mode] = events
-        med = float(np.median(walls[mode]))
-        out[mode] = {
-            "wall_ms": med * 1e3, "wall_min_ms": min(walls[mode]) * 1e3,
-            "wall_max_ms": max(walls[mode]) * 1e3,
-            "device_ms": dev_ms if dev_ms > 0 else None,
-            "idle": 1 - dev_ms / (med * 1e3) if dev_ms > 0 else None,
-            "kernels": {k: n / STEPS
-                        for k, n in sorted(port_kernels(events).items())}}
+    ops = {m: (lambda e=e: e.decode_step(0.0)) for m, e in engines.items()}
+    out, tables = in_turns(ops, device, STEPS)
     graph = engines["graph"].graph
-    out["replay_device_ms"] = _replay_ms(graph.graph, device)
+    out["replay_device_ms"] = replay_ms(graph.graph, device)
     out["capture_s"] = graph.capture_s
     out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     out["card"] = torch.cuda.get_device_name(device)

@@ -43,6 +43,7 @@ from repro_torch.serving import kv_pool as KV
 from repro_torch.serving.kv_pool import (KV_DTYPES, NULL_BLOCK, BlockPool,
                                          ChainAlloc, PoolExhausted,
                                          kv_dtype_supported)
+from repro_torch.serving.prefill_graph import PrefillGraphs
 from repro_torch.serving.queue import Request
 from repro_torch.serving.step_graph import DecodeGraph
 
@@ -637,8 +638,14 @@ class PartitionEngine(EngineBase):
     step: on a card the first step runs eagerly on its static buffers, the
     second is captured as a CUDA graph and every later one replays it; on
     the CPU every step runs the same static-buffer path eagerly.
-    ``cuda_graph=False`` keeps the step that rebuilds its inputs and runs
-    eagerly every time: the equivalence gate and the profiler's A/B use
+    Every prefill wave and slot refill runs through ``prefill_graphs``
+    (``serving/prefill_graph.py``), the counterpart of the reference's
+    ``prefill_fn`` / ``prefill_uniform_fn``: one cache of captured
+    prefills by shape, which engines on one api share (the serve CLI
+    builds one for its fleet; None makes the engine its own).  The pool
+    or slab install stays outside the graph.  ``cuda_graph=False`` keeps
+    the decode step and the prefills that rebuild their inputs and run
+    eagerly every time: the equivalence gate and the profilers' A/B use
     it, nothing else.
     """
 
@@ -650,7 +657,8 @@ class PartitionEngine(EngineBase):
                  wave_only: bool = False,
                  cost_model: Optional[CostModel] = None,
                  prefix_cache: bool = False, kv_dtype: str = "fp32",
-                 sparse_threshold: float = 0.0, cuda_graph: bool = True):
+                 sparse_threshold: float = 0.0, cuda_graph: bool = True,
+                 prefill_graphs: Optional[PrefillGraphs] = None):
         if cfg.family == "encdec":
             raise NotImplementedError("enc-dec serving is not ported yet "
                                       "(ROADMAP.md, Queue 1 item 11)")
@@ -679,6 +687,12 @@ class PartitionEngine(EngineBase):
         self.last_logits = None    # (slots, V) np, for equivalence tests
         self.cuda_graph = bool(cuda_graph)
         self.graph: Optional[DecodeGraph] = None   # built at the 1st decode
+        if prefill_graphs is not None and \
+                (not self.cuda_graph or prefill_graphs.api is not api):
+            raise ValueError("prefill_graphs: a cache of this engine's api, "
+                             "for an engine with cuda_graph=True")
+        self.prefill_graphs = prefill_graphs if prefill_graphs is not None \
+            else PrefillGraphs(api) if self.cuda_graph else None
 
     # -- batch assembly ------------------------------------------------------
     def _make_batch(self, prompts: List[np.ndarray]) -> dict:
@@ -701,6 +715,9 @@ class PartitionEngine(EngineBase):
             padded[i, :r.prompt_len] = np.asarray(r.prompt, np.int32)
         lens_full = np.concatenate(
             [lens, np.ones(self.slots - len(wave), np.int32)])
+        if self.prefill_graphs is not None:
+            return self.prefill_graphs(self.params, padded, self.max_len,
+                                       lens=lens_full)
         return self.api.prefill(
             self.params, self._make_batch(list(padded)),
             max_len=self.max_len,
@@ -743,7 +760,9 @@ class PartitionEngine(EngineBase):
             self._install_paged(cache, list(range(len(wave))))
             self.cache = None
         elif self.cache is None:
-            self.cache = cache
+            # the engine owns its slab: a prefill graph's output tensors
+            # are rewritten by its next replay (this engine's or another's)
+            self.cache = {k: t.clone() for k, t in cache.items()}
         else:
             # one slab for the engine's life: a captured decode step reads
             # the addresses of the first wave's slab, so later waves are
@@ -758,10 +777,12 @@ class PartitionEngine(EngineBase):
 
     def _refill_slot(self, i: int, req: Request):
         prompt = np.asarray(req.prompt, np.int32)
-        lg, c1 = self.api.prefill(
-            self.params, self._make_batch([prompt]),
-            max_len=self._prefix + req.prompt_len if self.paged
-            else self.max_len)
+        ml = self._prefix + req.prompt_len if self.paged else self.max_len
+        if self.prefill_graphs is not None:
+            lg, c1 = self.prefill_graphs(self.params, prompt[None], ml)
+        else:
+            lg, c1 = self.api.prefill(self.params,
+                                      self._make_batch([prompt]), max_len=ml)
         self.slot_lens[i] = self._prefix + req.prompt_len
         if self.paged:
             self._install_paged(c1, [i], src_rows=[0])
@@ -805,7 +826,22 @@ class PartitionEngine(EngineBase):
         if phase == "decode" and self.cuda_graph and \
                 not (self.graph is not None and self.graph.warm):
             return fn()
+        if phase == "prefill" and self.prefill_graphs is not None:
+            fn = self._unless_steady(batch, tokens, fn)
         return super()._run_timed(phase, batch, tokens, fn)
+
+    def _unless_steady(self, batch: int, tokens: int, fn):
+        """``fn``, marking its timer sample as a warm-up when its prefill
+        was a shape's eager run or its capture: whether the prefill will
+        replay is known only once its shape is, inside ``fn``; the base
+        then discards the sample as it does a bucket's first."""
+        def run():
+            before = self.prefill_graphs.n_steady
+            out = fn()
+            if self.prefill_graphs.n_steady == before:
+                self._timed_warm.discard(shape_key("prefill", batch, tokens))
+            return out
+        return run
 
     def _step_on(self, token, lens, tables=None):
         """The decode step on the graph's static buffers: (logits (slots,
