@@ -21,7 +21,9 @@ times the tensor-core route at forced column tiles and split counts.
 ``flash_decode.cu``), runs phase 2's CUDA-graph checks and then
 ``profiling/decode_profile``'s A/B of eager decode steps against graph
 replays and ``profiling/prefill_profile``'s of eager refills and waves
-against theirs, and exits 0 without the result line.
+against theirs, and exits 0 without the result line.  ``--only cluster``
+builds the same four sources and runs phase 4 alone, without the result
+line.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -90,7 +92,13 @@ Phases (each raises on failure; nothing is caught):
    wrappers count its eager and captured prefills and steps as the eager
    engine's count theirs and nothing on a replay, and profiler traces of
    one replayed step and one replayed refill show the same kernels by
-   name as the eager engine's.  A prefix-cache hit seated by a replayed
+   name as the eager engine's, each trace holding one kernel per launch
+   the eager engine's wrappers counted (an eager trace short of that
+   beside a complete replay's, or both short by the same kernels, has
+   lost profiler records: the lockstep then runs again, TRACE_ATTEMPTS
+   runs at most, each rerun logged and counted at the end; a complete
+   eager trace beside a replay's that differs fails).  A
+   prefix-cache hit seated by a replayed
    refill gives logits bit-identical to a cold eager engine's.
    ResNet-50, GoogLeNet and VGG-16
    at 224, fp32, batch 2, built from one seed on both devices: logits
@@ -125,6 +133,31 @@ Phases (each raises on failure; nothing is caught):
    52 / 56 / 12, on the tensor cores), and ``repro_torch.core.shaping_sim
    .partition_sweep`` reproduces the paper's Fig. 5 sweep for each net on
    the host, held to the reference's own reproduction gates.
+4. The cluster on the card, at full-width bf16 qwen2-7b (seed 0), after
+   the earlier phases' models are freed.  4a, the migrated-decode oracle
+   on graph engines in paged float, int8 and the dense slab: a wave of
+   SLOTS prompts prefilled on engine A is exported (``export_handoff``),
+   encoded and decoded by the cluster codec and imported into engine B
+   (``apply_handoff``); B then decodes it and refills SLOTS more beside an
+   engine C that prefilled the same wave and never migrated it.  B's
+   tokens, live slots' logits and KV state must equal C's bit for bit
+   after the import and every step, and B's own steps (counted apart
+   from C's) must launch the layout's decode kernel and the matmul.  4b, ``launch.cluster.run_cluster`` with two
+   real worker processes on the card (``--transport mp``, round_robin,
+   phase 3's load: 8 requests, prompt 32, 16 tokens, 4 slots each) must
+   give the request stamps, tokens and summary (wall time aside) of the
+   in-process ``EventScheduler`` fleet (policy none) of the same engines
+   and weights; each worker must launch the matmul, flash attention and
+   paged decode.  4c, the same load with ``--router pd --pd-split 1:1
+   --trace``: every request completes, the prefill worker never decodes
+   and the decode worker never prefills (their launch counts say so too),
+   and the trace passes ``validate_chrome``, carries one ``kv_handoff``
+   flow per migrated request, and its bw counter track integrates to
+   ``bw_stats`` within 1e-9.  Each run logs its wall seconds, generated
+   tokens per wall second, each worker's boot seconds, peak memory and
+   launch counts (read back from its status snapshots; boot by part:
+   process start to ``worker_main``, the CUDA context, the engine build)
+   and the handoff's bytes per request.
 
 The second-to-last line is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port's
@@ -212,6 +245,9 @@ TRACED_REFILL = 2
 # (slot, kv head) below it, one of which is not the current block: blocks
 # are dropped whatever the weights
 LEVER_PROMPT, LEVER_GEN, THRESHOLD = 64, 8, 0.25
+# phase 4: the serving load of phase 3 through two worker processes
+CLUSTER_REQUESTS = 8
+HEARTBEAT_S = 600.0     # full-width workers boot for tens of seconds
 LEVER_ARGS = ["--arch", "qwen2-7b", "--partitions", "1", "--requests", "4",
               "--batch", "4", "--prompt-len", str(LEVER_PROMPT), "--gen",
               str(LEVER_GEN), "--device", "cuda", "--no-sim"]
@@ -1577,6 +1613,68 @@ def live_state(torch, eng) -> dict:
             for k, t in state.items()}
 
 
+class TraceIncomplete(Exception):
+    """The eager engine's profiler trace shows fewer of the port's kernels
+    than its wrappers counted, while the replay's trace shows all of them
+    or falls short by the same kernels: the profiler lost records (it has:
+    PERF.md §5, PR 20 call 4; PR 21 call C), so the traces cannot be
+    compared."""
+
+
+def trace_check(name, what, traced: dict, issued) -> None:
+    """Hold the profiler traces of ``what`` (``traced``: the port's
+    kernels by name in the eager and the graph engine's trace) to the
+    eager engine's wrapper counts for it (``issued``, ``counts.diff`` over
+    ``step_graph.WRAPPERS``): one matmul, flash-attention or decode kernel
+    per counted launch.  Both complete passes.  The eager trace short
+    while the replay's is complete, or both short by the same kernels,
+    raises ``TraceIncomplete``; anything else (a complete eager trace
+    beside a replay's that differs, above all) fails at once."""
+    launches = [n for n, _ in issued]
+    want = {"matmul": launches[0], "flash attention": launches[1],
+            "decode attention": sum(launches[2:])}
+    got = {mode: {
+        "matmul": sum(k.get(n, 0) for n in ("mm_mma", "mm_skinny",
+                                            "mm_tiled")),
+        "flash attention": sum(k.get(n, 0) for n in ("fa_kernel",
+                                                     "fa_mma_kernel")),
+        "decode attention": k.get("decode::kernel", 0)}
+        for mode, k in ((m, traced[m]) for m in ("eager", "graph"))}
+    eager, graph = got["eager"], got["graph"]
+    if eager == want and graph == want:
+        return
+    msg = (f"graph lockstep {name}: profiler traces of {what} show the "
+           f"port's kernels eager {eager}, replayed {graph}; the eager "
+           f"engine's wrappers issued {want}")
+    short = eager != want and all(eager[k] <= want[k] for k in want)
+    if short and (graph == want or graph == eager):
+        raise TraceIncomplete(msg)
+    fail(msg)
+
+
+TRACE_ATTEMPTS = 3
+TRACE_RERUNS = []       # (lockstep, what the profiler lost), every rerun
+
+
+def graph_lockstep_traced(*args, **kw):
+    """``graph_lockstep``, run again (up to TRACE_ATTEMPTS times in all)
+    when ``trace_check`` finds that the profiler lost records of the eager
+    engine's trace; every check is made again on the new run, and each
+    rerun is logged and kept in ``TRACE_RERUNS``."""
+    for attempt in range(TRACE_ATTEMPTS):
+        try:
+            return graph_lockstep(*args, **kw)
+        except TraceIncomplete as e:
+            TRACE_RERUNS.append((args[3], str(e)))
+            log(f"phase 2: {e}: the profiler lost records; the lockstep runs "
+                f"again (attempt {attempt + 2} of {TRACE_ATTEMPTS})")
+            gc.collect()
+            torch = args[0]
+            torch.cuda.empty_cache()
+    fail(f"graph lockstep {args[3]}: every one of {TRACE_ATTEMPTS} runs lost "
+         "profiler records")
+
+
 def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
                    evicting=False, **kw):
     """A graph engine and a ``cuda_graph=False`` engine on one stream in
@@ -1722,6 +1820,8 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
                 pend = eng.issue_decode()
             seen[mode] = (counts.diff(counts.snapshot(WRAPPERS), before),
                           [w.dropped_blocks.value for w in dropped])
+            if steps == TRACED_STEP and mode == "eager":
+                traced_step["issued"] = seen[mode][0]
             eng.commit_op(pend, pend.cost.duration)      # retire, refill
         # the graph engine's wrappers issue its eager step and, into the
         # graph, its captured one; a replay issues nothing from Python
@@ -1743,6 +1843,14 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
         fail(f"graph lockstep {name}: {steps} steps, {gr.n_eager} eager, "
              f"{gr.n_replays} replays (want >= {min_steps} steps, 1 eager, "
              "the rest replays)")
+    eager_refill = [r for r in hist["eager"] if r["what"] == "refill"]
+    for what, traced_op, issued in (
+            (f"step {TRACED_STEP}", traced_step, traced_step["issued"]),
+            (f"refill {TRACED_REFILL}", traced_refill,
+             eager_refill[TRACED_REFILL]["counts"]
+             if len(eager_refill) > TRACED_REFILL else None)):
+        if issued is not None and {"eager", "graph"} <= traced_op.keys():
+            trace_check(name, what, traced_op, issued)
     if not traced_step["eager"] or traced_step["graph"] != \
             traced_step["eager"]:
         fail(f"graph lockstep {name}: the port's kernels in a profiler trace "
@@ -1831,7 +1939,8 @@ def phase_graph(torch, cfg, profile=False):
                                    sparse_threshold=THRESHOLD, block_size=8),
                "dense": dict(paged=False)}
     for name, kw in layouts.items():
-        graph_lockstep(torch, cfg2, params, name, lens, gens, 6, **kw)
+        graph_lockstep_traced(torch, cfg2, params, name, lens, gens, 6,
+                              **kw)
     # more refill shapes than the cache holds (MAX_GRAPHS + 8 lengths and
     # the wave's shape): MAX_GRAPHS / 2 + 8 captured, the rest admitted
     # over them, the first two admitted again (eager) and captured again,
@@ -1841,17 +1950,19 @@ def phase_graph(torch, cfg, profile=False):
     b = list(range(a[-1] + 1, 8 + MAX_GRAPHS + 8))
     evict = [a[0]] * 3 + [n for n in a[1:] for _ in range(2)] + b + \
         [a[0]] * 3 + [a[1]] * 2 + [a[-1]]
-    graph_lockstep(torch, cfg2, params, "fp32 evicting",
-                   [PROMPT] * SLOTS + evict, [3] * SLOTS + [2] * len(evict),
-                   6, evicting=True)
+    graph_lockstep_traced(torch, cfg2, params, "fp32 evicting",
+                          [PROMPT] * SLOTS + evict,
+                          [3] * SLOTS + [2] * len(evict), 6, evicting=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     params = TF.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
-    graph_lockstep(torch, cfg, params, "full-width bf16 float pool",
-                   [PROMPT] * SLOTS + [24, 24, 24, 40],
-                   [8, 4, 8, 7, 5, 4, 3, 4], 6)
+    graph_lockstep_traced(torch, cfg, params, "full-width bf16 float pool",
+                          [PROMPT] * SLOTS + [24, 24, 24, 40],
+                          [8, 4, 8, 7, 5, 4, 3, 4], 6)
+    log(f"phase 2: {len(TRACE_RERUNS)} lockstep reruns for lost profiler "
+        f"records {[n for n, _ in TRACE_RERUNS]}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2217,6 +2328,302 @@ def phase_cnn(torch, wrappers, card_params):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the cluster on the card
+# ---------------------------------------------------------------------------
+
+
+def pd_oracle(torch, cfg, api, params, name, pg, **kw):
+    """4a: prefill a wave on engine A, hand each request to engine B over
+    the wire (``export_handoff``, the codec both ways, ``apply_handoff``),
+    and run B beside an oracle C that prefilled the same wave and never
+    migrated it.  A, B and C are graph engines on one ``PrefillGraphs``;
+    B and C are also given the load's next SLOTS requests, which they
+    refill into the slots the migrated ones free (so B's and C's refills
+    replay).  After the import and after every decode step B's tokens,
+    live slots' logits and KV state must equal C's bit for bit.  Returns
+    the wrappers' launches while B decoded and refilled (counted around
+    B's steps alone) and the handoff's bytes per request."""
+    import numpy as np
+
+    from repro_torch.kernels import counts
+    from repro_torch.serving import PartitionEngine, RequestQueue
+    from repro_torch.serving.cluster import protocol as P
+    from repro_torch.serving.pd import apply_handoff, export_handoff
+    from repro_torch.serving.step_graph import WRAPPERS
+
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, cfg.vocab, size=(PROMPT,)).astype(np.int32)
+               for _ in range(2 * SLOTS)]
+    max_len = PROMPT + 4 * GEN
+    engines = []
+    for pid, load in enumerate((prompts[:SLOTS], prompts, prompts)):
+        eng = PartitionEngine(cfg, api, params, slots=SLOTS, max_len=max_len,
+                              pid=pid, prefill_graphs=pg, **kw)
+        q = RequestQueue()
+        for p in load:
+            q.submit(p, GEN)
+        eng.assign(q.pop(len(load)))
+        engines.append(eng)
+    a, b, c = engines
+    a.prefill_wave(0.0)
+    c.prefill_wave(0.0)
+    b.backlog = b.backlog[SLOTS:]     # B's wave arrives over the wire
+    t0 = time.perf_counter()
+    nbytes = []
+    for req in [r for r in a.active if r is not None]:
+        h = export_handoff(a, req.rid)
+        wire = P.encode(P.ImportKv(handoff=h))
+        nbytes.append(sum(len(pa.data) for pa in h.pages))
+        apply_handoff(b, P.decode(wire).handoff)
+    torch.cuda.synchronize()
+    handoff_s = time.perf_counter() - t0
+
+    def seen(eng):
+        """(rid, tokens) of each slot, then of each completed request."""
+        return [r and (r.rid, r.tokens) for r in eng.active] + \
+            sorted((r.rid, r.tokens) for r in eng.completed)
+
+    def same(where):
+        if seen(b) != seen(c):
+            fail(f"pd oracle {name}: tokens or occupancy differ {where}")
+        x, y = live_state(torch, b), live_state(torch, c)
+        bad = [k for k in y if not torch.equal(x[k], y[k])]
+        if bad:
+            fail(f"pd oracle {name}: KV state {bad} differs {where}")
+
+    same("after the import")
+    # each engine's own launches: B's is what the import must lead to
+    launches = {e: dict.fromkeys((w.__name__ for w in WRAPPERS), 0)
+                for e in "bc"}
+    steps = 0
+    while c.busy:
+        live = [i for i, r in enumerate(c.active) if r is not None]
+        for e, eng in zip("bc", (b, c)):
+            before = counts.snapshot(WRAPPERS)
+            eng.decode_step(0.0)
+            for w, (n, _) in zip(WRAPPERS, counts.diff(
+                    counts.snapshot(WRAPPERS), before)):
+                launches[e][w.__name__] += n
+        steps += 1
+        if not np.array_equal(b.last_logits[live], c.last_logits[live]):
+            fail(f"pd oracle {name}: step {steps} logits differ")
+        same(f"after step {steps}")
+    if b.busy or len(b.completed) != 2 * SLOTS or b.n_refills != SLOTS or \
+            b.graph.n_replays == 0:
+        fail(f"pd oracle {name}: B completed {len(b.completed)}, refills "
+             f"{b.n_refills}, replays {b.graph.n_replays}")
+    log(f"phase 4a [{name}]: {SLOTS} requests prefilled on A, handed to B "
+        f"over the wire ({min(nbytes)}-{max(nbytes)} bytes of pages each, "
+        f"{handoff_s * 1e3:.1f} ms for the {SLOTS} exports, codec and "
+        f"imports), then {SLOTS} refills: B's tokens, live logits and KV "
+        f"state equal the never-migrated C's bit for bit over {steps} steps "
+        f"(B: {b.graph.n_eager} eager steps, {b.graph.n_replays} replays; "
+        f"prefills {pg.n_eager} eager, {pg.n_captures} captured, "
+        f"{pg.n_replays} replayed); launches while B decoded and refilled "
+        f"{launches['b']}, while C did {launches['c']}")
+    return launches["b"], nbytes
+
+
+def in_process_fleet(torch, cfg, api, params, specs, n_req, seed):
+    """The in-process ``EventScheduler`` fleet (policy 'none') of the
+    engines ``specs`` describe, on ``run_cluster``'s load and pipe, over
+    one set of weights (the workers' seed): (queue, metrics, wall s)."""
+    import numpy as np
+
+    from repro_torch.profiling import make_cost_model
+    from repro_torch.serving import (EventScheduler, PartitionEngine,
+                                     PrefillGraphs, RequestQueue)
+    from repro_torch.serving.trace_sim import phase_balanced_bandwidth
+
+    pg = PrefillGraphs(api)
+    engines = [PartitionEngine(
+        cfg, api, params, paged=s.paged, slots=s.slots, max_len=s.max_len,
+        pid=s.wid, peak_flops=s.peak_flops, wave_only=s.wave_only,
+        block_size=s.block_size, prefix_cache=s.prefix_cache,
+        kv_dtype=s.kv_dtype, sparse_threshold=s.sparse_threshold,
+        cost_model=make_cost_model(s.cost_model, cfg, s.peak_flops,
+                                   kv_dtype=s.kv_dtype),
+        prefill_graphs=pg) for s in specs]
+    q = RequestQueue()
+    rng = np.random.default_rng(seed)
+    for _ in range(n_req):
+        q.submit(rng.integers(1, cfg.vocab, size=(PROMPT,)).astype(np.int32),
+                 GEN, arrival=0.0)
+    bw = phase_balanced_bandwidth(cfg, total_slots=len(specs) * SLOTS,
+                                  prompt_len=PROMPT, gen=GEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = EventScheduler(engines, q, policy="none", bandwidth=bw).run()
+    torch.cuda.synchronize()
+    return q, m, time.perf_counter() - t0
+
+
+def launches_of(report: dict) -> dict:
+    """A worker's kernel launch counts from its metrics snapshot."""
+    return {k.split(".")[1]: int(v) for k, v in report.items()
+            if k.startswith("kernel.")}
+
+
+def cluster_run(name, **kw):
+    """One ``run_cluster`` over real worker processes on the card (the
+    cluster CLI's entry point), timed on the wall clock, with each
+    worker's boot seconds, peak memory and launch counts read back from
+    its last status snapshot."""
+    from repro_torch.launch.cluster import run_cluster
+
+    t0 = time.perf_counter()
+    ctl, m = run_cluster(arch="qwen2-7b", smoke=False, workers=2,
+                         slots=SLOTS, prompt_len=PROMPT, gen=GEN,
+                         n_requests=CLUSTER_REQUESTS, transport="mp",
+                         simulated=False, heartbeat_timeout=HEARTBEAT_S,
+                         seed=0, device="cuda", **kw)
+    wall = time.perf_counter() - t0
+    # each worker's last metrics snapshot, by wid
+    report = {w: dict(v.status.metrics) for w, v in sorted(ctl.views.items())}
+    tokens = sum(len(r.tokens) for r in ctl.queue.completed)
+    boot = max(r["worker.boot_seconds"] for r in report.values())
+    for w, r in report.items():
+        kernels = {k: n for k, n in launches_of(r).items() if n}
+        log(f"phase 4 [{name}] worker {w}: boot {r['worker.boot_seconds']:.2f}"
+            f" s from process start to Hello: {r['worker.start_seconds']:.2f}"
+            f" s to worker_main (the interpreter, the spawn's imports), "
+            f"{r['worker.context_seconds']:.2f} s the CUDA context, "
+            f"{r['worker.build_seconds']:.2f} s the engine build; peak memory "
+            f"{r['worker.peak_memory_bytes'] / 1e9:.2f} GB, "
+            f"{int(r['engine.prefills'])} waves, {int(r['engine.refills'])} "
+            f"refills, {int(r['engine.decode_steps'])} decode steps, "
+            f"{int(r['engine.exports'])} exports, {int(r['engine.imports'])} "
+            f"imports; launches {kernels}")
+    log(f"phase 4 [{name}]: {len(ctl.queue.completed)}/{CLUSTER_REQUESTS} "
+        f"requests, {tokens} tokens in {wall:.2f} s wall from spawn to "
+        f"shutdown ({tokens / wall:.2f} generated tokens per wall second); "
+        f"the controller's run after the handshake, shutdown included, "
+        f"{m.wall_seconds:.2f} s ({tokens / m.wall_seconds:.2f}); slower "
+        f"boot {boot:.2f} s")
+    if len(ctl.queue.completed) != CLUSTER_REQUESTS or \
+            tokens != CLUSTER_REQUESTS * GEN or ctl.n_failovers:
+        fail(f"cluster {name}: {len(ctl.queue.completed)} requests, {tokens} "
+             f"tokens, {ctl.n_failovers} failovers")
+    return ctl, m, report
+
+
+def phase_cluster(torch, cfg):
+    """Phase 4, the cluster on the card, at full-width bf16 qwen2-7b:
+    4a the migrated-decode oracle on graph engines in paged float, int8
+    and dense; 4b two real workers over ``--transport mp`` against the
+    in-process fleet; 4c PD with tracing.  Returns the runs' launch
+    counts for the kernels JSON."""
+    import numpy as np
+
+    from repro_torch.models import api as mapi
+    from repro_torch.obs import trace_bw_segments, validate_chrome
+    from repro_torch.serving import PrefillGraphs, make_worker_specs
+
+    runs = {}
+    api = mapi.build(cfg, "cuda")
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    carries = {"paged": ({}, "paged_decode"),
+               "int8": (dict(kv_dtype="int8"), "paged_decode_quant"),
+               "dense": (dict(paged=False), "flash_decode")}
+    handoff_bytes = {}
+    for name, (kw, kernel) in carries.items():
+        launches, nbytes = pd_oracle(torch, cfg, api, params, name,
+                                     PrefillGraphs(api), **kw)
+        if launches[kernel] == 0 or launches["matmul"] == 0:
+            fail(f"pd oracle {name}: {kernel} or matmul never launched on B "
+                 f"after the import ({launches})")
+        runs[f"cluster 4a {name}"] = {"launches": launches}
+        handoff_bytes[name] = nbytes
+        gc.collect()
+
+    # 4b: the process boundary against the in-process fleet
+    specs = make_worker_specs("qwen2-7b", 2, smoke=False, slots=SLOTS,
+                              max_len=PROMPT + 4 * GEN, engine="real",
+                              seed=0, device="cuda")
+    q_ref, m_ref, ref_wall = in_process_fleet(torch, cfg, api, params, specs,
+                                              CLUSTER_REQUESTS, seed=0)
+    tokens = sum(len(r.tokens) for r in q_ref.completed)
+    log(f"phase 4b: in-process fleet (2 x {SLOTS} slots, policy none): "
+        f"{len(q_ref.completed)} requests, {tokens} tokens in "
+        f"{ref_wall:.2f} s wall ({tokens / ref_wall:.2f} generated tokens "
+        "per wall second)")
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctl, m, report = cluster_run("4b mp round_robin", router="round_robin")
+
+    def stamps(q):
+        return sorted((r.rid, tuple(r.tokens), r.t_first_token, r.t_done)
+                      for r in q.completed)
+
+    def no_wall(m):
+        return {k: v for k, v in m.summary().items() if "wall" not in k}
+
+    if stamps(ctl.queue) != stamps(q_ref):
+        fail("cluster 4b: request stamps or tokens differ from the "
+             "in-process fleet's")
+    if no_wall(m) != no_wall(m_ref):
+        fail(f"cluster 4b: summary {no_wall(m)} != in-process "
+             f"{no_wall(m_ref)}")
+    for w, r in report.items():
+        got = launches_of(r)
+        if not all(got[k] for k in ("matmul", "flash_attention",
+                                    "paged_decode")):
+            fail(f"cluster 4b worker {w}: launches {got}")
+        runs[f"cluster 4b worker {w}"] = {"launches": got}
+    log("phase 4b: the mp cluster's request stamps, generated tokens and "
+        "summary (wall time aside) equal the in-process fleet's")
+
+    # 4c: PD with tracing
+    path = ROOT / "build" / "cluster_pd_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    ctl, m, report = cluster_run("4c mp pd 1:1 traced", router="pd",
+                                 pd_split=(1, 1), trace=str(path))
+    pools = ctl.router.pool_of
+    for w, r in report.items():
+        got = launches_of(r)
+        runs[f"cluster 4c {pools[w]} worker {w}"] = {"launches": got}
+        if pools[w] == "prefill":
+            bad = r["engine.decode_steps"] or not r["engine.exports"] or \
+                got["paged_decode"] or not got["flash_attention"]
+        else:
+            bad = r["engine.prefills"] or r["engine.refills"] or \
+                not r["engine.imports"] or got["flash_attention"] or \
+                not got["paged_decode"]
+        if bad:
+            fail(f"cluster 4c: the {pools[w]} worker {w} left its phase: "
+                 f"{r}")
+    doc = json.loads(path.read_text())
+    errs = validate_chrome(doc)
+    flows = [[e for e in doc["traceEvents"]
+              if e["ph"] == ph and e["name"] == "kv_handoff"]
+             for ph in ("s", "f")]
+    segs = trace_bw_segments(doc)
+    w = np.array([b - a for a, b, _ in segs])
+    v = np.array([val for _, _, val in segs])
+    mean = float(np.average(v, weights=w))
+    std = float(np.sqrt(np.average((v - mean) ** 2, weights=w)))
+    m_mean, m_std = m.bw_stats(0.0)
+    if errs or len(flows[0]) != ctl.router.n_handoffs or \
+            len(flows[1]) != len(flows[0]) or \
+            ctl.router.n_handoffs != CLUSTER_REQUESTS or \
+            abs(mean - m_mean) > 1e-9 * abs(m_mean) or \
+            abs(std - m_std) > 1e-9 * abs(m_std):
+        fail(f"cluster 4c trace: {len(errs)} schema errors {errs[:3]}, "
+             f"{len(flows[0])} / {len(flows[1])} kv_handoff flow starts / "
+             f"ends for {ctl.router.n_handoffs} handoffs, bw mean {mean!r} "
+             f"vs {m_mean!r}, std {std!r} vs {m_std!r}")
+    log(f"phase 4c: pools pure, {ctl.router.n_handoffs} handoffs "
+        f"({ctl.router.n_deferrals} deferrals), trace of "
+        f"{len(doc['traceEvents'])} events valid with one kv_handoff flow "
+        f"per handoff; its bw integral {mean!r} / {std!r} equals bw_stats "
+        f"{m_mean!r} / {m_std!r} to 1e-9; handoff page bytes per request "
+        + ", ".join(f"{k} {min(b)}-{max(b)}" for k, b in
+                    handoff_bytes.items()))
+    return runs
+
+
 # --only NAME: the sources to build and the phase-1 function to run
 ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
             torch, cfg, sweep=True)),
@@ -2227,7 +2634,10 @@ ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
             torch, cnn_conv_shapes(), sweep=True)),
         "serving_graph": (["matmul", "flash_attention", "paged_attention",
                            "flash_decode"], lambda torch, cfg: phase_graph(
-            torch, cfg, profile=True))}
+            torch, cfg, profile=True)),
+        "cluster": (["matmul", "flash_attention", "paged_attention",
+                     "flash_decode"], lambda torch, cfg: (
+            phase_cluster(torch, cfg), {})[1])}
 
 
 def cnn_conv_shapes():
@@ -2328,6 +2738,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_serve(torch, cfg, wrappers))
+    del cnn_params      # phase 4 holds up to three copies of the weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(phase_cluster(torch, cfg))
 
     meta = {"matmul": ("matmul.cu", "src/repro/kernels/matmul/matmul.py:49"),
             "flash_attention": (
@@ -2350,7 +2764,7 @@ def main() -> None:
     for name, (src, replaces) in meta.items():
         s = stats[name]
         by_run = {run: r["launches"][name] for run, r in runs.items()
-                  if r["launches"][name]}
+                  if r["launches"].get(name)}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{src}",
                         "replaces": replaces,
@@ -2379,6 +2793,8 @@ def main() -> None:
                            else {}),
                         **({"in_forward_ms": s["in_forward_ms"]}
                            if "in_forward_ms" in s else {})})
+    log(f"chip_smoke: {len(TRACE_RERUNS)} phase-2 lockstep reruns for lost "
+        f"profiler records {[n for n, _ in TRACE_RERUNS]}")
     log(smi)      # again here: long runs push the first lines out of a tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -161,7 +161,7 @@ def canonical(name: str) -> str:
 
 
 # architectures whose model path the port serves so far; the rest wait for
-# their slice (ROADMAP.md, Queue 1 items 10-12)
+# their slice (ROADMAP.md, Queue 1 items 10, 11 and 18)
 PORTED_ARCH_IDS = ["qwen2_7b"]
 
 
@@ -170,8 +170,9 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if arch not in PORTED_ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported to PyTorch yet (ported: "
-            f"{PORTED_ARCH_IDS}); its model family is queued in ROADMAP.md, "
-            "Queue 1 items 10-12")
+            f"{PORTED_ARCH_IDS}); it is queued in ROADMAP.md, Queue 1 item "
+            "10 (the other decoder-only families), 11 (enc-dec) or 18 (the "
+            "dense family's other configs)")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -29,9 +29,15 @@ fleet's prefill counts are printed at the end.
 phase ops instead of the analytic decomposition; with ``--profile PATH``
 the run loads an existing calibration profile (frozen deterministic
 replay) or, when the file does not exist yet, calibrates live and writes
-it at exit, as the reference does.  Flags whose slice has not landed are
-refused with the ROADMAP.md item that will bring them: ``--cluster`` and
-``--trace``.
+it at exit, as the reference does.
+
+``--trace PATH`` writes a Chrome-trace / Perfetto JSON of the run (host
+events on the virtual clock, as the reference records them;
+``tools/torch_trace_export.py --check PATH`` validates it).  ``--cluster
+N`` runs the same load as a controller + N partition-worker cluster
+instead (one OS process per worker under ``--transport mp``, worker w on
+card w % count; see ``repro_torch.launch.cluster`` for the routing,
+PD and failover flags).
 """
 from __future__ import annotations
 
@@ -43,9 +49,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import hw
 from repro_torch.device import resolve
+from repro_torch.launch.cluster import (build_cluster_args, run_cluster,
+                                        validate_cluster_args)
 from repro_torch.models import api as mapi
-from repro_torch.obs import (format_summary, observe_phase_durations,
-                             registry_from_engines)
+from repro_torch.obs import (Tracer, format_summary, observe_phase_durations,
+                             registry_from_engines, write_chrome)
 from repro_torch.profiling import make_cost_model, save_profile
 from repro_torch.profiling.cost_model import KV_PRICE_BYTES
 from repro_torch.serving import (CLOCKS, EventScheduler, PartitionEngine,
@@ -53,15 +61,6 @@ from repro_torch.serving import (CLOCKS, EventScheduler, PartitionEngine,
                                  prefill_cost, serving_trace_report)
 from repro_torch.serving.prefill_graph import PrefillGraphs
 from repro_torch.serving.trace_sim import phase_balanced_bandwidth
-
-# flags accepted for parity with the reference CLI whose slice has not
-# landed: (flag, is-set predicate, ROADMAP.md item)
-_NOT_PORTED = [
-    ("--cluster N", lambda a: a.cluster is not None,
-     "Queue 1 item 8 (cluster and PD with torch workers)"),
-    ("--trace", lambda a: a.trace is not None,
-     "Queue 1 item 15 (tracing)"),
-]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,8 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where the model runs; 'cuda' (the default) "
-                         "raises when there is no card")
+                    help="where the model runs (with --cluster: worker w "
+                         "on card w %% count); 'cuda' (the default) raises "
+                         "when there is no card")
     ap.add_argument("--requests", type=int, default=48)
     ap.add_argument("--batch", type=int, default=4,
                     help="decode slots per partition")
@@ -97,34 +97,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dense", action="store_true",
                     help="dense per-wave KV slab instead of the paged pool "
                          "(the equivalence oracle)")
-    ap.add_argument("--prefix-cache", action="store_true",
-                    help="automatic prefix caching: prompts share cached "
-                         "KV blocks of a common head")
-    ap.add_argument("--kv-dtype", default="fp32",
-                    choices=["fp32", "int8", "fp8"],
-                    help="KV pool element layout: 'fp32' stores the model "
-                         "dtype, 'int8'/'fp8' pack pages with per-(block, "
-                         "kv-head) scales")
-    ap.add_argument("--sparse-threshold", type=float, default=0.0,
-                    metavar="T",
-                    help="blockwise-sparse paged attention: skip KV blocks "
-                         "whose estimated attention mass is below T")
-    ap.add_argument("--cost-model", default="analytic",
-                    choices=["analytic", "measured"],
-                    help="phase pricing: 'analytic' (the deterministic "
-                         "default) or 'measured' (wall-clocked phase ops "
-                         "over the analytic bytes / FLOPs)")
-    ap.add_argument("--profile", default=None, metavar="PATH",
-                    help="with --cost-model measured: replay this "
-                         "calibration profile (frozen) if it exists, else "
-                         "calibrate live and write it at exit")
-    # the reference's flags whose slices have not landed (see _NOT_PORTED)
     ap.add_argument("--cluster", type=int, default=None, metavar="N",
-                    help="controller + N worker cluster (not ported yet)")
+                    help="run as a controller + N partition-worker cluster "
+                         "instead of the in-process fleet (see "
+                         "repro_torch.launch.cluster; --router/--transport "
+                         "pick the routing policy and worker transport)")
     ap.add_argument("--simulated", action="store_true",
-                    help="with --cluster: simulated workers (not ported yet)")
-    ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="Chrome-trace export (not ported yet)")
+                    help="with --cluster: SimulatedEngine workers")
+    # the cluster axis, the cost model, the bandwidth levers and --trace
+    build_cluster_args(ap)
     return ap
 
 
@@ -134,10 +115,6 @@ def main(argv=None, engines_out=None):
     a caller can read their counters after the run."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, is_set, item in _NOT_PORTED:
-        if is_set(args):
-            ap.error(f"{flag} is not ported to the PyTorch package yet; it "
-                     f"waits for ROADMAP.md {item}")
     if args.partitions is not None and args.partitions < 1:
         ap.error(f"--partitions must be >= 1 (got {args.partitions}): the "
                  "fleet needs at least one partition engine")
@@ -146,8 +123,50 @@ def main(argv=None, engines_out=None):
                  "needs at least one decode slot")
     if args.requests < 1:
         ap.error(f"--requests must be >= 1 (got {args.requests})")
+    if args.cluster is not None and args.cluster < 1:
+        ap.error(f"--cluster must be >= 1 (got {args.cluster})")
+    validate_cluster_args(ap, args)
+    if args.trace is not None and args.clock == "lockstep":
+        ap.error("--trace records the event-driven contention clock; the "
+                 "lockstep oracle has no span timeline to trace")
+    if args.cluster is None and args.router == "pd":
+        ap.error("--router pd needs --cluster N: prefill/decode "
+                 "disaggregation routes between cluster workers")
+    if args.pd_split is not None and args.cluster is not None \
+            and sum(args.pd_split) != args.cluster:
+        ap.error(f"--pd-split {args.pd_split[0]}:{args.pd_split[1]} does "
+                 f"not cover the {args.cluster}-worker fleet")
 
     device = resolve(args.device)
+    if args.cluster is not None:
+        # controller + N worker-process cluster (repro_torch.launch.
+        # cluster).  The in-process-only axes have no cluster meaning:
+        # reject them loudly rather than run a configuration the user did
+        # not ask for.
+        for flag, val, hint in [
+                ("--partitions", args.partitions, "--cluster N IS the "
+                 "partition count"),
+                ("--stagger", args.stagger, "use --router (round_robin ~ "
+                 "none, shaping ~ demand)"),
+                ("--clock", args.clock, "the cluster always runs the "
+                 "event-driven contention clock")]:
+            if val is not None:
+                ap.error(f"{flag} applies to the in-process fleet and is "
+                         f"ignored by --cluster; {hint}")
+        ctl, _ = run_cluster(
+            arch=args.arch, smoke=args.smoke, workers=args.cluster,
+            slots=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+            n_requests=args.requests, router=args.router,
+            transport=args.transport, simulated=args.simulated,
+            block_size=args.block_size, dense=args.dense,
+            heartbeat_timeout=args.heartbeat_timeout,
+            max_queue=args.max_queue, deadline=args.deadline,
+            cost_model=args.cost_model, profile=args.profile,
+            pd_split=args.pd_split, prefix_cache=args.prefix_cache,
+            kv_dtype=args.kv_dtype, sparse_threshold=args.sparse_threshold,
+            trace=args.trace, device=str(device))
+        return [r.tokens for r in ctl.queue.completed]
+
     cfg = get_config(args.arch, smoke=args.smoke)
     P = args.partitions if args.partitions is not None else 1
     args.stagger = args.stagger if args.stagger is not None else "uniform"
@@ -210,6 +229,12 @@ def main(argv=None, engines_out=None):
         if args.prefix_cache else None
     queue = RequestQueue(max_depth=args.max_queue, service_estimate=estimate,
                          prefix_probe=probe)
+    # the tracer must watch the queue BEFORE the load goes in, so the
+    # admission instants and lifecycle 'submit' records are captured
+    tracer = None
+    if args.trace is not None:
+        tracer = Tracer()
+        queue.tracer = tracer
     rng = np.random.default_rng(0)
     for _ in range(args.requests):
         queue.submit(rng.integers(1, cfg.vocab, size=(args.prompt_len,))
@@ -221,6 +246,8 @@ def main(argv=None, engines_out=None):
         cfg, total_slots=P * slots, prompt_len=args.prompt_len, gen=args.gen)
     sched = make_scheduler(engines, queue, policy=args.stagger,
                            bandwidth=bandwidth, clock=args.clock)
+    if tracer is not None:
+        sched.attach_tracer(tracer)
     m = sched.run()
     s = m.summary()
     print(f"serve: {cfg.name} device={device} P={P} stagger={args.stagger} "
@@ -250,10 +277,16 @@ def main(argv=None, engines_out=None):
     observe_phase_durations(reg, getattr(sched, "trace", ()))
     achieved = sched.achieved_bw_stats() \
         if isinstance(sched, EventScheduler) else None
+    lifecycle = tracer.lifecycle.format_exit_line() \
+        if tracer is not None else None
     for line in format_summary(s, reg, bandwidth=bandwidth,
                                achieved=achieved,
-                               prefix_cache=args.prefix_cache):
+                               prefix_cache=args.prefix_cache,
+                               lifecycle=lifecycle):
         print(line)
+    if tracer is not None:
+        doc = write_chrome(tracer, args.trace)
+        print(f"  trace: {len(doc['traceEvents'])} events -> {args.trace}")
 
     if not args.no_sim:
         rep = serving_trace_report(

@@ -59,6 +59,11 @@ _NO_PREFIX_CACHE_FAMILIES = ("ssm", "hybrid", "encdec")
 # enc-dec has no paged cache at all
 _NO_KV_QUANT_FAMILIES = ("ssm", "hybrid", "encdec")
 
+# a KV handoff's page arrays (the reference's names) and the pool tensors
+# they come from / go to
+_HANDOFF_PAGES = (("k", "k_pages"), ("v", "v_pages"),
+                  ("k_scales", "k_scales"), ("v_scales", "v_scales"))
+
 
 @dataclass
 class PendingOp:
@@ -630,8 +635,10 @@ class PartitionEngine(EngineBase):
     prefix blocks (``prefix_cache``).  ``paged=False`` keeps the dense
     ``(L, slots, max_len)`` slab with per-slot lengths and decodes through
     ``decode_step`` — same serving semantics, the equivalence oracle.
-    Enc-dec models and the KV handoff between engines are not ported yet
-    and raise ``NotImplementedError`` naming their ROADMAP.md item.
+    Enc-dec models are not ported yet and raise ``NotImplementedError``
+    naming their ROADMAP.md item.  ``export_kv`` / ``import_kv`` move a
+    slot's KV state between engines (PD disaggregation) as host tensors,
+    the reference's ``KvHandoff`` payload.
 
     Every decode step runs through the engine's ``DecodeGraph``
     (``serving/step_graph.py``), the counterpart of the reference's jitted
@@ -796,15 +803,79 @@ class PartitionEngine(EngineBase):
         self._last_tok = last
         return tok
 
-    # -- KV handoff (not ported) ---------------------------------------------
+    # -- KV handoff device-state movers --------------------------------------
     def _export_slot_state(self, i: int) -> dict:
-        raise NotImplementedError("KV handoff between engines is not ported "
-                                  "yet (ROADMAP.md, Queue 1 item 8)")
+        """Gather slot ``i``'s cache to host tensors, in table order (paged)
+        or as the slot's dense rows.  The last generated token is not
+        shipped — it is ``req.tokens[-1]`` and the importer rebuilds the
+        ``_last_tok`` row from it."""
+        out: dict = {}
+        if self.paged:
+            if self.pages is not None:
+                tbl = torch.as_tensor(self.slot_tables[i], dtype=torch.long,
+                                      device=self.device)
+                # packed pages travel as-is, with their scales, so the
+                # importer rebuilds the quantized layout exactly
+                for name, key in _HANDOFF_PAGES:
+                    if key in self.pages:
+                        out[name] = self.pages[key][:, tbl].cpu()
+        elif self.cache is not None:
+            for key in ("k", "v"):
+                out[key] = self.cache[key][:, i].cpu()
+        return out
 
     def _import_slot_state(self, i: int, pages: dict,
                            req: Request) -> None:
-        raise NotImplementedError("KV handoff between engines is not ported "
-                                  "yet (ROADMAP.md, Queue 1 item 8)")
+        """Scatter a handoff payload into slot ``i`` IN PLACE: a captured
+        decode graph reads the addresses of the pool tensors and of the
+        dense slab, so they are written through, never rebound (the slab,
+        when this engine has none yet, is allocated here once and kept for
+        life, as ``_run_prefill`` does).  The slot then reaches the graph's
+        next replay through its host-side lens, tables and ``_last_tok``,
+        exactly as a refill does."""
+        if not req.tokens:
+            raise ValueError(f"request {req.rid} imported before prefill "
+                             "(no generated tokens to resume from)")
+        if self.paged:
+            self._ensure_pages()
+            if "k" in pages:
+                n_blk = len(self.slot_tables[i])
+                if pages["k"].shape[1] != n_blk:
+                    raise ValueError(
+                        f"handoff carries {pages['k'].shape[1]} blocks but "
+                        f"slot {i} allocated {n_blk} (block_size mismatch "
+                        "across the fleet?)")
+                if ("k_scales" in pages) != ("k_scales" in self.pages):
+                    raise ValueError(
+                        "KV handoff layout mismatch: donor and receiver "
+                        "must use the same kv_dtype (packed pages carry "
+                        "per-block scales a float pool cannot hold, and "
+                        "float pages cannot be scattered into a packed "
+                        "pool without requantizing)")
+                tbl = list(self.slot_tables[i])
+                # blocks re-matched from this engine's own prefix index
+                # already hold the donor's prefix content — mask them out
+                # of the scatter (shared blocks are never written)
+                tbl[:self.slot_shared[i]] = [NULL_BLOCK] * self.slot_shared[i]
+                idx = torch.as_tensor(tbl, dtype=torch.long,
+                                      device=self.device)
+                for name, key in _HANDOFF_PAGES:
+                    if name in pages:
+                        dst = self.pages[key]
+                        dst[:, idx] = pages[name].to(device=self.device,
+                                                     dtype=dst.dtype)
+        else:
+            if self.cache is None:
+                self.cache = self.api.init_cache(self.slots, self.max_len)
+            for key in ("k", "v"):
+                if key in pages:
+                    dst = self.cache[key]
+                    dst[:, i] = pages[key].to(device=self.device,
+                                              dtype=dst.dtype)
+        last = (self._last_tok.copy() if self._last_tok is not None
+                else np.ones((self.slots, 1), np.int32))
+        last[i, 0] = int(req.tokens[-1])
+        self._last_tok = last
 
     # -- decode --------------------------------------------------------------
     def _device_lens(self) -> np.ndarray:
@@ -901,3 +972,19 @@ class PartitionEngine(EngineBase):
         phase-op wall-clock measurement)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+class SimulatedEngine(EngineBase):
+    """Same slot/backlog/pool/phase state machine, no model execution:
+    tokens are synthetic.  Used by scheduler unit tests and the partitions
+    x policy benchmark sweep, where only phase timing, pool accounting, and
+    bandwidth demand matter."""
+
+    def _run_prefill(self, wave):
+        return np.arange(len(wave)) + 1
+
+    def _run_decode(self):
+        return np.full(self.slots, 1 + (self.n_decode_steps % 7))
+
+    def _refill_slot(self, i, req):
+        return 1 + (self.n_refills % 7)

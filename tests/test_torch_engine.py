@@ -10,9 +10,9 @@
   scheduler and cost model are the reference's code, copied; only the
   wall-clock throughput may differ).
 * The port's serve CLI completes every request on the CPU, with each
-  bandwidth lever, with ``--dense`` and with ``--cost-model measured``,
-  and refuses the flags whose slice has not landed (``--cluster``,
-  ``--trace``), naming their ROADMAP.md items.
+  bandwidth lever, with ``--dense``, with ``--cost-model measured``, with
+  ``--trace`` and as a ``--cluster`` of simulated workers; ``get_config``
+  refuses an unported architecture naming its ROADMAP.md items.
 """
 import jax
 import numpy as np
@@ -138,14 +138,34 @@ def test_serve_cli_serves_formerly_refused_flags(flags, capsys):
     assert "completed=6/6" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--cluster", "2"], ["--trace", "t.json"]])
-def test_serve_cli_refuses_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
-                    *flags])
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err
-    assert ("item 8" if flags[0] == "--cluster" else "item 15") in err
+@pytest.mark.parametrize("flags", [["--cluster", "2", "--simulated"],
+                                   ["--trace", "t.json"]])
+def test_serve_cli_refuses_unported_flags(flags, tmp_path, capsys):
+    """No flag of the reference's CLI is refused any more: the two that
+    waited longest (``--cluster`` with its ``--simulated`` workers, and
+    ``--trace``) complete every request on the CPU."""
+    flags = [str(tmp_path / f) if f.endswith(".json") else f for f in flags]
+    outs = serve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
+                       "--requests", "6", "--batch", "2", "--prompt-len",
+                       "8", "--gen", "4", "--no-sim", *flags])
+    out = capsys.readouterr().out
+    assert "completed=6/6" in out
+    if flags[0] == "--cluster":
+        assert "workers=2" in out and len(outs) == 6
+        assert all(len(toks) == 4 for toks in outs)
+    else:
+        assert sum(len(s) for s in outs) == 6 * 4
+        assert (tmp_path / "t.json").stat().st_size > 0
+        assert "lifecycle: " in out
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "whisper-base"])
+def test_get_config_refusal_names_its_items(arch):
+    with pytest.raises(NotImplementedError,
+                       match=r"item 10 \(the other decoder-only families\), "
+                             r"11 \(enc-dec\) or 18 \(the dense family's "
+                             r"other configs\)"):
+        get_config(arch)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone, and its kernel wrappers never fall back.
 
-* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or anything of the JAX package ``repro`` (the port keeps its own
-  copies of the host modules it needs).
+* No module of ``src/repro_torch/``, not ``chip_smoke.py`` and not
+  ``tools/torch_trace_export.py`` imports ``jax``, ``ml_dtypes`` (which
+  ships with jax; the card's machine has neither) or anything of the JAX
+  package ``repro`` (the port keeps its own copies of the host modules it
+  needs).
 * Each kernel wrapper (``ops.py``) sends a CPU tensor to its plain
   PyTorch version and counts no launch; a tensor on any other non-CUDA
   device raises instead of being served by the plain version.
@@ -29,12 +31,12 @@ from repro_torch.kernels.paged_attention import ref as pa_ref
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_export.py"]
 
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imports(path: Path):
@@ -49,7 +51,8 @@ def _imports(path: Path):
 
 def test_port_has_files():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "engine.py", "ops.py", "serve.py"} <= names
+    assert {"chip_smoke.py", "engine.py", "ops.py", "serve.py",
+            "torch_trace_export.py", "cluster.py", "protocol.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
