@@ -23,7 +23,9 @@ times the tensor-core route at forced column tiles and split counts.
 replays and ``profiling/prefill_profile``'s of eager refills and waves
 against theirs, and exits 0 without the result line.  ``--only cluster``
 builds the same four sources and runs phase 4 alone, without the result
-line.
+line.  ``--only families`` builds the same four sources and runs the
+eleventh slice's checks of phases 1-3 (the MoE and VLM families and the
+dense family's other configs) alone, without the result line.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -66,6 +68,12 @@ Phases (each raises on failure; nothing is caught):
    off; TF32 on logged for information), cycling over input sets that
    overflow the L2.  These checks take their shapes from what phase 2's
    CPU forwards passed to the conv2d wrapper, so they run after it.
+   The matmul and flash attention are also held at the shapes of the
+   eleventh slice's configs (FAMILY_RUNS), bf16 and fp32: every
+   projection at M = SLOTS and at a prefill wave's rows, each LM head at
+   M = SLOTS (internvl2's 92,553 columns take the CUDA cores), and each
+   config's prefill wave (G = 1 with 20 heads; internvl2's 288 rows, 256
+   of them the image prefix).
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
    weights on both; ragged prefill and 4 decode steps on a float pool
    (logits within 1e-3: f32 on both sides, summed in different orders
@@ -104,7 +112,16 @@ Phases (each raises on failure; nothing is caught):
    at 224, fp32, batch 2, built from one seed on both devices: logits
    within 1e-3 * max|cpu| (f32 on both sides, summed in other orders
    through up to 53 convs and 16 unnormalised residual adds), identical
-   argmax per image.
+   argmax per image.  The eleventh slice's six configs at full width in
+   fp32 (2 layers; dbrx-132b 1: 12.7 GB of f32 experts a layer), the same
+   weights on both: a ragged wave (internvl2's with seeded patch
+   embeddings before the text; slot 0's prompt one token repeated, whose
+   rows route alike, so experts overflow) on a float pool, then 4 decode
+   steps: every MoE call's expert ids equal the CPU's but for flips where
+   the CPU's top-k gap is below 1e-6 (printed, counted, their slots left
+   out), the same overflowing experts on both (at least one), logits
+   within 1e-3 and the same argmax; then the graph lockstep above at 2
+   layers for qwen3-moe-30b-a3b and internvl2-26b.
 3. The slice: ``repro_torch.launch.serve.main`` serves qwen2-7b at full
    width (28 layers, bf16, random weights from seed 0) with 2 partitions,
    then at a smaller load (1 partition, 4 requests, prompt 64) on the
@@ -122,7 +139,18 @@ Phases (each raises on failure; nothing is caught):
    shape eagerly once, capture it at its second use and replay it after
    that, with nothing evicted (each run logs its graph counts and capture
    seconds), the loads that repeat a prefill shape must replay it, and
-   the sparse runs must drop blocks.  The CNN slice: ``repro_torch.models.cnn
+   the sparse runs must drop blocks.  Then each of the eleventh slice's
+   configs through the same CLI at full width, bf16, at phase 3's load
+   (qwen3-moe-30b-a3b, internvl2-26b, mistral-nemo-12b and qwen1.5-4b at
+   every layer; qwen1.5-110b at 8 of 80 and dbrx-132b at 4 of 40, the
+   depth one 80 GB card holds), and qwen3-moe with int8 pages and sparse
+   decode at the lever load, each model freed before the next: the same
+   gates, and each logs the replayed decode step's device ms (CUDA events
+   over bare replays of the first engine's graph), the wall of the
+   engine's own step after the load and the idle share, beside the bytes
+   bound of its weights; for MoE the expert products' ms a step, timed
+   layer after layer at the step's buffer on the engine's weights, beside
+   their bytes bound.  The CNN slice: ``repro_torch.models.cnn
    .apply_cnn`` runs each of ResNet-50, GoogLeNet and VGG-16 at 224, batch
    64, fp32 on the card: one forward holds every conv2d and matmul call
    against its plain version on the call's own inputs (2e-4 of the
@@ -245,6 +273,18 @@ TRACED_REFILL = 2
 # (slot, kv head) below it, one of which is not the current block: blocks
 # are dropped whatever the weights
 LEVER_PROMPT, LEVER_GEN, THRESHOLD = 64, 8, 0.25
+# the eleventh slice's configs, served at full width in bf16 at the depth
+# one 80 GB card holds (None: every layer; qwen1.5-110b is ~220 GB and
+# dbrx-132b ~264 GB whole)
+FAMILY_RUNS = {"qwen3-moe-30b-a3b": None, "internvl2-26b": None,
+               "mistral-nemo-12b": None, "qwen1.5-4b": None,
+               "qwen1.5-110b": 8, "dbrx-132b": 4}
+# phase 2 holds each at 2 layers in fp32 on the card and the CPU; dbrx at
+# 1 (12.7 GB of f32 experts a layer)
+FAMILY_CHECK_LAYERS = {"dbrx-132b": 1}
+FAMILY_LOCKSTEP = ("qwen3-moe-30b-a3b", "internvl2-26b")
+FAMILY_LEVER = "qwen3-moe-30b-a3b"     # int8 pages + sparse decode
+STEP_CALLS = 9          # engine steps timed after a family's serve run
 # phase 4: the serving load of phase 3 through two worker processes
 CLUSTER_REQUESTS = 8
 HEARTBEAT_S = 600.0     # full-width workers boot for tens of seconds
@@ -656,17 +696,19 @@ def phase_flash_attention(torch, cfg):
         long_bound_ms=lb_ms)}
 
 
-def phase_decode_kernels(torch, cfg):
+def phase_decode_kernels(torch, cfg, prefix=0, label=""):
     """Phase 1 for the four entry points of the decode-attention template
     (paged_decode, paged_decode_quant, paged_decode_sparse, flash_decode).
     Each is held against its plain version through the model path's
     wrapper (the split plan) and through its kernel at forced splits (1,
-    the plan's, more than the walk's tiles), at the serving path's shapes,
-    a ragged window with an inactive slot, D = 16 and D = 20, contexts 1,
-    31, 32 and 33 around the first tile edge, and contexts of about
-    DECODE_LONG; then each kernel is timed alone (its ``*_cuda`` launch
-    with the plan's splits: no wrapper's counting ops) at the main shape
-    and at DECODE_LONG."""
+    the plan's, more than the walk's tiles), at the serving path's shapes
+    (its contexts ``prefix`` rows later: an image prefix), a ragged window
+    with an inactive slot, D = 16 and D = 20, contexts 1, 31, 32 and 33
+    around the first tile edge, and contexts of about DECODE_LONG; then
+    each kernel is timed alone (its ``*_cuda`` launch with the plan's
+    splits: no wrapper's counting ops) at the main shape and at
+    DECODE_LONG.  Each log line starts with ``label`` and gives the worst
+    error over all of the kernel's cases."""
     from repro_torch.kernels import decode_split
     from repro_torch.kernels.flash_decode import flash_decode as fd_k
     from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -695,21 +737,25 @@ def phase_decode_kernels(torch, cfg):
         tiles = -(-walk // decode_split.KT)
         return sorted({1, decode_split.plan(B, hkv, walk, sms), tiles + 3})
 
+    worst_all = {}
+
     def held(name, wrapped, kernel, want, tol, walk, B, hkv):
         """The model path's wrapper, then the kernel at each forced split
         count, against one plain output."""
+        name = f"{label}{name}"
         worst = check_close(torch, name, wrapped(), want, tol)
         for n in counts(walk, B, hkv):
             worst = max(worst, check_close(torch, f"{name} splits={n}",
                                            kernel(n), want, tol))
+        k = name[len(label):].split()[0]
+        worst_all[k] = max(worst_all.get(k, 0.0), worst)
         return worst
 
     hd, Hq, Hkv, bs = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, 16
     G = Hq // Hkv
     out = {}
     bf, f32 = torch.bfloat16, torch.float32
-    lever_curs = [LEVER_PROMPT + 1, LEVER_PROMPT + 7, LEVER_PROMPT + 3,
-                  LEVER_PROMPT + 5]
+    lever_curs = [prefix + LEVER_PROMPT + o for o in (1, 7, 3, 5)]
     long_curs = [DECODE_LONG + o for o in LONG_OFFSETS]
 
     def cases(main):
@@ -729,7 +775,7 @@ def phase_decode_kernels(torch, cfg):
 
     # -- paged_decode (float pages): the serving path's contexts
     worst = 0.0
-    pcases = cases([PROMPT + 3, PROMPT + 9, PROMPT + 1, PROMPT + 14])
+    pcases = cases([prefix + PROMPT + o for o in (3, 9, 1, 14)])
     for curs, w, hq, hkv, D, tag, inactive in pcases:
         B = len(curs)
         tables, N = paged_tables(torch, curs, bs, dev, inactive)
@@ -778,8 +824,9 @@ def phase_decode_kernels(torch, cfg):
         max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
         bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
         splits=plan_of(tables), long_splits=plan_of(ltables))
-    log(f"phase 1: paged_decode matches at {len(pcases)} shapes x 2 dtypes "
-        f"x (the wrapper + forced splits); kernel_ms {t_k:.4f} plain_ms "
+    log(f"phase 1: {label}paged_decode matches at {len(pcases)} shapes x 2 "
+        f"dtypes x (the wrapper + forced splits), max abs err "
+        f"{worst_all['paged_decode']:.3g}; kernel_ms {t_k:.4f} plain_ms "
         f"{t_p:.4f} library_ms null bound_ms {b_ms:.5f} ({by}), splits "
         f"{plan_of(tables)}; long kernel_ms {lt_k:.4f} bound_ms "
         f"{lb_ms:.5f} splits {plan_of(ltables)}")
@@ -864,9 +911,11 @@ def phase_decode_kernels(torch, cfg):
         max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
         bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
         splits=plan_of(tables), long_splits=plan_of(ltables))
-    log(f"phase 1: paged_decode_quant matches at {len(qcases)} shapes x "
-        f"int8/fp8 x 2 dtypes x 3 operand sets x (the wrapper + forced "
-        f"splits); kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms null "
+    log(f"phase 1: {label}paged_decode_quant matches at {len(qcases)} "
+        f"shapes x int8/fp8 x 2 dtypes x 3 operand sets x (the wrapper + "
+        f"forced splits), max abs err "
+        f"{worst_all['paged_decode_quant']:.3g}; "
+        f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms null "
         f"bound_ms {b_ms:.5f} ({by}), splits {plan_of(tables)}; long "
         f"kernel_ms {lt_k:.4f} bound_ms {lb_ms:.5f}")
 
@@ -943,15 +992,16 @@ def phase_decode_kernels(torch, cfg):
         max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=None,
         bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
         splits=plan_of(tables), long_splits=plan_of(ltables))
-    log(f"phase 1: paged_decode_sparse matches at {len(qcases)} shapes x 3 "
-        f"masks x 2 dtypes x (the wrapper + forced splits); kernel_ms "
+    log(f"phase 1: {label}paged_decode_sparse matches at {len(qcases)} "
+        f"shapes x 3 masks x 2 dtypes x (the wrapper + forced splits), max "
+        f"abs err {worst_all['paged_decode_sparse']:.3g}; kernel_ms "
         f"{t_k:.4f} plain_ms {t_p:.4f} library_ms null bound_ms {b_ms:.5f} "
         f"({by}), splits {plan_of(tables)}; long kernel_ms {lt_k:.4f} "
         f"bound_ms {lb_ms:.5f}")
 
     # -- flash_decode: the dense run's slab (S = max_len), scalar and
     # vector cur, a window, a ragged S, the tile edge, a long slab
-    S_main = LEVER_PROMPT + 4 * LEVER_GEN
+    S_main = prefix + LEVER_PROMPT + 4 * LEVER_GEN
     S_long = DECODE_LONG + 64
     worst = 0.0
     fcases = [(SLOTS, S_main, Hq, Hkv, hd, 0, "main", lever_curs),
@@ -1027,8 +1077,9 @@ def phase_decode_kernels(torch, cfg):
         bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
         long_library_ms=lt_l, splits=fd_plan(S_main),
         long_splits=fd_plan(S_long))
-    log(f"phase 1: flash_decode matches at {len(fcases)} shapes x scalar/"
-        f"vector cur x 2 dtypes x (the wrapper + forced splits); kernel_ms "
+    log(f"phase 1: {label}flash_decode matches at {len(fcases)} shapes x "
+        f"scalar/vector cur x 2 dtypes x (the wrapper + forced splits), max "
+        f"abs err {worst_all['flash_decode']:.3g}; kernel_ms "
         f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA with a "
         f"boolean mask on K/V expanded to {Hq} heads) bound_ms {b_ms:.5f} "
         f"({by}), splits {fd_plan(S_main)}; long kernel_ms {lt_k:.4f} "
@@ -1331,11 +1382,7 @@ def phase_card_vs_cpu(torch, cfg):
     cfg2 = cfg.replace(n_layers=2, dtype="float32")
     g = torch.Generator(device="cuda").manual_seed(2)
     params = {"cuda": TF.init_lm(cfg2, g, "cuda")}
-
-    def to_cpu(tree):
-        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
-                for k, v in tree.items()}
-    params["cpu"] = to_cpu(params["cuda"])
+    params["cpu"] = tree_to(params["cuda"], "cpu")
     lens = [PROMPT, 20, 27, 9]
     max_len = PROMPT + 16
     tokens = torch.randint(1, cfg2.vocab, (len(lens), PROMPT),
@@ -1758,7 +1805,8 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
 
     def engine(mode, prompts, gens):
         eng = PartitionEngine(
-            cfg2, api, params, slots=SLOTS, max_len=max(lens) + max(gens),
+            cfg2, api, params, slots=SLOTS,
+            max_len=(cfg2.n_img_tokens or 0) + max(lens) + max(gens),
             cuda_graph=mode != "eager",
             prefill_graphs=pg if mode != "eager" else None, **kw)
         eng._wave_prefill_cache = recorded(mode, eng, "wave",
@@ -2030,9 +2078,12 @@ def phase_cnn_card_vs_cpu(torch):
 # ---------------------------------------------------------------------------
 
 
-def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
+def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
+              after=None):
     """One serve CLI run with every count set to 0 just before it and read
-    just after; every request must complete.  Returns the run's record."""
+    just after; every request must complete.  ``after(engines)``, when
+    given, runs on the fleet's engines once the checks pass.  Returns the
+    run's record."""
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.launch import serve
@@ -2095,6 +2146,8 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None):
         f"shapes) {prefills['eager']} eager, {prefills['replays']} replayed, "
         f"{prefills['captures']} captures in {prefills['capture_s']:.3f} s, "
         f"{sum(e.n_refills for e in engines)} of them refills")
+    if after is not None:
+        after(engines)
     return dict(launches=launches, routes=routes, dropped=dropped, wall=wall,
                 tokens=tokens, graphs=graphs, prefills=prefills)
 
@@ -2325,6 +2378,376 @@ def phase_cnn(torch, wrappers, card_params):
                 f"P={p} perf {r['perf']:.4f} bw_mean {r['bw_mean'] / 1e9:.1f}"
                 f" GB/s bw_std {r['bw_std'] / 1e9:.1f} GB/s"
                 for p, r in rows.items()))
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# the eleventh slice: the MoE and VLM families, the dense family's others
+# ---------------------------------------------------------------------------
+
+
+def family_cfg(arch, **kw):
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(**kw)
+
+
+def projections(cfg):
+    """(K, N) of every matmul a block issues through the wrapper (the
+    q / k / v / o projections; the dense MLP's or the shared experts')."""
+    d, hd = cfg.d_model, cfg.head_dim
+    out = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+           (cfg.n_heads * hd, d)]
+    f = cfg.d_ff * (cfg.n_shared_experts if cfg.n_experts else 1)
+    if f and (not cfg.n_experts or cfg.n_shared_experts):
+        out += [(d, f), (f, d)]
+    return out
+
+
+def phase_family_kernels(torch):
+    """Phase 1 at the new configs' shapes: the matmul against its plain
+    version at each projection at a decode step's M (SLOTS) and a prefill
+    wave's (SLOTS x the prompt, the image prefix included) and the LM head
+    at M = SLOTS, bf16 and fp32; flash attention at each config's prefill
+    wave (internvl2's prompts are 256 image rows and the text); then the
+    decode-attention template's four entry points at each config's (Hq,
+    Hkv, D) and serve contexts (``phase_decode_kernels``)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import ref as mm_ref
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dt)
+
+    shapes, heads = set(), set()
+    for arch in FAMILY_RUNS:
+        cfg = family_cfg(arch)
+        S = PROMPT + (cfg.n_img_tokens or 0)
+        shapes |= {(M, K, N) for K, N in projections(cfg)
+                   for M in (SLOTS, SLOTS * S)}
+        shapes.add((SLOTS, cfg.d_model, cfg.vocab))
+        heads.add((S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim))
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for M, K, N in sorted(shapes):
+            a, b = rnd((M, K), dt), rnd((K, N), dt, 1 / math.sqrt(K))
+            e = check_close(torch, f"matmul {M}x{K}x{N} {name}",
+                            mm_ops.matmul(a, b), mm_ref.matmul(a, b),
+                            TOL[name])
+            worst[f"matmul {name}"] = max(worst.get(f"matmul {name}", 0), e)
+            del a, b
+        for S, hq, hkv, D in sorted(heads):
+            q = rnd((SLOTS, S, hq, D), dt)
+            k, v = rnd((SLOTS, S, hkv, D), dt), rnd((SLOTS, S, hkv, D), dt)
+            e = check_close(torch, f"flash_attention S={S} Hq={hq} "
+                            f"Hkv={hkv} {name}",
+                            fa_ops.flash_attention(q, k, v),
+                            fa_ref.attention(q, k, v), TOL[name])
+            worst[f"flash_attention {name}"] = max(
+                worst.get(f"flash_attention {name}", 0), e)
+    log(f"phase 1: the new configs' shapes: matmul at {len(shapes)} (M, K, "
+        f"N) and flash attention at {len(heads)} prefill waves "
+        f"{sorted(heads)} match their plain versions in bf16 and fp32 (max "
+        f"abs err {', '.join(f'{k} {v:.3g}' for k, v in worst.items())})")
+    for arch in FAMILY_RUNS:
+        cfg = family_cfg(arch)
+        phase_decode_kernels(torch, cfg, prefix=cfg.n_img_tokens or 0,
+                             label=f"[{arch} Hq={cfg.n_heads} "
+                                   f"Hkv={cfg.n_kv_heads}] ")
+
+
+class Routing:
+    """Every ``moe.route`` call's expert ids and sorted probabilities, and
+    every ``moe.dispatch`` call's slot tables, while installed, on the
+    device the call ran on, kept on the host."""
+
+    def __init__(self, moe):
+        self.moe, self.calls, self.tables = moe, [], []
+        self.real = moe.route, moe.dispatch
+
+    def __enter__(self):
+        route, dispatch = self.real
+
+        def record(p, cfg, xf):
+            probs, gate, eid = route(p, cfg, xf)
+            top = probs.sort(dim=-1, descending=True).values
+            top = top[:, :cfg.top_k + 1]
+            self.calls.append((eid.cpu(), top.cpu()))
+            return probs, gate, eid
+
+        def tables(eid, E, C):
+            inv_slot, buf_tok = dispatch(eid, E, C)
+            self.tables.append((inv_slot.cpu(), buf_tok.cpu()))
+            return inv_slot, buf_tok
+        self.moe.route, self.moe.dispatch = record, tables
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch = self.real
+
+
+def plain_dispatch(eid, E: int, C: int):
+    """The reference's slot tables (``_moe_group`` of the JAX package) by
+    a loop over the stably sorted token copies, a later write to one slot
+    replacing an earlier one as on the reference's CPU: (inv_slot,
+    buf_tok, the number of experts over capacity)."""
+    T, K = eid.shape
+    flat = eid.reshape(-1).tolist()
+    buf_tok, inv_slot, load = [T] * (E * C), [E * C] * (T * K), [0] * E
+    for i in sorted(range(T * K), key=flat.__getitem__):    # stable
+        e, pos = flat[i], load[flat[i]]
+        load[e] += 1
+        slot = e * C + min(pos, C - 1)
+        buf_tok[slot] = i // K if pos < C else T
+        if pos < C:
+            inv_slot[i] = slot
+    return inv_slot, buf_tok, sum(n > C for n in load)
+
+
+def phase_family_card_vs_cpu(torch):
+    """Phase 2 for the new configs: each at full width in fp32 (2 layers;
+    dbrx 1, FAMILY_CHECK_LAYERS), the same weights on the card (kernels)
+    and the CPU (plain versions): a ragged wave (internvl2's with seeded
+    patch embeddings before the text; slot 0's prompt one token repeated,
+    so its rows route alike and experts overflow) into a float pool, then
+    4 decode steps.  The expert ids of every routed row must equal the
+    CPU's, but for flips where the CPU's gap between the k-th and the
+    (k+1)-th probability is below 1e-6 (each printed and counted; its slot
+    leaves the logit comparison).  Logits within MODEL_TOL with the same
+    argmax over the other slots.  Then the graph lockstep of phase 2 at 2
+    layers for qwen3-moe and internvl2."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import kv_pool as KV
+
+    lens = [PROMPT, 20, 27, 9]
+    for arch in FAMILY_RUNS:
+        cfg2 = family_cfg(arch, dtype="float32",
+                          n_layers=FAMILY_CHECK_LAYERS.get(arch, 2))
+        n_img = cfg2.n_img_tokens or 0
+        max_len = n_img + PROMPT + 16
+        gen = torch.Generator().manual_seed(3)
+        tokens = torch.randint(1, cfg2.vocab, (len(lens), PROMPT),
+                               generator=gen)
+        tokens[0] = tokens[0, 0]                       # one token repeated
+        img = torch.randn((len(lens), n_img, cfg2.d_model), generator=gen)
+        params = {"cuda": TF.init_lm(cfg2, torch.Generator(
+            device="cuda").manual_seed(2), "cuda")}
+        params["cpu"] = tree_to(params["cuda"], "cpu")
+        logits, routing = {}, {}
+        for dev in ("cuda", "cpu"):
+            p, bs = params[dev], 16
+            T = -(-max_len // bs)
+            pool = KV.BlockPool(1 + len(lens) * T, bs)
+            tables = torch.tensor([pool.alloc(T) for _ in lens],
+                                  dtype=torch.int32, device=dev)
+            batch = {"tokens": tokens.to(dev)}
+            if n_img:
+                batch["img_embeds"] = img.to(dev)
+            with Routing(MOE) as routing[dev]:
+                lg, cache = TF.prefill(p, cfg2, batch, max_len=max_len,
+                                       lens=torch.tensor(lens))
+                pages = KV.init_pages(cfg2, pool.n_blocks, bs, device=dev)
+                KV.write_prefix_pages(pages, cache["k"], cache["v"], tables)
+                pc = dict(pages, tables=tables, lens=torch.tensor(
+                    lens, dtype=torch.int32, device=dev) + n_img)
+                steps = [lg.cpu()]
+                for _ in range(4):
+                    lg, pc = TF.decode_step_paged(p, cfg2,
+                                                  lg.argmax(-1)[:, None], pc)
+                    lg = lg[:, 0]
+                    steps.append(lg.cpu())
+            logits[dev] = steps
+            del p, pages, pc, cache
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        flipped, flips, overflows = set(), [], 0
+        card, cpu = routing["cuda"].calls, routing["cpu"].calls
+        if len(card) != len(cpu):
+            fail(f"card vs CPU {arch}: {len(card)} routed calls on the card, "
+                 f"{len(cpu)} on the CPU")
+        for call, ((ea, _), (eb, top)) in enumerate(zip(card, cpu)):
+            rows = eb.shape[0]
+            per_slot = rows // len(lens)          # prefill: B x S; decode: B
+            C = MOE.capacity(rows, cfg2.n_experts, cfg2.top_k,
+                             cfg2.capacity_factor)
+            # each device's slot tables against the plain loop on its own
+            # expert ids: the dispatch, the C-1 overflow slot included
+            for dev, e in (("cuda", ea), ("cpu", eb)):
+                inv_slot, buf_tok, over = plain_dispatch(e, cfg2.n_experts,
+                                                         C)
+                got = routing[dev].tables[call]
+                if got[0].tolist() != inv_slot or \
+                        got[1].tolist() != buf_tok:
+                    fail(f"card vs CPU {arch}: routed call {call}: the "
+                         f"{dev} dispatch's slot tables differ from the "
+                         "plain loop's")
+                if dev == "cpu":
+                    overflows += over
+            for r in (ea != eb).any(-1).nonzero().flatten().tolist():
+                k = cfg2.top_k
+                gap = float(top[r, k - 1] - top[r, k])
+                if gap >= 1e-6:
+                    fail(f"card vs CPU {arch}: routed call {call} row {r}: "
+                         f"experts {ea[r].tolist()} on the card, "
+                         f"{eb[r].tolist()} on the CPU (the CPU's gap between "
+                         f"the {k}-th and the next probability {gap:.3g} >= "
+                         "1e-6)")
+                flips.append(f"call {call} row {r} gap {gap:.3g}")
+                flipped.add(r // max(per_slot, 1))
+        if cfg2.n_experts and not overflows:
+            fail(f"card vs CPU {arch}: no expert overflowed")
+        keep = [b for b in range(len(lens)) if b not in flipped]
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
+            a, b = a[keep], b[keep]
+            if not torch.equal(a.argmax(-1), b.argmax(-1)):
+                fail(f"card vs CPU {arch}: argmax differs at step {i}")
+            worst = max(worst, check_close(
+                torch, f"card vs CPU {arch} step {i}", a, b, MODEL_TOL))
+        routed = (f"; {len(cpu)} routed calls, expert ids equal but for "
+                  f"{len(flips)} flips below a 1e-6 gap {flips} (slots "
+                  f"{sorted(flipped)} left out); slot tables equal the "
+                  f"plain loop's on both, {overflows} overflowing experts"
+                  if cfg2.n_experts else "")
+        log(f"phase 2: {arch} at full width, {cfg2.n_layers} of "
+            f"{family_cfg(arch).n_layers} layers, fp32, "
+            f"card vs CPU: prefill (prompts {[n_img + n for n in lens]}) + 4 "
+            f"decode steps on a float pool agree (max abs logit err "
+            f"{worst:.3g}, tolerance {MODEL_TOL}), identical argmax{routed}")
+    for arch in FAMILY_LOCKSTEP:
+        cfg2 = family_cfg(arch, n_layers=2, dtype="float32")
+        params = TF.init_lm(cfg2, torch.Generator(device="cuda").manual_seed(
+            2), "cuda")
+        graph_lockstep_traced(torch, cfg2, params, f"{arch} fp32",
+                              [PROMPT, 20, 27, 9, 14, 14, 14, 25],
+                              [8, 3, 7, 6, 5, 4, 3, 4], 6)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tree_to(tree, dev):
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def depth_of(serve, n_layers):
+    """Serve at ``n_layers`` layers: ``serve.get_config`` wrapped for one
+    run (one card's 80 GB cannot hold the full depth)."""
+    real = serve.get_config
+
+    def cut(name, smoke=False):
+        cfg = real(name, smoke=smoke)
+        return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+    return real, cut
+
+
+def step_measure(torch, engines, cfg):
+    """After a serve run, on its first engine's captured decode graph: the
+    device ms of a replayed step (CUDA events over bare replays), the wall
+    ms of the engine's own step (fill, replay, read back; median of
+    STEP_CALLS, the slots idle by then) and the idle share 1 - device /
+    wall; the step's bytes bound (every weight but the embedding read
+    once).  For MoE also the expert products' ms per step, timed on the
+    engine's weights at the step's buffer (E, C, d) layer after layer, and
+    their bytes bound."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.profiling.decode_profile import replay_ms, timed
+
+    eng = engines[0]
+    dev = eng.device
+    device_ms = replay_ms(eng.graph.graph, dev)
+    wall_ms = 1e3 * float(sorted(timed(eng._run_decode, dev, STEP_CALLS))[
+        STEP_CALLS // 2])
+    params = eng.params
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in leaves(params)) - \
+        params["embed"].numel() * params["embed"].element_size()
+    out = dict(device_ms=device_ms, wall_ms=wall_ms,
+               idle=1 - device_ms / wall_ms,
+               bound_ms=weight_bytes / H100_BW * 1e3,
+               weight_gb=weight_bytes / 1e9)
+    if cfg.n_experts:
+        moe = params["blocks"]["moe"]
+        C = MOE.capacity(eng.slots, cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+        buf = torch.randn((cfg.n_experts, C, cfg.d_model), device=dev).to(
+            moe["w1"].dtype)
+        L = cfg.n_layers
+
+        def layer(i):
+            MOE.expert_ffn(buf, moe["w1"][i], moe["w2"][i], moe["w3"][i])
+        out["expert_ms"] = time_ms(torch, layer, L, 2 * L) * L
+        out["expert_bound_ms"] = sum(
+            moe[k].numel() * moe[k].element_size()
+            for k in ("w1", "w2", "w3")) / H100_BW * 1e3
+    return out
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+def phase_family_serve(torch, wrappers):
+    """Phase 3 for the new configs: ``serve.main`` at full width, bf16,
+    phase 3's load (8 requests, prompt 32, 16 tokens, 2 partitions x 4
+    slots, stagger demand), each at the depth FAMILY_RUNS gives, then
+    int8 pages + sparse decode on qwen3-moe at the lever load.  Each run
+    must complete every request, launch the matmul, flash attention and
+    its decode kernel, run one eager decode step, one capture and replays
+    per engine and its prefills as an LRU does (``serve_run``); it logs its
+    wall, tokens per wall second, peak memory, launches and the replayed
+    step's device ms and idle share beside its bytes bound (for MoE the
+    expert products' too).  Each model is freed before the next."""
+    from repro_torch.launch import serve
+
+    runs = {}
+    loads = [(arch, ["--arch", arch] + SERVE_ARGS[2:], n)
+             for arch, n in FAMILY_RUNS.items()]
+    loads.append((f"{FAMILY_LEVER} int8+sparse",
+                  ["--arch", FAMILY_LEVER] + LEVER_ARGS[2:]
+                  + LEVER_RUNS["int8+sparse"], None))
+    for name, argv, n_layers in loads:
+        gc.collect()
+        torch.cuda.empty_cache()
+        real, cut = depth_of(serve, n_layers)
+        serve.get_config = cut
+        try:
+            cfg = cut(argv[1])
+            measured = {}
+            runs[name] = serve_run(
+                torch, cfg, wrappers, name, argv, flag(argv, "--requests"),
+                flag(argv, "--gen"), after=lambda engines: measured.update(
+                    step_measure(torch, engines, cfg)))
+        finally:
+            serve.get_config = real
+        kernel = "paged_decode_quant" if "int8" in name else "paged_decode"
+        for k in ("matmul", "flash_attention", kernel):
+            if runs[name]["launches"][k] == 0:
+                fail(f"serve {name}: kernel {k} was never launched")
+        if "int8" in name and runs[name]["dropped"][kernel] == 0:
+            fail(f"serve {name}: the keep masks dropped no block")
+        m = measured
+        depth = "" if n_layers is None else (
+            f"; {n_layers} of {real(argv[1]).n_layers} layers, the depth "
+            "one 80 GB card holds at full width in bf16")
+        expert = "" if "expert_ms" not in m else (
+            f"; expert products {m['expert_ms']:.3f} ms a step (bytes bound "
+            f"{m['expert_bound_ms']:.3f} ms)")
+        log(f"phase 3 [{name}]: {cfg.name} d={cfg.d_model} "
+            f"layers={cfg.n_layers}{depth}: replayed decode step "
+            f"{m['device_ms']:.3f} ms device, {m['wall_ms']:.3f} ms wall, "
+            f"idle share {m['idle']:.3f}; bytes bound {m['bound_ms']:.3f} ms "
+            f"({m['weight_gb']:.2f} GB of weights but the embedding)"
+            f"{expert}")
+        runs[name].update(step=m)
     return runs
 
 
@@ -2637,7 +3060,34 @@ ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
             torch, cfg, profile=True)),
         "cluster": (["matmul", "flash_attention", "paged_attention",
                      "flash_decode"], lambda torch, cfg: (
-            phase_cluster(torch, cfg), {})[1])}
+            phase_cluster(torch, cfg), {})[1]),
+        "families": (["matmul", "flash_attention", "paged_attention",
+                      "flash_decode"], lambda torch, cfg: phase_families(
+            torch))}
+
+
+def serving_wrappers():
+    """The kernel wrappers of the serving path, by kernel name."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    return {"matmul": mm_ops.matmul,
+            "flash_attention": fa_ops.flash_attention,
+            "paged_decode": pa_ops.paged_decode,
+            "paged_decode_quant": pa_ops.paged_decode_quant,
+            "paged_decode_sparse": pa_ops.paged_decode_sparse,
+            "flash_decode": fd_ops.flash_decode}
+
+
+def phase_families(torch) -> dict:
+    """``--only families``: the eleventh slice's phase 1, 2 and 3 checks
+    alone."""
+    phase_family_kernels(torch)
+    phase_family_card_vs_cpu(torch)
+    phase_family_serve(torch, serving_wrappers())
+    return {}
 
 
 def cnn_conv_shapes():
@@ -2721,24 +3171,23 @@ def main() -> None:
     stats = phase_matmul(torch, cfg)
     stats.update(phase_flash_attention(torch, cfg))
     stats.update(phase_decode_kernels(torch, cfg))
+    phase_family_kernels(torch)
     phase_card_vs_cpu(torch, cfg)
+    phase_family_card_vs_cpu(torch)
     phase_graph(torch, cfg)
     cnn_params, conv_shapes = phase_cnn_card_vs_cpu(torch)
     stats.update(phase_conv_kernel(torch, conv_shapes))
     torch.cuda.empty_cache()
-    wrappers = {"matmul": mm_ops.matmul,
-                "flash_attention": fa_ops.flash_attention,
-                "paged_decode": pa_ops.paged_decode,
-                "paged_decode_quant": pa_ops.paged_decode_quant,
-                "paged_decode_sparse": pa_ops.paged_decode_sparse,
-                "flash_decode": fd_ops.flash_decode,
-                "conv2d": cv_ops.conv2d}
+    wrappers = dict(serving_wrappers(), conv2d=cv_ops.conv2d)
     runs = phase_cnn(torch, wrappers, cnn_params)
     stats["conv2d"]["in_forward_ms"] = runs["cnn resnet50"]["conv_ms"]
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_serve(torch, cfg, wrappers))
-    del cnn_params      # phase 4 holds up to three copies of the weights
+    del cnn_params      # qwen3-moe's 60.5 GB of weights come next
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(phase_family_serve(torch, wrappers))
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_cluster(torch, cfg))

@@ -161,8 +161,10 @@ def canonical(name: str) -> str:
 
 
 # architectures whose model path the port serves so far; the rest wait for
-# their slice (ROADMAP.md, Queue 1 items 10, 11 and 18)
-PORTED_ARCH_IDS = ["qwen2_7b"]
+# their slice (ROADMAP.md, Queue 1 items 10 and 11)
+PORTED_ARCH_IDS = ["qwen2_7b", "qwen1p5_4b", "mistral_nemo_12b",
+                   "qwen1p5_110b", "qwen3_moe_30b_a3b", "dbrx_132b",
+                   "internvl2_26b"]
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -171,8 +173,8 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
         raise NotImplementedError(
             f"architecture {name!r} is not ported to PyTorch yet (ported: "
             f"{PORTED_ARCH_IDS}); it is queued in ROADMAP.md, Queue 1 item "
-            "10 (the other decoder-only families), 11 (enc-dec) or 18 (the "
-            "dense family's other configs)")
+            "10 (the SSM and hybrid families: mamba2-130m, hymba-1.5b) or "
+            "11 (enc-dec: whisper-base)")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
 

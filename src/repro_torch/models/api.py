@@ -1,7 +1,10 @@
-"""Model API over the ported families (the dense decoder-only LM so far).
+"""Model API over the ported families (the dense, MoE and VLM
+decoder-only LMs so far).
 
 ``build(cfg, device)`` returns a ``ModelAPI`` bound to one device:
   init(generator)                        -> params
+  prefill_batch(tokens)                  -> prefill batch of a (B, S)
+                                            token tensor
   prefill(params, batch, max_len, lens)  -> (logits, cache)
   decode(params, token, cache)           -> (logits, cache)   (dense slab)
   decode_paged(params, token, pcache, sparse_threshold=0.0)
@@ -30,6 +33,7 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    prefill_batch: Callable
     prefill: Callable
     decode: Callable
     decode_paged: Callable
@@ -49,6 +53,17 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def init(generator: torch.Generator):
         return TF.init_lm(cfg, generator, device)
 
+    def prefill_batch(tokens):
+        """``{"tokens": tokens}``, and for a VLM the serving engine's
+        stand-in for the stubbed vision frontend, zero patch embeddings
+        (B, n_img_tokens, d) f32 (``repro/serving/engine.py:716-718``)."""
+        batch = {"tokens": tokens}
+        if cfg.n_img_tokens:
+            batch["img_embeds"] = torch.zeros(
+                (tokens.shape[0], cfg.n_img_tokens, cfg.d_model),
+                dtype=torch.float32, device=tokens.device)
+        return batch
+
     def prefill(params, batch, max_len=None, lens=None):
         return TF.prefill(params, cfg, batch, max_len, lens=lens)
 
@@ -62,5 +77,5 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def init_cache(batch, max_len):
         return TF.init_cache(cfg, batch, max_len, device=device)
 
-    return ModelAPI(cfg, device, init, prefill, decode, decode_paged,
-                    init_cache)
+    return ModelAPI(cfg, device, init, prefill_batch, prefill, decode,
+                    decode_paged, init_cache)

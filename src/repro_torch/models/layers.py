@@ -15,8 +15,8 @@ on a CUDA tensor and the plain PyTorch version on a CPU tensor:
   optionally sparse);
 * dense-slab decode attention -> ``kernels.flash_decode.ops.flash_decode``.
 
-Families other than the dense one (MoE, SSM, hybrid, VLM, enc-dec) wait for
-their slices (ROADMAP.md, Queue 1 items 10-11).
+The MoE FFN is ``models/moe.py``; the SSM, hybrid and enc-dec families wait
+for their slices (ROADMAP.md, Queue 1 items 10-11).
 """
 from __future__ import annotations
 
@@ -42,14 +42,16 @@ from repro_torch.kernels.paged_attention.ref import block_keep_mask
 
 def dense_init(generator, shape, dtype, device, scale: float | None = None):
     """Normal weights of ``shape = (..., d_in, d_out)`` scaled by
-    1/sqrt(d_in), drawn in f32 one leading index at a time (a layer stack
-    never holds more than one f32 layer) and stored in ``dtype``."""
+    1/sqrt(d_in), drawn in f32 one (d_in, d_out) matrix at a time, each
+    leading index (layer, or layer and expert) its own draw, and stored in
+    ``dtype``: a stack never holds more than one f32 matrix (48 x 128
+    experts of 2048 x 768 would be 38.7 GB in f32)."""
     d_in = shape[-2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     out = torch.empty(shape, dtype=dtype, device=device)
-    for idx in (range(shape[0]) if len(shape) > 2 else [...]):
-        out[idx] = torch.randn(shape[-2:], generator=generator,
-                               dtype=torch.float32, device=device) * scale
+    for mat in out.view(-1, *shape[-2:]):
+        mat.copy_(torch.randn(shape[-2:], generator=generator,
+                              dtype=torch.float32, device=device) * scale)
     return out
 
 

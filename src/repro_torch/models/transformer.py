@@ -1,5 +1,5 @@
-"""Decoder-only LM in PyTorch: the dense family of the reference's
-``repro/models/transformer.py``.
+"""Decoder-only LM in PyTorch: the dense, MoE and VLM families of the
+reference's ``repro/models/transformer.py``.
 
 Parameters are the reference's pytree as nested dicts of layer-stacked
 tensors (per-layer parameters carry a leading ``L`` axis), with the same
@@ -28,6 +28,7 @@ from repro_torch.serving.kv_pool import (dequantize_kv, kv_dtype_name,
                                          quantize_kv)
 
 from . import layers as L
+from . import moe as MOE
 
 
 def layer_windows(cfg) -> np.ndarray:
@@ -45,10 +46,11 @@ def _dtype(cfg) -> torch.dtype:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.n_meta_tokens or cfg.n_img_tokens:
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.n_meta_tokens:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: only the dense "
-            "decoder-only family is (ROADMAP.md, Queue 1 items 10-11)")
+            f"model family {cfg.family!r} is not ported yet: the dense, MoE "
+            "and VLM decoder-only families are (ROADMAP.md, Queue 1 items "
+            "10-11)")
 
 
 def _layer(tree, i: int):
@@ -77,7 +79,10 @@ def init_lm(cfg, generator: torch.Generator, device=DEFAULT_DEVICE):
     d, n = cfg.d_model, cfg.n_layers
     blocks = {"ln1": torch.ones((n, d), dtype=dt, device=dev),
               "attn": L.init_attention(generator, cfg, dt, dev, n)}
-    if cfg.d_ff > 0:
+    if cfg.n_experts:
+        blocks["ln2"] = torch.ones((n, d), dtype=dt, device=dev)
+        blocks["moe"] = MOE.init_moe(generator, cfg, dt, dev, n)
+    elif cfg.d_ff > 0:
         blocks["ln2"] = torch.ones((n, d), dtype=dt, device=dev)
         blocks["mlp"] = L.init_mlp(generator, d, cfg.d_ff, cfg.act, dt, dev, n)
     params = {
@@ -106,26 +111,46 @@ def init_cache(cfg, batch, max_len, dtype=None, *, device=DEFAULT_DEVICE):
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
-def _mlp_residual(bp, cfg, x):
-    if "mlp" not in bp:
-        return x
-    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(bp["mlp"], h, cfg.act)
+def _ffn_residual(bp, cfg, x):
+    """The block's second residual: the MoE FFN on every row (a ragged
+    wave's pad positions and a decode step's idle slots are routed too, and
+    take capacity, as in the reference), or the dense MLP."""
+    if "moe" in bp:
+        h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        return x + MOE.moe_block(bp["moe"], cfg, h, aux=False)[0]
+    if "mlp" in bp:
+        h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        return x + L.mlp_block(bp["mlp"], h, cfg.act)
+    return x
+
+
+def _embed_input(params, cfg, batch):
+    """The input embedding sequence, the VLM's image prefix included:
+    ``batch["img_embeds"]`` (B, n_img_tokens, d) goes before the text.
+    Returns (x (B, S_total, d), n_prefix)."""
+    x = params["embed"][batch["tokens"].long()]
+    n_prefix = 0
+    if cfg.n_img_tokens:
+        x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
+        n_prefix += cfg.n_img_tokens
+    return x, n_prefix
 
 
 def prefill(params, cfg, batch, max_len=None, lens=None):
     """Run the prompt through the model, building a dense decode cache.
 
-    ``batch["tokens"]``: (B, S) integer tensor.  ``lens`` (optional, (B,)
-    int): per-slot valid token counts for a ragged wave — prompts shorter
-    than the padded width take their logits at their own final token
-    (causal masking hides the pad after a slot's length), and the cache
-    ``len`` vector records each slot's true context.  Returns
-    (last-position logits (B, V) f32, cache with k/v (L, B, max_len, Hkv, D)).
+    ``batch["tokens"]``: (B, S) integer tensor; a VLM's batch adds
+    ``img_embeds`` (B, n_img_tokens, d), the prefix before the text, and
+    positions run over the whole sequence.  ``lens`` (optional, (B,)
+    int): per-slot valid text-token counts for a ragged wave — prompts
+    shorter than the padded width take their logits at their own final
+    token (causal masking hides the pad after a slot's length), and the
+    cache ``len`` vector records each slot's true context, prefix
+    included.  Returns (last-position logits (B, V) f32, cache with k/v
+    (L, B, max_len, Hkv, D)).
     """
     _check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    x, n_prefix = _embed_input(params, cfg, batch)
     B, S, _ = x.shape
     max_len = max_len or S
     if max_len < S:
@@ -140,7 +165,7 @@ def prefill(params, cfg, batch, max_len=None, lens=None):
         a_out, (k, v) = L.attention_block(bp["attn"], cfg, h,
                                           window=int(windows[li]),
                                           positions=positions)
-        x = _mlp_residual(bp, cfg, x + a_out)
+        x = _ffn_residual(bp, cfg, x + a_out)
         pad = (0, 0, 0, 0, 0, max_len - S)
         ks.append(F.pad(k, pad))
         vs.append(F.pad(v, pad))
@@ -151,9 +176,9 @@ def prefill(params, cfg, batch, max_len=None, lens=None):
         len_vec = torch.full((B,), S, dtype=torch.int32, device=x.device)
     else:
         lens = torch.as_tensor(lens, dtype=torch.int32, device=x.device)
-        idx = (lens - 1).clamp(0, S - 1).long()
+        idx = (n_prefix + lens - 1).clamp(0, S - 1).long()
         last = x[torch.arange(B, device=x.device), idx]
-        len_vec = lens
+        len_vec = n_prefix + lens
     logits = matmul(last.contiguous(), head).float()
     dt = _dtype(cfg)
     cache = {"len": len_vec, "k": torch.stack(ks).to(dt),
@@ -192,7 +217,7 @@ def decode_step(params, cfg, token, cache):
         a_out, _ = L.attention_decode_slice(
             bp["attn"], cfg, h, cache["k"][li], cache["v"][li], pos,
             window=int(windows[li]))
-        x = _mlp_residual(bp, cfg, x + a_out)
+        x = _ffn_residual(bp, cfg, x + a_out)
     new_cache = dict(cache)
     new_cache["len"] = torch.as_tensor(cache["len"], device=x.device) + 1
     return _logits(params, cfg, x), new_cache
@@ -250,7 +275,7 @@ def decode_step_paged(params, cfg, token, pcache, *, sparse_threshold=0.0):
                                        (vp_all[li], vs, v_new)):
                 _requant_rows(pages, scales, blk, row, off, new[:, 0],
                               kv_name)
-        x = _mlp_residual(bp, cfg, x + a_out)
+        x = _ffn_residual(bp, cfg, x + a_out)
     new_pcache = dict(pcache)
     new_pcache["lens"] = pos + 1
     return _logits(params, cfg, x), new_pcache

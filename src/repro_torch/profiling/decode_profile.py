@@ -1,9 +1,11 @@
 """Where one decode step's time goes on the card: eager steps against graph
 replays, in turns, in one process.
 
-  PYTHONPATH=src python -m repro_torch.profiling.decode_profile
+  PYTHONPATH=src python -m repro_torch.profiling.decode_profile \
+      [--arch qwen2-7b]
 
-Builds qwen2-7b at its published width (bf16, random weights from seed 0)
+Builds the architecture (qwen2-7b by default; any the port serves) at its
+published width (bf16, random weights from seed 0)
 on one card and two paged ``PartitionEngine``s on those weights, each
 seating the same 4 requests of 32 prompt tokens (the load of
 ``chip_smoke.py``) in one prefill wave.  One engine runs every decode step
@@ -33,6 +35,7 @@ A card is required; without one it raises.
 """
 from __future__ import annotations
 
+import argparse
 import re
 import time
 from collections import Counter
@@ -81,7 +84,8 @@ def port_kernels(events) -> Dict[str, int]:
 
 def _engine(cfg, api, params, cuda_graph: bool) -> PartitionEngine:
     engine = PartitionEngine(cfg, api, params, slots=SLOTS,
-                             max_len=PROMPT + GEN, block_size=16,
+                             max_len=(cfg.n_img_tokens or 0) + PROMPT + GEN,
+                             block_size=16,
                              cuda_graph=cuda_graph)
     queue = RequestQueue()
     rng = np.random.default_rng(0)
@@ -182,12 +186,13 @@ def run(arch: str = "qwen2-7b") -> dict:
     out["capture_s"] = graph.capture_s
     out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     out["card"] = torch.cuda.get_device_name(device)
+    out["arch"] = cfg.name
     out["tables"] = tables
     return out
 
 
 def report(out: dict) -> None:
-    print(f"decode_profile: qwen2-7b slots={SLOTS} prompt={PROMPT} steps "
+    print(f"decode_profile: {out['arch']} slots={SLOTS} prompt={PROMPT} steps "
           f"{2 * STEPS} a mode in turns (eager, graph, graph, eager) on "
           f"{out['card']}")
     for mode in MODES:
@@ -210,8 +215,10 @@ def report(out: dict) -> None:
         print(events.table(sort_by=sort, row_limit=12))
 
 
-def main():
-    report(run())
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-7b")
+    report(run(ap.parse_args(argv).arch))
 
 
 if __name__ == "__main__":

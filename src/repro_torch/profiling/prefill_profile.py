@@ -1,9 +1,11 @@
 """Where one prefill's time goes on the card: eager prefills against graph
 replays, in turns, in one process.
 
-  PYTHONPATH=src python -m repro_torch.profiling.prefill_profile
+  PYTHONPATH=src python -m repro_torch.profiling.prefill_profile \
+      [--arch qwen2-7b]
 
-Builds qwen2-7b at its published width (bf16, random weights from seed 0)
+Builds the architecture (qwen2-7b by default; any the port serves) at its
+published width (bf16, random weights from seed 0)
 on one card and two paged ``PartitionEngine``s on those weights, each
 seating the same 4 requests of 32 prompt tokens (the load of
 ``chip_smoke.py``) in one prefill wave.  One engine prefills eagerly
@@ -57,6 +59,7 @@ required; without one it raises.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import time
 
@@ -83,9 +86,15 @@ LOADS = {"refill-heavy": ([PROMPT] * 32, {"eager": None,
              {"eager": None, "graph": MAX_GRAPHS, "graph 16": 16})}
 
 
+def _prefix(cfg) -> int:
+    """Cache positions ahead of the prompt: a VLM's image prefix."""
+    return cfg.n_img_tokens or 0
+
+
 def _engine(cfg, api, params, cuda_graph: bool) -> PartitionEngine:
     engine = PartitionEngine(cfg, api, params, slots=SLOTS,
-                             max_len=2 * PROMPT, block_size=16,
+                             max_len=_prefix(cfg) + 2 * PROMPT,
+                             block_size=16,
                              cuda_graph=cuda_graph)
     queue = RequestQueue()
     rng = np.random.default_rng(0)
@@ -148,7 +157,8 @@ def _fleet(cfg, api, params, lens, bound):
     engines = []
     for p in range(FLEET):
         eng = PartitionEngine(cfg, api, params, slots=SLOTS,
-                              max_len=max(lens) + 4 * GEN, pid=p,
+                              max_len=_prefix(cfg) + max(lens) + 4 * GEN,
+                              pid=p,
                               block_size=16, prefill_graphs=pg)
         if pg is None:
             eng.prefill_graphs = None
@@ -242,8 +252,10 @@ def run(arch: str = "qwen2-7b") -> dict:
                "graph": _engine(cfg, api, params, cuda_graph=True)}
     ops = {mode: _ops(eng) for mode, eng in engines.items()}
     pg = engines["graph"].prefill_graphs
-    keys = {"refill": pg.key(params, 1, PROMPT, PROMPT, False),
-            "wave": pg.key(params, SLOTS, PROMPT, 2 * PROMPT, True)}
+    keys = {"refill": pg.key(params, 1, PROMPT, _prefix(cfg) + PROMPT,
+                             False),
+            "wave": pg.key(params, SLOTS, PROMPT, _prefix(cfg) + 2 * PROMPT,
+                           True)}
     out = {"tables": {}}
     for op in OPS:
         for mode in MODES:
@@ -260,6 +272,7 @@ def run(arch: str = "qwen2-7b") -> dict:
     out["capture_s"] = pg.capture_s
     out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     out["card"] = torch.cuda.get_device_name(device)
+    out["arch"] = cfg.name
     out["capture_ab"] = capture_ab(pg._entries[keys["refill"]],
                                    ops["eager"]["refill"], device)
     del engines, ops, pg
@@ -290,7 +303,7 @@ def report_fleets(out: dict) -> None:
 
 
 def report(out: dict) -> None:
-    print(f"prefill_profile: qwen2-7b slots={SLOTS} prompt={PROMPT}, each "
+    print(f"prefill_profile: {out['arch']} slots={SLOTS} prompt={PROMPT}, each "
           f"op {2 * CALLS} calls a mode in turns (eager, graph, graph, "
           f"eager) on {out['card']}")
     for op in OPS:
@@ -321,8 +334,10 @@ def report(out: dict) -> None:
             print(events.table(sort_by=sort, row_limit=10))
 
 
-def main():
-    report(run())
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-7b")
+    report(run(ap.parse_args(argv).arch))
 
 
 if __name__ == "__main__":

@@ -704,7 +704,8 @@ class PartitionEngine(EngineBase):
     # -- batch assembly ------------------------------------------------------
     def _make_batch(self, prompts: List[np.ndarray]) -> dict:
         stack = np.stack([np.asarray(p, np.int32) for p in prompts])
-        return {"tokens": torch.as_tensor(stack, device=self.device)}
+        return self.api.prefill_batch(torch.as_tensor(stack,
+                                                      device=self.device))
 
     # -- prefill paths -------------------------------------------------------
     def _wave_prefill_cache(self, wave: List[Request]):

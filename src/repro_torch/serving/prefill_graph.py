@@ -14,7 +14,10 @@ once per shape and replays them.
 A shape is ``(params, rows, width, max_len, ragged)``: the weights (a graph
 reads their addresses), the batch rows and padded prompt width of the
 token buffer, the cache length, and whether the prefill takes a ``lens``
-vector (a ragged wave) or not (a refill: one prompt, every row full).
+vector (a ragged wave) or not (a refill: one prompt, every row full).  A
+cache serves one api (an engine refuses another's), so a VLM's image
+prefix, the zero patch embeddings ``ModelAPI.prefill_batch`` makes inside
+the step, has one width per cache and needs no place in the key.
 Each shape's entry is a ``CapturedOp`` (``serving/step_graph.py``, the
 lifecycle ``DecodeGraph`` has too), which owns
 
@@ -127,6 +130,6 @@ class PrefillGraphs:
         """One shape's entry; its step holds ``params``, which keeps
         ``id(params)`` in the key in use while the entry lives."""
         def step(tokens, lens=None):
-            return self.api.prefill(params, {"tokens": tokens},
+            return self.api.prefill(params, self.api.prefill_batch(tokens),
                                     max_len=max_len, lens=lens)
         return self.op_type(step, shapes, self.device)
