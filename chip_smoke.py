@@ -25,7 +25,10 @@ against theirs, and exits 0 without the result line.  ``--only cluster``
 builds the same four sources and runs phase 4 alone, without the result
 line.  ``--only families`` builds the same four sources and runs the
 eleventh slice's checks of phases 1-3 (the MoE and VLM families and the
-dense family's other configs) alone, without the result line.
+dense family's other configs) alone, without the result line.  ``--only
+ssm`` builds the same four sources and runs the twelfth slice's checks of
+phases 1-3 (the SSM and hybrid families: mamba2-130m, hymba-1.5b) alone,
+without the result line.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -73,7 +76,16 @@ Phases (each raises on failure; nothing is caught):
    projection at M = SLOTS and at a prefill wave's rows, each LM head at
    M = SLOTS (internvl2's 92,553 columns take the CUDA cores), and each
    config's prefill wave (G = 1 with 20 heads; internvl2's 288 rows, 256
-   of them the image prefix).
+   of them the image prefix).  And at the twelfth slice's shapes
+   (``phase_ssm_kernels``), bf16 and fp32, each timed in bf16 beside its
+   plain version and bound: the matmul at every (M, K, N) of mamba2-130m
+   and hymba-1.5b at M = SLOTS and at a wave's rows (hymba's 128 meta rows
+   included) and each LM head, with its route (hymba's in_proj, N = 3257,
+   and head, 32,001 columns, are not 16-byte rows: the CUDA cores); flash
+   attention at hymba's (Hq 25, Hkv 5, D 64), 4 x 160 rows and a 1,280-row
+   prompt, windows 0 and 1024 (which bites there); ``paged_decode`` and
+   ``flash_decode`` at (25, 5, 64), contexts 163-174 and ~1,290, windows 0
+   and 1024, at the plan's split count and at forced ones.
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
    weights on both; ragged prefill and 4 decode steps on a float pool
    (logits within 1e-3: f32 on both sides, summed in different orders
@@ -121,7 +133,18 @@ Phases (each raises on failure; nothing is caught):
    the CPU's top-k gap is below 1e-6 (printed, counted, their slots left
    out), the same overflowing experts on both (at least one), logits
    within 1e-3 and the same argmax; then the graph lockstep above at 2
-   layers for qwen3-moe-30b-a3b and internvl2-26b.
+   layers for qwen3-moe-30b-a3b and internvl2-26b.  The SSM and hybrid
+   families (``phase_ssm_card_vs_cpu``): mamba2-130m at 2 layers and
+   hymba-1.5b at 3 (its layer 2 windowed), full width, fp32, 2 prompts
+   of 1,152 tokens (hymba's 1,280 positions with its meta rows) and 8
+   decode steps on a pool: logits within 1e-3, the same argmax, the SSM
+   state and conv window within 1e-3 after the prefill and the last
+   step; the graph lockstep for both (a wave of two prompt lengths, so
+   the SSM's one prefill per length runs as two groups, then four
+   refills; the live slots' SSM state and conv compared bit for bit with
+   their KV state); and the PD oracle of phase 4a on hymba's 3 layers: a
+   wave handed over the wire, KV pages and SSM state, decodes bit for
+   bit as the never-migrated engine.
 3. The slice: ``repro_torch.launch.serve.main`` serves qwen2-7b at full
    width (28 layers, bf16, random weights from seed 0) with 2 partitions,
    then at a smaller load (1 partition, 4 requests, prompt 64) on the
@@ -150,7 +173,14 @@ Phases (each raises on failure; nothing is caught):
    engine's own step after the load and the idle share, beside the bytes
    bound of its weights; for MoE the expert products' ms a step, timed
    layer after layer at the step's buffer on the engine's weights, beside
-   their bytes bound.  The CNN slice: ``repro_torch.models.cnn
+   their bytes bound.  Then mamba2-130m (24 layers) and hymba-1.5b (32)
+   at full width and depth, bf16, phase 3's load, and hymba again on the
+   dense slab, the same gates (``phase_ssm_serve``); hymba's in_proj and
+   head must take the CUDA cores and mamba2's matmuls the tensor cores;
+   each logs its replayed step beside a bound of its weights (mamba2's
+   tied embedding included) and its slots' SSM state read and written,
+   and its SSM path's device ms alone (every layer's ``ssm_decode``
+   captured as one graph).  The CNN slice: ``repro_torch.models.cnn
    .apply_cnn`` runs each of ResNet-50, GoogLeNet and VGG-16 at 224, batch
    64, fp32 on the card: one forward holds every conv2d and matmul call
    against its plain version on the call's own inputs (2e-4 of the
@@ -1641,23 +1671,33 @@ def lru_kinds(keys, bound: int) -> list:
     return out
 
 
+SSM_STATE = ("ssm_state", "ssm_conv")
+
+
 def live_state(torch, eng) -> dict:
-    """The KV state an engine's live slots read, as raw bytes: the pool
+    """The state an engine's live slots read, as raw bytes: the pool
     blocks in their tables but the null block (every inactive slot's rows
     land there by one scatter, in an order the card does not fix), or
-    their rows of the dense slab."""
+    their rows of the dense slab; and their rows of the SSM state and conv
+    window (SSM and hybrid families)."""
     from repro_torch.serving.kv_pool import NULL_BLOCK
 
     live = [i for i, r in enumerate(eng.active) if r is not None]
+    src = eng.pages if eng.paged else eng.cache
     if eng.paged:
         rows = sorted({b for i in live for b in eng.slot_tables[i]}
                       - {NULL_BLOCK})
-        state = eng.pages
+        state = {k: t for k, t in src.items() if k not in SSM_STATE}
     else:
-        rows, state = live, {k: eng.cache[k] for k in ("k", "v")}
+        rows = live
+        state = {k: src[k] for k in ("k", "v") if k in src}
     idx = torch.tensor(rows, dtype=torch.long, device=eng.device)
-    return {k: t.index_select(1, idx).contiguous().view(torch.uint8)
-            for k, t in state.items()}
+    out = {k: t.index_select(1, idx).contiguous().view(torch.uint8)
+           for k, t in state.items()}
+    slots = torch.tensor(live, dtype=torch.long, device=eng.device)
+    out.update({k: src[k].index_select(1, slots).contiguous().view(
+        torch.uint8) for k in SSM_STATE if k in src})
+    return out
 
 
 class TraceIncomplete(Exception):
@@ -1769,16 +1809,32 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
     def zero(issued):
         return tuple((0, dict.fromkeys(r, 0)) for _, r in issued)
 
-    pg = PrefillGraphs(api)
+    class Logged(PrefillGraphs):
+        """The cache, logging (key, what it did) at each use in order: an
+        SSM family's wave uses it once a prompt length."""
+
+        def __init__(self, api):
+            super().__init__(api)
+            self.log = []
+
+        def __call__(self, *args, **kw):
+            out = super().__call__(*args, **kw)
+            key = next(reversed(self._entries))     # the entry just used
+            self.log.append((key, self._entries[key].last))
+            return out
+
+    pg = Logged(api)
     hist = {"primer": [], "graph": [], "eager": []}   # every prefill, in order
     traced_refill = {}
 
     def recorded(mode, eng, what, inner):
         """``inner`` (the engine's wave or refill hook), recording its
-        counts, its cache key and what the cache did, and a wave's logits;
+        counts, the cache keys it used and what the cache did (one kind
+        for all of a wave's groups, else "mixed"), and a wave's logits;
         tracing refill ``TRACED_REFILL``."""
         def run(*args):
             n = sum(r["what"] == what for r in hist[mode])
+            used = len(pg.log)
             before = counts.snapshot(WRAPPERS)
             if what == "refill" and n == TRACED_REFILL:
                 out, traced_refill[mode] = traced(lambda: inner(*args))
@@ -1787,8 +1843,9 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
             rec = dict(what=what,
                        counts=counts.diff(counts.snapshot(WRAPPERS), before))
             if eng.prefill_graphs is not None:
-                key = next(reversed(pg._entries))    # the entry just used
-                rec.update(key=key, kind=pg._entries[key].last)
+                kinds = {kind for _, kind in pg.log[used:]}
+                rec.update(kind=kinds.pop() if len(kinds) == 1
+                           else f"mixed {sorted(kinds)}")
             if what == "wave":
                 rec["logits"] = out[0][:len(args[0])].float().cpu().numpy()
             hist[mode].append(rec)
@@ -1806,7 +1863,8 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
     def engine(mode, prompts, gens):
         eng = PartitionEngine(
             cfg2, api, params, slots=SLOTS,
-            max_len=(cfg2.n_img_tokens or 0) + max(lens) + max(gens),
+            max_len=(cfg2.n_img_tokens or 0) + (cfg2.n_meta_tokens or 0)
+            + max(lens) + max(gens),
             cuda_graph=mode != "eager",
             prefill_graphs=pg if mode != "eager" else None, **kw)
         eng._wave_prefill_cache = recorded(mode, eng, "wave",
@@ -1904,11 +1962,11 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
         fail(f"graph lockstep {name}: the port's kernels in a profiler trace "
              f"of step {TRACED_STEP}: replay {traced_step['graph']}, eager "
              f"step {traced_step['eager']}")
-    # each prefill of the cache as an LRU of MAX_GRAPHS does it; its counts
-    # the eager engine's for an eager run or a capture, none for a replay
-    cached = hist["primer"] + hist["graph"]
-    kinds = [r["kind"] for r in cached]
-    if kinds != lru_kinds([r["key"] for r in cached], pg.max_graphs):
+    # each use of the cache as an LRU of MAX_GRAPHS does it; a prefill's
+    # counts the eager engine's for an eager run or a capture, none for a
+    # replay
+    kinds = [kind for _, kind in pg.log]
+    if kinds != lru_kinds([key for key, _ in pg.log], pg.max_graphs):
         fail(f"graph lockstep {name}: the prefill cache did {kinds}, not "
              f"what an LRU of {pg.max_graphs} does")
     if [r["what"] for r in hist["graph"]] != \
@@ -1924,8 +1982,8 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
                  f"want {want}")
     refills = [r for r in hist["graph"] if r["what"] == "refill"]
     n_kinds = {k: kinds.count(k) for k in ("eager", "capture", "replay")}
-    recaptured = n_kinds["capture"] > len({r["key"] for r in cached
-                                           if r["kind"] == "capture"})
+    recaptured = n_kinds["capture"] > len({key for key, kind in pg.log
+                                           if kind == "capture"})
     if len(refills) <= TRACED_REFILL or \
             refills[TRACED_REFILL]["kind"] != "replay" or \
             (pg.n_eager, pg.n_captures, pg.n_replays) != (
@@ -2654,9 +2712,11 @@ def step_measure(torch, engines, cfg):
     ms of the engine's own step (fill, replay, read back; median of
     STEP_CALLS, the slots idle by then) and the idle share 1 - device /
     wall; the step's bytes bound (every weight but the embedding read
-    once).  For MoE also the expert products' ms per step, timed on the
-    engine's weights at the step's buffer (E, C, d) layer after layer, and
-    their bytes bound."""
+    once, a tied embedding included as the LM head; for the SSM families
+    every slot's SSM state read and written).  For MoE also the expert
+    products' ms per step, timed on the engine's weights at the step's
+    buffer (E, C, d) layer after layer, and their bytes bound; for the SSM
+    families the SSM path's ms alone (``ssm_path_ms``)."""
     from repro_torch.models import moe as MOE
     from repro_torch.profiling.decode_profile import replay_ms, timed
 
@@ -2667,12 +2727,20 @@ def step_measure(torch, engines, cfg):
         STEP_CALLS // 2])
     params = eng.params
     weight_bytes = sum(t.numel() * t.element_size()
-                       for t in leaves(params)) - \
-        params["embed"].numel() * params["embed"].element_size()
+                       for t in leaves(params))
+    if not cfg.tie_embeddings:
+        weight_bytes -= params["embed"].numel() * \
+            params["embed"].element_size()
+    state_bytes = 0
+    if "ssm_state" in ssm_arrays(eng):
+        st = ssm_arrays(eng)["ssm_state"]
+        state_bytes = 2 * st.numel() * st.element_size()
     out = dict(device_ms=device_ms, wall_ms=wall_ms,
                idle=1 - device_ms / wall_ms,
-               bound_ms=weight_bytes / H100_BW * 1e3,
-               weight_gb=weight_bytes / 1e9)
+               bound_ms=(weight_bytes + state_bytes) / H100_BW * 1e3,
+               weight_gb=weight_bytes / 1e9, state_gb=state_bytes / 1e9)
+    if state_bytes:
+        out["ssm_ms"] = ssm_path_ms(torch, eng, cfg)
     if cfg.n_experts:
         moe = params["blocks"]["moe"]
         C = MOE.capacity(eng.slots, cfg.n_experts, cfg.top_k,
@@ -2688,6 +2756,39 @@ def step_measure(torch, engines, cfg):
             moe[k].numel() * moe[k].element_size()
             for k in ("w1", "w2", "w3")) / H100_BW * 1e3
     return out
+
+
+def ssm_arrays(eng) -> dict:
+    """The engine's per-slot SSM arrays: beside the pool, or in the slab
+    (empty for a family without them)."""
+    src = (eng.pages if eng.paged else eng.cache) or {}
+    return {k: src[k] for k in SSM_STATE if k in src}
+
+
+def ssm_path_ms(torch, eng, cfg) -> float:
+    """Device ms of a decode step's SSM path alone: every layer's
+    ``ssm_decode`` (its two projections included) on the engine's weights,
+    SSM state and conv window, at the step's (slots, 1, d), captured as one
+    CUDA graph and timed over bare replays.  ``ssm_decode`` returns the new
+    state without writing it, so the engine's state is left as it was."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.transformer import _layer
+    from repro_torch.profiling.decode_profile import replay_ms
+    from repro_torch.serving.step_graph import CapturedOp
+
+    st, cv = ssm_arrays(eng)["ssm_state"], ssm_arrays(eng)["ssm_conv"]
+    h = torch.randn((eng.slots, 1, cfg.d_model), device=eng.device).to(
+        st.dtype)
+    layers = [_layer(eng.params["blocks"], li)["ssm"]
+              for li in range(cfg.n_layers)]
+
+    def path():
+        return [SSM.ssm_decode(p, cfg, h, {"state": st[li], "conv": cv[li]})
+                for li, p in enumerate(layers)]
+    op = CapturedOp(path, [], eng.device)
+    op()            # eager
+    op()            # captured, replayed
+    return replay_ms(op.graph, eng.device)
 
 
 def leaves(tree):
@@ -2752,6 +2853,396 @@ def phase_family_serve(torch, wrappers):
 
 
 # ---------------------------------------------------------------------------
+# the twelfth slice: the SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2-130m", "hymba-1.5b")
+# phase 2's prompt: hymba's 128 meta rows and 1152 text tokens are 1280
+# positions, past its 1024-key window (and a whole number of 256-row SSD
+# chunks); 2 layers of mamba2, 3 of hymba (global layers (0, 15, 31) mod 3
+# leave layer 2 windowed)
+SSM_LONG = 1152
+SSM_CHECK_LAYERS = {"mamba2-130m": 2, "hymba-1.5b": 3}
+SSM_STEPS = 8
+# the graph lockstep's load: a wave of two prompt lengths (two groups),
+# then four refills, three of one shape
+SSM_LOCKSTEP = ([PROMPT, 20, PROMPT, 20, 25, 25, 25, 30],
+                [8, 3, 7, 6, 5, 4, 3, 4])
+
+
+def ssm_matmuls(cfg):
+    """(name, K, N) of every matmul an SSM or hybrid block issues."""
+    d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+    n_in = 2 * d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+    out = [("in_proj", cfg.d_model, n_in), ("out_proj", d_inner, cfg.d_model)]
+    if cfg.family == "hybrid":
+        names = ("wq", "wk", "wo", "w1", "w2")
+        out += [(n, K, N) for n, (K, N) in zip(names, projections(cfg))]
+    return out
+
+
+def phase_ssm_kernels(torch):
+    """Phase 1 at the twelfth slice's shapes, each kernel against its plain
+    version in bf16 (3e-2) and fp32 (2e-4), then timed in bf16 beside its
+    plain version, one library call and its bound: the matmul at every
+    (M, K, N) of mamba2-130m and hymba-1.5b at a decode step's M (SLOTS)
+    and a prefill wave's (SLOTS x the prompt, hymba's 128 meta rows
+    included) and each LM head, on weight buffers past the L2, with the
+    route each takes; flash attention at hymba's (Hq 25, Hkv 5, D 64) at
+    the wave's 160 rows and a 1,280-row prompt, windows 0 and 1024 (which
+    bites there); ``paged_decode`` and ``flash_decode`` at (25, 5, 64),
+    contexts 163-174 and ~1,290, windows 0 and 1024, through the wrapper
+    and at forced splits.  Returns the timings by kernel."""
+    from repro_torch.kernels import decode_split
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_decode import flash_decode as fd_k
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import ref as mm_ref
+    from repro_torch.kernels.matmul.matmul import launch, plan_for
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa_k
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dt)
+
+    def name_of(dt):
+        return str(dt).split(".")[1]
+
+    # -- the matmul: every shape, both dtypes; then routes and times
+    shapes, per_step = {}, {}
+    for arch in SSM_ARCHS:
+        cfg = family_cfg(arch)
+        wave = SLOTS * ((cfg.n_meta_tokens or 0) + PROMPT)
+        for name, K, N in ssm_matmuls(cfg):
+            calls = 2 if name in ("wk", "w1") else 1    # wv, w3: same shape
+            for M in (SLOTS, wave):
+                shapes.setdefault((M, K, N), []).append(f"{arch} {name}")
+            per_step.setdefault(arch, []).append(((SLOTS, K, N),
+                                                  calls * cfg.n_layers))
+        shapes.setdefault((SLOTS, cfg.d_model, cfg.vocab), []).append(
+            f"{arch} head")
+        per_step[arch].append(((SLOTS, cfg.d_model, cfg.vocab), 1))
+    worst = {}
+    for dt in (bf, f32):
+        for M, K, N in sorted(shapes):
+            a, b = rnd((M, K), dt), rnd((K, N), dt, 1 / math.sqrt(K))
+            e = check_close(torch, f"matmul {M}x{K}x{N} {name_of(dt)}",
+                            mm_ops.matmul(a, b), mm_ref.matmul(a, b),
+                            TOL[name_of(dt)])
+            worst[f"matmul {name_of(dt)}"] = max(
+                worst.get(f"matmul {name_of(dt)}", 0.0), e)
+            del a, b
+    times = {}
+    for M, K, N in sorted(shapes):
+        n_sets = max(1, min(64, math.ceil(120e6 / (2 * K * N))))
+        sets = [(rnd((M, K), bf), rnd((K, N), bf, 1 / math.sqrt(K)))
+                for _ in range(n_sets)]
+        plans = [plan_for(a, b) for a, b in sets]
+        route = plans[0].route
+        if any(p.route != route for p in plans):
+            fail(f"matmul {M}x{K}x{N}: one shape took routes "
+                 f"{sorted({p.route for p in plans})}")
+        t_k = time_ms(torch, lambda i: launch(*sets[i], plans[i]), n_sets)
+        t_p = time_ms(torch, lambda i: mm_ref.matmul(*sets[i]), n_sets, 5)
+        t_l = time_ms(torch, lambda i: torch.matmul(*sets[i]), n_sets)
+        b_ms, by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K,
+                         H100_BF16)
+        times[(M, K, N)] = dict(route=route, ms=t_k, plain_ms=t_p,
+                                library_ms=t_l, bound_ms=b_ms, bound_by=by)
+        log(f"  matmul bf16 {M}x{K}x{N} [{', '.join(shapes[(M, K, N)])}]: "
+            f"route {route}, kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+            f"library_ms {t_l:.4f} bound_ms {b_ms:.4f} ({by})")
+        del sets
+    steps = {arch: {key: sum(times[s][key] * n for s, n in calls)
+                    for key in ("ms", "library_ms", "bound_ms")}
+             for arch, calls in per_step.items()}
+    log(f"phase 1 [ssm]: matmul at {len(shapes)} (M, K, N) matches its "
+        f"plain version in bf16 and fp32 ({worst}); routes "
+        f"{ {f'{M}x{K}x{N}': t['route'] for (M, K, N), t in times.items()} }"
+        f"; a decode step's matmuls (bf16, M = {SLOTS}) "
+        + ", ".join(f"{a} {s['ms']:.3f} ms (torch.matmul {s['library_ms']:.3f}"
+                    f", bound {s['bound_ms']:.3f})" for a, s in steps.items()))
+    cfg = family_cfg("hymba-1.5b")
+    for name, M, K, N, want in (("in_proj", SLOTS, 1600, 3257, "skinny"),
+                                ("in_proj", SLOTS * 160, 1600, 3257, "tiled"),
+                                ("head", SLOTS, 1600, cfg.vocab, "skinny")):
+        if times[(M, K, N)]["route"] != want:
+            fail(f"matmul hymba {name} {M}x{K}x{N}: route "
+                 f"{times[(M, K, N)]['route']}, want {want} (its rows are "
+                 "not 16 bytes)")
+
+    # -- flash attention at hymba's heads, windows 0 and 1024
+    hq, hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_window
+    wave_s = (cfg.n_meta_tokens or 0) + PROMPT
+    long_s = (cfg.n_meta_tokens or 0) + SSM_LONG
+    fa = {}
+    for B, S in ((SLOTS, wave_s), (1, long_s)):
+        for w in (0, W):
+            for dt in (bf, f32):
+                q = rnd((B, S, hq, D), dt)
+                k, v = rnd((B, S, hkv, D), dt), rnd((B, S, hkv, D), dt)
+                e = check_close(torch, f"flash_attention ({B},{S},{hq},{hkv},"
+                                f"{D}) window={w} {name_of(dt)}",
+                                fa_ops.flash_attention(q, k, v, window=w),
+                                fa_ref.attention(q, k, v, window=w),
+                                TOL[name_of(dt)])
+                worst[f"flash_attention {name_of(dt)}"] = max(
+                    worst.get(f"flash_attention {name_of(dt)}", 0.0), e)
+            q = rnd((B, S, hq, D), bf)
+            k, v = rnd((B, S, hkv, D), bf), rnd((B, S, hkv, D), bf)
+            t_k = time_ms(torch, lambda i: fa_ops.flash_attention(
+                q, k, v, window=w), 1)
+            t_p = time_ms(torch, lambda i: fa_ref.attention(q, k, v,
+                                                            window=w), 1, 5)
+            pairs = sum(min(i + 1, w or S) for i in range(S))
+            b_ms, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                             4 * B * hq * D * pairs, H100_BF16)
+            fa[(B, S, w)] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                 bound_by=by)
+            log(f"  flash_attention bf16 ({B},{S},{hq},{hkv},{D}) window "
+                f"{w}: kernel_ms {t_k:.4f} plain_ms {t_p:.4f} bound_ms "
+                f"{b_ms:.5f} ({by}; {pairs} causal pairs a head)")
+
+    # -- paged_decode and flash_decode at (25, 5, 64)
+    bs, sms = 16, decode_split.sm_count(torch.device("cuda"))
+    dec = {}
+    for tag, curs in (("serve", [wave_s + o for o in (3, 9, 1, 14)]),
+                      ("long", [long_s + o for o in LONG_OFFSETS])):
+        B = len(curs)
+        tables, N = paged_tables(torch, curs, bs, "cuda", inactive=False)
+        cur = torch.tensor(curs, dtype=torch.int32, device="cuda")
+        walk = tables.shape[1] * bs
+        forced = sorted({1, decode_split.plan(B, hkv, walk, sms),
+                         -(-walk // decode_split.KT) + 3})
+        for w in (0, W):
+            for dt in (bf, f32):
+                tol = TOL[name_of(dt)]
+                qd = rnd((B, hq, D), dt)
+                kp, vp = rnd((N, bs, hkv, D), dt), rnd((N, bs, hkv, D), dt)
+                want = pa_ref.paged_decode_attention(qd, kp, vp, tables, cur,
+                                                     window=w)
+                got = [pa_ops.paged_decode(qd, kp, vp, tables, cur,
+                                           window=w)]
+                got += [pa_k.paged_decode_cuda(qd, kp, vp, tables, cur,
+                                               window=w, splits=n)
+                        for n in forced]
+                for n, o in zip(["plan"] + forced, got):
+                    e = check_close(torch, f"paged_decode {tag} window={w} "
+                                    f"splits={n} {name_of(dt)}", o, want, tol)
+                    worst[f"paged_decode {name_of(dt)}"] = max(
+                        worst.get(f"paged_decode {name_of(dt)}", 0.0), e)
+                kc, vc = rnd((B, walk, hkv, D), dt), rnd((B, walk, hkv, D), dt)
+                want = fd_ref.decode_attention(qd, kc, vc, cur, window=w)
+                got = [fd_ops.flash_decode(qd, kc, vc, cur, window=w)]
+                got += [fd_k.flash_decode_cuda(qd, kc, vc, cur, window=w,
+                                               splits=n) for n in forced]
+                for n, o in zip(["plan"] + forced, got):
+                    e = check_close(torch, f"flash_decode {tag} window={w} "
+                                    f"splits={n} {name_of(dt)}", o, want, tol)
+                    worst[f"flash_decode {name_of(dt)}"] = max(
+                        worst.get(f"flash_decode {name_of(dt)}", 0.0), e)
+            qd = rnd((B, hq, D), bf)
+            kp, vp = rnd((N, bs, hkv, D), bf), rnd((N, bs, hkv, D), bf)
+            kc, vc = rnd((B, walk, hkv, D), bf), rnd((B, walk, hkv, D), bf)
+            rows = sum(min(c + 1, w or c + 1) for c in curs) * hkv
+            b_ms, by = bound(2 * 2 * D * rows + 2 * 2 * qd.numel(),
+                             4 * D * rows * (hq // hkv), H100_BF16)
+            for kern, fn, plain in (
+                    ("paged_decode",
+                     lambda i: pa_k.paged_decode_cuda(qd, kp, vp, tables,
+                                                      cur, window=w),
+                     lambda i: pa_ref.paged_decode_attention(
+                         qd, kp, vp, tables, cur, window=w)),
+                    ("flash_decode",
+                     lambda i: fd_k.flash_decode_cuda(qd, kc, vc, cur,
+                                                      window=w),
+                     lambda i: fd_ref.decode_attention(qd, kc, vc, cur,
+                                                       window=w))):
+                t_k = time_ms(torch, fn, 1)
+                t_p = time_ms(torch, plain, 1, 5)
+                dec[(kern, tag, w)] = dict(ms=t_k, plain_ms=t_p,
+                                           bound_ms=b_ms, bound_by=by)
+                log(f"  {kern} bf16 {tag} contexts {curs[0]}-{max(curs)} "
+                    f"(25, 5, 64) window {w}: kernel_ms {t_k:.4f} plain_ms "
+                    f"{t_p:.4f} bound_ms {b_ms:.5f} ({by}), plan's splits "
+                    f"{decode_split.plan(B, hkv, walk, sms)}")
+    log(f"phase 1 [ssm]: flash attention at (25, 5, 64), {len(fa)} shapes "
+        f"x windows 0 / {W}, and paged_decode / flash_decode at 2 context "
+        f"sets x windows x splits {forced} match their plain versions in "
+        "bf16 and fp32; max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+    return {"matmul": {f"{M}x{K}x{N}": t for (M, K, N), t in times.items()},
+            "matmul_step": steps,
+            "flash_attention": {f"{B}x{S} window {w}": t
+                                for (B, S, w), t in fa.items()},
+            "decode": {f"{k} {tag} window {w}": t
+                       for (k, tag, w), t in dec.items()}}
+
+
+def phase_ssm_card_vs_cpu(torch):
+    """Phase 2 for the SSM and hybrid families: each at full width in fp32
+    (mamba2 2 layers, hymba 3, SSM_CHECK_LAYERS), the same weights on the
+    card (kernels) and the CPU (plain versions): 2 prompts of SSM_LONG
+    tokens (hymba's 1,280 positions with its meta rows: the 1024 window
+    bites) prefilled, then SSM_STEPS greedy decode steps on a paged pool
+    (hymba's K/V; mamba2 has no pages): logits within MODEL_TOL with the
+    same argmax every step, and the SSM state and conv window after the
+    prefill and after the last step within MODEL_TOL.  Then the graph
+    lockstep of phase 2 for both, a wave of two prompt lengths (two
+    groups) and four refills, and the PD oracle on hymba: a wave handed
+    from one engine to another over the wire, its KV pages and SSM state
+    with it, decodes bit for bit as the never-migrated engine."""
+    from repro_torch.models import api as mapi
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import PrefillGraphs
+    from repro_torch.serving import kv_pool as KV
+
+    for arch in SSM_ARCHS:
+        cfg2 = family_cfg(arch, dtype="float32",
+                          n_layers=SSM_CHECK_LAYERS[arch])
+        n_meta = cfg2.n_meta_tokens or 0
+        max_len, bs, B = n_meta + SSM_LONG + 2 * SSM_STEPS, 16, 2
+        tokens = torch.randint(1, cfg2.vocab, (B, SSM_LONG),
+                               generator=torch.Generator().manual_seed(3))
+        params = {"cuda": TF.init_lm(cfg2, torch.Generator(
+            device="cuda").manual_seed(2), "cuda")}
+        params["cpu"] = tree_to(params["cuda"], "cpu")
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p = params[dev]
+            T = -(-max_len // bs)
+            pool = KV.BlockPool(1 + B * T, bs)
+            tables = torch.tensor([pool.alloc(T) for _ in range(B)],
+                                  dtype=torch.int32, device=dev)
+            lg, cache = TF.prefill(p, cfg2, {"tokens": tokens.to(dev)},
+                                   max_len=max_len)
+            pages = KV.init_pages(cfg2, pool.n_blocks, bs, device=dev)
+            if "k" in cache:
+                KV.write_prefix_pages(pages, cache["k"], cache["v"], tables)
+            pc = dict(pages, tables=tables, lens=torch.full(
+                (B,), n_meta + SSM_LONG, dtype=torch.int32, device=dev),
+                ssm_state=cache["ssm_state"], ssm_conv=cache["ssm_conv"])
+            # copies: on the CPU ``.cpu()`` returns the tensor itself, which
+            # the decode steps then update in place
+            rec = {"logits": [lg.cpu()],
+                   "prefill state": [cache[k].to("cpu", copy=True)
+                                     for k in SSM_STATE]}
+            for _ in range(SSM_STEPS):
+                lg, pc = TF.decode_step_paged(p, cfg2, lg.argmax(-1)[:, None],
+                                              pc)
+                lg = lg[:, 0]
+                rec["logits"].append(lg.cpu())
+            rec["decoded state"] = [pc[k].cpu() for k in SSM_STATE]
+            got[dev] = rec
+            del p, pages, pc, cache
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got["cuda"]["logits"],
+                                       got["cpu"]["logits"])):
+            if not torch.equal(a.argmax(-1), b.argmax(-1)):
+                fail(f"card vs CPU {arch}: argmax differs at step {i}")
+            worst = max(worst, check_close(
+                torch, f"card vs CPU {arch} step {i}", a, b, MODEL_TOL))
+        state = {}
+        for when in ("prefill state", "decoded state"):
+            for key, a, b in zip(SSM_STATE, got["cuda"][when],
+                                 got["cpu"][when]):
+                state[f"{when} {key}"] = check_close(
+                    torch, f"card vs CPU {arch} {when} {key}", a, b,
+                    MODEL_TOL)
+        log(f"phase 2: {arch} at full width, {cfg2.n_layers} of "
+            f"{family_cfg(arch).n_layers} layers, fp32, card vs CPU: prefill "
+            f"of {B} x {n_meta + SSM_LONG} positions + {SSM_STEPS} decode "
+            f"steps agree (max abs logit err {worst:.3g}, tolerance "
+            f"{MODEL_TOL}), identical argmax; SSM state and conv window "
+            f"max abs err " + ", ".join(f"{k} {v:.3g}"
+                                        for k, v in state.items()))
+        cuda_params = params["cuda"]
+        del params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        lens, gens = SSM_LOCKSTEP
+        graph_lockstep_traced(torch, cfg2, cuda_params, f"{arch} fp32",
+                              lens, gens, 6)
+        if cfg2.family == "hybrid":
+            api = mapi.build(cfg2, "cuda")
+            launches, nbytes = pd_oracle(torch, cfg2, api, cuda_params,
+                                         f"{arch} fp32", PrefillGraphs(api))
+            for k in ("matmul", "paged_decode"):
+                if launches[k] == 0:
+                    fail(f"pd oracle {arch}: engine B never launched {k}")
+        del cuda_params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_ssm_serve(torch, wrappers):
+    """Phase 3 for the SSM and hybrid families: ``serve.main`` at full
+    width and full depth (mamba2-130m 24 layers, hymba-1.5b 32), bf16, at
+    phase 3's load (8 requests, prompt 32, 16 tokens, 2 partitions x 4
+    slots, stagger demand), then hymba on the dense slab (``--dense``),
+    with ``serve_run``'s gates; each must launch the matmul (hymba also
+    flash attention and ``paged_decode``, or ``flash_decode`` on the
+    slab), and hymba's misaligned in_proj and head must take the CUDA
+    cores.  Each
+    logs the replayed decode step's device ms, wall ms, idle share and
+    bytes bound (``step_measure``: the weights, mamba2's tied embedding
+    included, and every slot's SSM state read and written)."""
+    from repro_torch.launch import serve
+
+    runs = {}
+    loads = [(arch, ["--arch", arch] + SERVE_ARGS[2:]) for arch in SSM_ARCHS]
+    loads.append(("hymba-1.5b dense",
+                  ["--arch", "hymba-1.5b"] + SERVE_ARGS[2:] + ["--dense"]))
+    for name, argv in loads:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = family_cfg(argv[1])
+        measured = {}
+        runs[name] = serve_run(
+            torch, cfg, wrappers, name, argv, flag(argv, "--requests"),
+            flag(argv, "--gen"), after=lambda engines: measured.update(
+                step_measure(torch, engines, cfg)))
+        decode = "flash_decode" if "--dense" in argv else "paged_decode"
+        carries = ("matmul",) if cfg.family == "ssm" else (
+            "matmul", "flash_attention", decode)
+        for k in carries:
+            if runs[name]["launches"][k] == 0:
+                fail(f"serve {name}: kernel {k} was never launched")
+        routes = runs[name]["routes"]
+        if (cfg.family == "ssm") != (routes["skinny"] + routes["tiled"] == 0):
+            fail(f"serve {name}: matmul routes {routes} (hymba's in_proj and "
+                 "head take the CUDA cores, mamba2's every matmul mm_mma)")
+        m = measured
+        log(f"phase 3 [{name}]: {cfg.name} d={cfg.d_model} "
+            f"layers={cfg.n_layers}: replayed decode step "
+            f"{m['device_ms']:.3f} ms device, {m['wall_ms']:.3f} ms wall, "
+            f"idle share {m['idle']:.3f}; bytes bound {m['bound_ms']:.3f} ms "
+            f"({m['weight_gb']:.4f} GB of weights"
+            f"{', the tied embedding included' if cfg.tie_embeddings else ''}"
+            f" + {m['state_gb']:.4f} GB of SSM state read and written); "
+            f"its SSM path alone (every layer's ssm_decode, captured) "
+            f"{m['ssm_ms']:.3f} ms, {m['ssm_ms'] / m['device_ms']:.3f} of "
+            "the step")
+        runs[name].update(step=m)
+    return runs
+
+
+def phase_ssm(torch) -> dict:
+    """``--only ssm``: the twelfth slice's phase 1, 2 and 3 checks alone."""
+    stats = phase_ssm_kernels(torch)
+    phase_ssm_card_vs_cpu(torch)
+    phase_ssm_serve(torch, serving_wrappers())
+    return stats
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the cluster on the card
 # ---------------------------------------------------------------------------
 
@@ -2778,7 +3269,7 @@ def pd_oracle(torch, cfg, api, params, name, pg, **kw):
     rng = np.random.default_rng(21)
     prompts = [rng.integers(1, cfg.vocab, size=(PROMPT,)).astype(np.int32)
                for _ in range(2 * SLOTS)]
-    max_len = PROMPT + 4 * GEN
+    max_len = (cfg.n_meta_tokens or 0) + PROMPT + 4 * GEN
     engines = []
     for pid, load in enumerate((prompts[:SLOTS], prompts, prompts)):
         eng = PartitionEngine(cfg, api, params, slots=SLOTS, max_len=max_len,
@@ -3063,7 +3554,9 @@ ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
             phase_cluster(torch, cfg), {})[1]),
         "families": (["matmul", "flash_attention", "paged_attention",
                       "flash_decode"], lambda torch, cfg: phase_families(
-            torch))}
+            torch)),
+        "ssm": (["matmul", "flash_attention", "paged_attention",
+                 "flash_decode"], lambda torch, cfg: phase_ssm(torch))}
 
 
 def serving_wrappers():
@@ -3172,8 +3665,10 @@ def main() -> None:
     stats.update(phase_flash_attention(torch, cfg))
     stats.update(phase_decode_kernels(torch, cfg))
     phase_family_kernels(torch)
+    ssm_stats = phase_ssm_kernels(torch)
     phase_card_vs_cpu(torch, cfg)
     phase_family_card_vs_cpu(torch)
+    phase_ssm_card_vs_cpu(torch)
     phase_graph(torch, cfg)
     cnn_params, conv_shapes = phase_cnn_card_vs_cpu(torch)
     stats.update(phase_conv_kernel(torch, conv_shapes))
@@ -3188,6 +3683,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_family_serve(torch, wrappers))
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(phase_ssm_serve(torch, wrappers))
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_cluster(torch, cfg))
@@ -3209,6 +3707,12 @@ def main() -> None:
                 "flash_decode.cu",
                 "src/repro/kernels/flash_decode/flash_decode.py:83"),
             "conv2d": ("conv2d.cu", "src/repro/kernels/conv2d/conv2d.py:51")}
+    # the twelfth slice's shapes (phase 1 [ssm]), beside the main path's
+    ssm_of = {"matmul": dict(ssm_stats["matmul"],
+                             decode_step=ssm_stats["matmul_step"]),
+              "flash_attention": ssm_stats["flash_attention"]}
+    for k, t in ssm_stats["decode"].items():
+        ssm_of.setdefault(k.split()[0], {})[k] = t
     kernels = []
     for name, (src, replaces) in meta.items():
         s = stats[name]
@@ -3241,7 +3745,9 @@ def main() -> None:
                             if "conv_routes" in r}} if name == "conv2d"
                            else {}),
                         **({"in_forward_ms": s["in_forward_ms"]}
-                           if "in_forward_ms" in s else {})})
+                           if "in_forward_ms" in s else {}),
+                        **({"ssm_shapes": ssm_of[name]} if name in ssm_of
+                           else {})})
     log(f"chip_smoke: {len(TRACE_RERUNS)} phase-2 lockstep reruns for lost "
         f"profiler records {[n for n, _ in TRACE_RERUNS]}")
     log(smi)      # again here: long runs push the first lines out of a tail

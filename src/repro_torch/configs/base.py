@@ -160,11 +160,11 @@ def canonical(name: str) -> str:
     return _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
 
 
-# architectures whose model path the port serves so far; the rest wait for
-# their slice (ROADMAP.md, Queue 1 items 10 and 11)
+# architectures whose model path the port serves so far; enc-dec waits for
+# its slice (ROADMAP.md, Queue 1 item 11)
 PORTED_ARCH_IDS = ["qwen2_7b", "qwen1p5_4b", "mistral_nemo_12b",
                    "qwen1p5_110b", "qwen3_moe_30b_a3b", "dbrx_132b",
-                   "internvl2_26b"]
+                   "internvl2_26b", "mamba2_130m", "hymba_1p5b"]
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -173,7 +173,6 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
         raise NotImplementedError(
             f"architecture {name!r} is not ported to PyTorch yet (ported: "
             f"{PORTED_ARCH_IDS}); it is queued in ROADMAP.md, Queue 1 item "
-            "10 (the SSM and hybrid families: mamba2-130m, hymba-1.5b) or "
             "11 (enc-dec: whisper-base)")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -1,5 +1,5 @@
-"""Model API over the ported families (the dense, MoE and VLM
-decoder-only LMs so far).
+"""Model API over the ported families (the decoder-only LMs: dense, MoE,
+VLM, SSM and hybrid).
 
 ``build(cfg, device)`` returns a ``ModelAPI`` bound to one device:
   init(generator)                        -> params
@@ -9,7 +9,9 @@ decoder-only LMs so far).
   decode(params, token, cache)           -> (logits, cache)   (dense slab)
   decode_paged(params, token, pcache, sparse_threshold=0.0)
                                          -> (logits, pcache)
-  init_cache(batch, max_len)             -> dense cache dict
+  init_cache(batch, max_len)             -> dense cache dict (the SSM's
+                                            per-slot state and conv
+                                            window included)
 
 The port's counterpart of ``repro.models.api._build_lm``; the loss,
 forward and the shape-spec helpers wait for their slices (ROADMAP.md,

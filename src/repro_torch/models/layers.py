@@ -15,8 +15,8 @@ on a CUDA tensor and the plain PyTorch version on a CPU tensor:
   optionally sparse);
 * dense-slab decode attention -> ``kernels.flash_decode.ops.flash_decode``.
 
-The MoE FFN is ``models/moe.py``; the SSM, hybrid and enc-dec families wait
-for their slices (ROADMAP.md, Queue 1 items 10-11).
+The MoE FFN is ``models/moe.py`` and the Mamba-2 SSD ``models/ssm.py``; the
+enc-dec family waits for its slice (ROADMAP.md, Queue 1 item 11).
 """
 from __future__ import annotations
 

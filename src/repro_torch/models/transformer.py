@@ -1,11 +1,16 @@
-"""Decoder-only LM in PyTorch: the dense, MoE and VLM families of the
-reference's ``repro/models/transformer.py``.
+"""Decoder-only LM in PyTorch: the dense, MoE, VLM, SSM and hybrid
+families of the reference's ``repro/models/transformer.py``.
 
 Parameters are the reference's pytree as nested dicts of layer-stacked
 tensors (per-layer parameters carry a leading ``L`` axis), with the same
 keys and shapes as ``repro.models.transformer.init_lm``, so weights cross
 between the packages by a tree map (``repro_torch.bridge``).  Where the
 reference scans over the stack, the port runs a Python loop over layers.
+A block holds attention (every family but SSM), the Mamba-2 SSD
+(``models/ssm.py``: SSM and hybrid; a hybrid block runs both on the same
+normed input and takes their mean) and an MLP or MoE FFN (neither for
+SSM).  The SSM state and conv window are per-slot cache tensors beside
+the KV cache or pool, updated in place each decode step.
 
 Public entry points
 -------------------
@@ -29,6 +34,19 @@ from repro_torch.serving.kv_pool import (dequantize_kv, kv_dtype_name,
 
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
+
+
+def has_attn(cfg) -> bool:
+    return cfg.family != "ssm"
+
+
+def has_ssm(cfg) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def has_mlp(cfg) -> bool:
+    return cfg.family not in ("ssm",) and cfg.n_experts == 0
 
 
 def layer_windows(cfg) -> np.ndarray:
@@ -46,11 +64,10 @@ def _dtype(cfg) -> torch.dtype:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.n_meta_tokens:
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: the dense, MoE "
-            "and VLM decoder-only families are (ROADMAP.md, Queue 1 items "
-            "10-11)")
+            f"model family {cfg.family!r} is not ported yet: the decoder-only "
+            "families are (ROADMAP.md, Queue 1 item 11)")
 
 
 def _layer(tree, i: int):
@@ -71,18 +88,22 @@ def _head(params, cfg):
 
 def init_lm(cfg, generator: torch.Generator, device=DEFAULT_DEVICE):
     """Random parameters drawn from the reference's distributions
-    (normal / sqrt(d_in) weights, 0.02-scaled embeddings, zero qkv biases,
-    unit norms) with ``generator``, which must live on ``device``."""
+    (normal / sqrt(d_in) weights, 0.02-scaled embeddings and meta tokens,
+    zero qkv biases, unit norms; the SSM's in ``models/ssm.py``) with
+    ``generator``, which must live on ``device``."""
     _check_family(cfg)
     dev = resolve(device)
     dt = _dtype(cfg)
     d, n = cfg.d_model, cfg.n_layers
-    blocks = {"ln1": torch.ones((n, d), dtype=dt, device=dev),
-              "attn": L.init_attention(generator, cfg, dt, dev, n)}
+    blocks = {"ln1": torch.ones((n, d), dtype=dt, device=dev)}
+    if has_attn(cfg):
+        blocks["attn"] = L.init_attention(generator, cfg, dt, dev, n)
+    if has_ssm(cfg):
+        blocks["ssm"] = SSM.init_ssm(generator, cfg, dt, dev, n)
     if cfg.n_experts:
         blocks["ln2"] = torch.ones((n, d), dtype=dt, device=dev)
         blocks["moe"] = MOE.init_moe(generator, cfg, dt, dev, n)
-    elif cfg.d_ff > 0:
+    elif has_mlp(cfg) and cfg.d_ff > 0:
         blocks["ln2"] = torch.ones((n, d), dtype=dt, device=dev)
         blocks["mlp"] = L.init_mlp(generator, d, cfg.d_ff, cfg.act, dt, dev, n)
     params = {
@@ -92,6 +113,11 @@ def init_lm(cfg, generator: torch.Generator, device=DEFAULT_DEVICE):
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, (d, cfg.vocab), dt, dev)
+    if cfg.n_meta_tokens:
+        params["meta"] = (torch.randn((cfg.n_meta_tokens, d),
+                                      generator=generator,
+                                      dtype=torch.float32, device=dev)
+                          * 0.02).to(dt)
     return params
 
 
@@ -101,14 +127,27 @@ def init_lm(cfg, generator: torch.Generator, device=DEFAULT_DEVICE):
 
 
 def init_cache(cfg, batch, max_len, dtype=None, *, device=DEFAULT_DEVICE):
-    """Dense cache stacked over layers, with a per-slot (B,) ``len``."""
+    """Dense cache stacked over layers, with a per-slot (B,) ``len``: K/V
+    (L, B, max_len, Hkv, D) for attention, and for the SSM the per-slot
+    ``ssm_state`` (L, B, H, P, N) and ``ssm_conv`` (L, B, ssm_conv - 1,
+    conv_dim); ``max_len`` counts any prefix positions."""
     _check_family(cfg)
     dev = resolve(device)
     dt = dtype or _dtype(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"len": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    c = {"len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if has_attn(cfg):
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=dt, device=dev)
+        c["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    if has_ssm(cfg):
+        _, conv_dim = SSM.ssm_dims(cfg)
+        c["ssm_state"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+             cfg.ssm_state), dtype=dt, device=dev)
+        c["ssm_conv"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype=dt,
+            device=dev)
+    return c
 
 
 def _ffn_residual(bp, cfg, x):
@@ -125,29 +164,49 @@ def _ffn_residual(bp, cfg, x):
 
 
 def _embed_input(params, cfg, batch):
-    """The input embedding sequence, the VLM's image prefix included:
-    ``batch["img_embeds"]`` (B, n_img_tokens, d) goes before the text.
-    Returns (x (B, S_total, d), n_prefix)."""
+    """The input embedding sequence, prefixes included: a VLM's
+    ``batch["img_embeds"]`` (B, n_img_tokens, d) goes before the text and
+    the learned meta tokens ``params["meta"]`` (n_meta_tokens, d) before
+    everything.  Returns (x (B, S_total, d), n_prefix)."""
     x = params["embed"][batch["tokens"].long()]
     n_prefix = 0
     if cfg.n_img_tokens:
         x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
         n_prefix += cfg.n_img_tokens
+    if cfg.n_meta_tokens:
+        meta = params["meta"][None].expand(x.shape[0], -1, -1)
+        x = torch.cat([meta, x], dim=1)
+        n_prefix += cfg.n_meta_tokens
     return x, n_prefix
+
+
+def _mix(attn_out, ssm_out):
+    """The token mixers' sum into the residual: one path alone, or a
+    hybrid's mean of its parallel attention and SSM paths in the model
+    dtype."""
+    if ssm_out is None:
+        return attn_out
+    if attn_out is None:
+        return ssm_out
+    return (attn_out + ssm_out) * 0.5
 
 
 def prefill(params, cfg, batch, max_len=None, lens=None):
     """Run the prompt through the model, building a dense decode cache.
 
     ``batch["tokens"]``: (B, S) integer tensor; a VLM's batch adds
-    ``img_embeds`` (B, n_img_tokens, d), the prefix before the text, and
+    ``img_embeds`` (B, n_img_tokens, d), the prefix before the text (a
+    hybrid's meta tokens come from the weights and go before both), and
     positions run over the whole sequence.  ``lens`` (optional, (B,)
     int): per-slot valid text-token counts for a ragged wave — prompts
     shorter than the padded width take their logits at their own final
     token (causal masking hides the pad after a slot's length), and the
     cache ``len`` vector records each slot's true context, prefix
-    included.  Returns (last-position logits (B, V) f32, cache with k/v
-    (L, B, max_len, Hkv, D)).
+    included.  An SSM's state integrates the pad as well, as in the
+    reference, so the serving engine prefills those families one prompt
+    length at a time.  Returns (last-position logits (B, V) f32, cache
+    with k/v (L, B, max_len, Hkv, D) and, for the SSM, each layer's final
+    ``ssm_state`` and ``ssm_conv`` tail).
     """
     _check_family(cfg)
     x, n_prefix = _embed_input(params, cfg, batch)
@@ -158,17 +217,23 @@ def prefill(params, cfg, batch, max_len=None, lens=None):
                          f"width {S}")
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     windows = layer_windows(cfg)
-    ks, vs = [], []
+    outs = {key: [] for key in ("k", "v", "ssm_state", "ssm_conv")}
     for li in range(cfg.n_layers):
         bp = _layer(params["blocks"], li)
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        a_out, (k, v) = L.attention_block(bp["attn"], cfg, h,
-                                          window=int(windows[li]),
-                                          positions=positions)
-        x = _ffn_residual(bp, cfg, x + a_out)
-        pad = (0, 0, 0, 0, 0, max_len - S)
-        ks.append(F.pad(k, pad))
-        vs.append(F.pad(v, pad))
+        a_out = s_out = None
+        if has_attn(cfg):
+            a_out, (k, v) = L.attention_block(bp["attn"], cfg, h,
+                                              window=int(windows[li]),
+                                              positions=positions)
+            pad = (0, 0, 0, 0, 0, max_len - S)
+            outs["k"].append(F.pad(k, pad))
+            outs["v"].append(F.pad(v, pad))
+        if has_ssm(cfg):
+            s_out, st = SSM.ssm_block(bp["ssm"], cfg, h)
+            outs["ssm_state"].append(st["state"])
+            outs["ssm_conv"].append(st["conv"])
+        x = _ffn_residual(bp, cfg, x + _mix(a_out, s_out))
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = _head(params, cfg)
     if lens is None:
@@ -181,8 +246,9 @@ def prefill(params, cfg, batch, max_len=None, lens=None):
         len_vec = n_prefix + lens
     logits = matmul(last.contiguous(), head).float()
     dt = _dtype(cfg)
-    cache = {"len": len_vec, "k": torch.stack(ks).to(dt),
-             "v": torch.stack(vs).to(dt)}
+    cache = {"len": len_vec}
+    cache.update({key: torch.stack(ts).to(dt) for key, ts in outs.items()
+                  if ts})
     return logits, cache
 
 
@@ -196,14 +262,15 @@ def _logits(params, cfg, x):
 def decode_step(params, cfg, token, cache):
     """One decode step against the dense cache slab.
 
-    token: (B, 1) int.  cache: ``k``/``v`` (L, B, S, Hkv, D) and ``len`` —
-    a scalar (one shared position) or a (B,) vector of per-slot write
-    positions.  Same math as the reference's ``decode_step``: each layer
-    writes every slot's new row at its own position, then attends through
-    the flash-decode wrapper.  The cache tensors are updated IN PLACE
-    (where the reference donates them to its jitted step).  Returns
-    (logits (B, 1, V) f32, new cache dict holding the same tensors) with
-    ``len`` advanced by one.
+    token: (B, 1) int.  cache: ``k``/``v`` (L, B, S, Hkv, D), for the SSM
+    ``ssm_state``/``ssm_conv``, and ``len`` — a scalar (one shared
+    position) or a (B,) vector of per-slot write positions.  Same math as
+    the reference's ``decode_step``: each layer writes every slot's new row
+    at its own position, then attends through the flash-decode wrapper;
+    the SSM advances every slot's state by one token, idle slots
+    included.  The cache tensors are updated IN PLACE (where the reference
+    donates them to its jitted step).  Returns (logits (B, 1, V) f32, new
+    cache dict holding the same tensors) with ``len`` advanced by one.
     """
     _check_family(cfg)
     x = params["embed"][token.long()]                 # (B, 1, d)
@@ -214,10 +281,13 @@ def decode_step(params, cfg, token, cache):
     for li in range(cfg.n_layers):
         bp = _layer(params["blocks"], li)
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        a_out, _ = L.attention_decode_slice(
-            bp["attn"], cfg, h, cache["k"][li], cache["v"][li], pos,
-            window=int(windows[li]))
-        x = _ffn_residual(bp, cfg, x + a_out)
+        a_out = None
+        if has_attn(cfg):
+            a_out, _ = L.attention_decode_slice(
+                bp["attn"], cfg, h, cache["k"][li], cache["v"][li], pos,
+                window=int(windows[li]))
+        x = _ffn_residual(bp, cfg, x + _mix(a_out, _ssm_step(
+            bp, cfg, h, cache, li)))
     new_cache = dict(cache)
     new_cache["len"] = torch.as_tensor(cache["len"], device=x.device) + 1
     return _logits(params, cfg, x), new_cache
@@ -232,6 +302,9 @@ def decode_step_paged(params, cfg, token, pcache, *, sparse_threshold=0.0):
       lens            : (B,) int32 per-slot write positions
       k_scales/v_scales (packed pools): (L, N, Hkv) f32 per-(block,
         kv-head) scales; their presence marks packed int8/fp8 pages
+      ssm_state/ssm_conv (families with SSM): per-slot, as in the dense
+        cache, updated in place like the pool (an SSM-only model has no
+        pages)
     Same math as the reference's ``decode_step_paged``.  The pool is
     updated IN PLACE (this stands where the reference has
     ``donate_argnums`` on the jitted step: the caller's pool tensors are
@@ -251,7 +324,7 @@ def decode_step_paged(params, cfg, token, pcache, *, sparse_threshold=0.0):
     B = x.shape[0]
     pos = pcache["lens"].to(torch.int32)
     tables = pcache["tables"].to(torch.int32).contiguous()
-    kp_all, vp_all = pcache["k_pages"], pcache["v_pages"]
+    kp_all, vp_all = pcache.get("k_pages"), pcache.get("v_pages")
     quant = "k_scales" in pcache
     if quant:
         ks_all, vs_all = pcache["k_scales"], pcache["v_scales"]
@@ -263,22 +336,39 @@ def decode_step_paged(params, cfg, token, pcache, *, sparse_threshold=0.0):
     for li in range(cfg.n_layers):
         bp = _layer(params["blocks"], li)
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        ks = vs = None
-        if quant:
-            ks, vs = ks_all[li], vs_all[li]
-        a_out, (k_new, v_new) = L.attention_decode_paged(
-            bp["attn"], cfg, h, kp_all[li], vp_all[li], tables, pos,
-            window=int(windows[li]), k_scales=ks, v_scales=vs,
-            sparse_threshold=sparse_threshold)
-        if quant:
-            for pages, scales, new in ((kp_all[li], ks, k_new),
-                                       (vp_all[li], vs, v_new)):
-                _requant_rows(pages, scales, blk, row, off, new[:, 0],
-                              kv_name)
-        x = _ffn_residual(bp, cfg, x + a_out)
+        a_out = None
+        if has_attn(cfg):
+            ks = vs = None
+            if quant:
+                ks, vs = ks_all[li], vs_all[li]
+            a_out, (k_new, v_new) = L.attention_decode_paged(
+                bp["attn"], cfg, h, kp_all[li], vp_all[li], tables, pos,
+                window=int(windows[li]), k_scales=ks, v_scales=vs,
+                sparse_threshold=sparse_threshold)
+            if quant:
+                for pages, scales, new in ((kp_all[li], ks, k_new),
+                                           (vp_all[li], vs, v_new)):
+                    _requant_rows(pages, scales, blk, row, off, new[:, 0],
+                                  kv_name)
+        x = _ffn_residual(bp, cfg, x + _mix(a_out, _ssm_step(
+            bp, cfg, h, pcache, li)))
     new_pcache = dict(pcache)
     new_pcache["lens"] = pos + 1
     return _logits(params, cfg, x), new_pcache
+
+
+def _ssm_step(bp, cfg, h, cache, li: int):
+    """Layer ``li``'s SSM decode on every slot, writing the new state and
+    conv window IN PLACE into ``cache["ssm_state"][li]`` and
+    ``cache["ssm_conv"][li]`` (a captured step reads their addresses);
+    the layer's SSM output, or None for a family without one."""
+    if not has_ssm(cfg):
+        return None
+    st, cv = cache["ssm_state"][li], cache["ssm_conv"][li]
+    out, new = SSM.ssm_decode(bp["ssm"], cfg, h, {"state": st, "conv": cv})
+    st.copy_(new["state"])
+    cv.copy_(new["conv"])
+    return out
 
 
 def _requant_rows(pages, scales, blk, row, off, new, kv_name) -> None:

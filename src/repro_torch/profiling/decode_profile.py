@@ -27,7 +27,10 @@ graph, eager, STEPS steps a turn, and for each mode this measures:
 4. **kernels per step**: the port's own kernels in the same profiler
    trace, by name (``port_kernels``), divided by STEPS.  The trace is the
    source because a replay runs its kernels without the wrappers that
-   count launches.
+   count launches;
+5. **the port's share**: the device ms a step in the port's own kernels
+   (``port_ms``) and in every other kernel, copy and memset (``other_ms``:
+   the eager torch ops between them, an SSM's decode math among them).
 
 It prints the capture's seconds, peak device memory over the whole A/B and
 the profiler's top kernels for each mode; ``run()`` returns the numbers.
@@ -84,7 +87,8 @@ def port_kernels(events) -> Dict[str, int]:
 
 def _engine(cfg, api, params, cuda_graph: bool) -> PartitionEngine:
     engine = PartitionEngine(cfg, api, params, slots=SLOTS,
-                             max_len=(cfg.n_img_tokens or 0) + PROMPT + GEN,
+                             max_len=(cfg.n_img_tokens or 0) +
+                             (cfg.n_meta_tokens or 0) + PROMPT + GEN,
                              block_size=16,
                              cuda_graph=cuda_graph)
     queue = RequestQueue()
@@ -124,6 +128,12 @@ def profiled(op, device, n: int):
     return events, sum(_device_us(e) for e in events) / n / 1e3
 
 
+def port_ms(events, n: int) -> float:
+    """Device ms a call in the port's own kernels among ``events``."""
+    return sum(_device_us(e) for e in events
+               if PORT_KERNEL.search(e.key)) / n / 1e3
+
+
 def replay_ms(graph, device) -> float:
     """Mean CUDA-event span of ``REPLAYS`` bare replays of ``graph`` (the
     host queues them all while the card sleeps ~10 ms, so the span is
@@ -146,7 +156,8 @@ def in_turns(ops, device, n: int):
     """``ops`` ({"eager": op, "graph": op}) timed in turns, eager, graph,
     graph, eager, ``n`` calls a turn, then ``n`` more of each under the
     profiler.  Returns ({mode: {wall_ms, wall_min_ms, wall_max_ms,
-    device_ms, idle, kernels}}, {mode: profiler rows})."""
+    device_ms, idle, kernels, port_ms, other_ms}}, {mode: profiler
+    rows})."""
     walls = {m: [] for m in MODES}
     for mode in ("eager", "graph", "graph", "eager"):
         walls[mode] += timed(ops[mode], device, n)
@@ -160,6 +171,8 @@ def in_turns(ops, device, n: int):
             "wall_max_ms": max(walls[mode]) * 1e3,
             "device_ms": dev_ms if dev_ms > 0 else None,
             "idle": 1 - dev_ms / (med * 1e3) if dev_ms > 0 else None,
+            "port_ms": port_ms(events, n) if dev_ms > 0 else None,
+            "other_ms": dev_ms - port_ms(events, n) if dev_ms > 0 else None,
             "kernels": {k: c / n
                         for k, c in sorted(port_kernels(events).items())}}
     return out, tables
@@ -199,7 +212,9 @@ def report(out: dict) -> None:
         r = out[mode]
         dev = "not measured (the profiler recorded no device activity)" \
             if r["device_ms"] is None else \
-            f"{r['device_ms']:.3f} ms, idle share {r['idle']:.3f}"
+            f"{r['device_ms']:.3f} ms ({r['port_ms']:.3f} in the port's " \
+            f"kernels, {r['other_ms']:.3f} in the others), idle share " \
+            f"{r['idle']:.3f}"
         print(f"  {mode}: wall per step median {r['wall_ms']:.3f} ms (min "
               f"{r['wall_min_ms']:.3f}, max {r['wall_max_ms']:.3f}); device "
               f"per step {dev}; kernels per step (profiler) {r['kernels']}")

@@ -17,7 +17,8 @@ blocks with the same values:
 
 * **refill**: one 32-token prompt into slot 0 (``_refill_slot``), the
   slot refill of continuous batching;
-* **wave**: the 4 x 32 ragged wave (``_run_prefill``).
+* **wave**: the 4 x 32 ragged wave (``_run_prefill``; for the SSM and
+  hybrid families one uniform group of 4 x 32).
 
 After WARM calls of each op in each engine (the graph engine's first runs
 eagerly, its second is captured), the two engines run each op in turns,
@@ -87,8 +88,9 @@ LOADS = {"refill-heavy": ([PROMPT] * 32, {"eager": None,
 
 
 def _prefix(cfg) -> int:
-    """Cache positions ahead of the prompt: a VLM's image prefix."""
-    return cfg.n_img_tokens or 0
+    """Cache positions ahead of the prompt: a VLM's image prefix, a
+    hybrid's meta tokens."""
+    return (cfg.n_img_tokens or 0) + (cfg.n_meta_tokens or 0)
 
 
 def _engine(cfg, api, params, cuda_graph: bool) -> PartitionEngine:
@@ -254,8 +256,9 @@ def run(arch: str = "qwen2-7b") -> dict:
     pg = engines["graph"].prefill_graphs
     keys = {"refill": pg.key(params, 1, PROMPT, _prefix(cfg) + PROMPT,
                              False),
+            # an SSM-bearing wave of one prompt length is one uniform group
             "wave": pg.key(params, SLOTS, PROMPT, _prefix(cfg) + 2 * PROMPT,
-                           True)}
+                           not engines["graph"]._has_ssm())}
     out = {"tables": {}}
     for op in OPS:
         for mode in MODES:
@@ -311,7 +314,9 @@ def report(out: dict) -> None:
             r = out[op][mode]
             dev = "not measured (the profiler recorded no device activity)" \
                 if r["device_ms"] is None else \
-                f"{r['device_ms']:.3f} ms, idle share {r['idle']:.3f}"
+                f"{r['device_ms']:.3f} ms ({r['port_ms']:.3f} in the port's " \
+                f"kernels, {r['other_ms']:.3f} in the others), idle share " \
+                f"{r['idle']:.3f}"
             print(f"  {op} {mode}: wall per call median {r['wall_ms']:.3f} "
                   f"ms (min {r['wall_min_ms']:.3f}, max "
                   f"{r['wall_max_ms']:.3f}); device per call {dev}; "

@@ -63,6 +63,11 @@ _NO_KV_QUANT_FAMILIES = ("ssm", "hybrid", "encdec")
 # they come from / go to
 _HANDOFF_PAGES = (("k", "k_pages"), ("v", "v_pages"),
                   ("k_scales", "k_scales"), ("v_scales", "v_scales"))
+# the per-slot SSM arrays of the SSM and hybrid families, under the same
+# names in the dense cache, the pool dict and a handoff
+_SSM_KEYS = ("ssm_state", "ssm_conv")
+# every per-slot array of a dense cache
+_CACHE_KEYS = ("k", "v") + _SSM_KEYS
 
 
 @dataclass
@@ -634,7 +639,10 @@ class PartitionEngine(EngineBase):
     low-mass blocks (``sparse_threshold``) and prompts may share cached
     prefix blocks (``prefix_cache``).  ``paged=False`` keeps the dense
     ``(L, slots, max_len)`` slab with per-slot lengths and decodes through
-    ``decode_step`` — same serving semantics, the equivalence oracle.
+    ``decode_step`` — same serving semantics, the equivalence oracle.  The
+    SSM and hybrid families keep each slot's SSM state and conv window in
+    per-slot arrays beside the pool (or in the slab), updated in place by
+    every decode step, idle slots included, as in the reference.
     Enc-dec models are not ported yet and raise ``NotImplementedError``
     naming their ROADMAP.md item.  ``export_kv`` / ``import_kv`` move a
     slot's KV state between engines (PD disaggregation) as host tensors,
@@ -689,7 +697,8 @@ class PartitionEngine(EngineBase):
         self.params = params
         self.device = api.device
         self.cache = None          # dense mode: the (L, slots, max_len) slab
-        self.pages = None          # paged mode: pool tensors (+ scales)
+        self.pages = None          # paged mode: pool tensors (+ scales,
+        #                            the per-slot SSM arrays)
         self._last_tok = None      # (slots, 1) int32 host array
         self.last_logits = None    # (slots, V) np, for equivalence tests
         self.cuda_graph = bool(cuda_graph)
@@ -707,15 +716,35 @@ class PartitionEngine(EngineBase):
         return self.api.prefill_batch(torch.as_tensor(stack,
                                                       device=self.device))
 
+    def _has_ssm(self) -> bool:
+        return self.cfg.family in ("ssm", "hybrid")
+
+    def _prefill(self, tokens: np.ndarray, max_len: int, lens=None):
+        """One prefill of ``tokens`` (rows, width): through the prefill
+        graphs, or eagerly on freshly built inputs."""
+        if self.prefill_graphs is not None:
+            return self.prefill_graphs(self.params, tokens, max_len,
+                                       lens=lens)
+        return self.api.prefill(
+            self.params, self._make_batch(list(tokens)), max_len=max_len,
+            lens=None if lens is None else torch.as_tensor(
+                lens, device=self.device))
+
     # -- prefill paths -------------------------------------------------------
     def _wave_prefill_cache(self, wave: List[Request]):
         """Run the wave's prompts, returning (first_logits, dense cache)
         covering slots [0, len(wave)) with a per-slot ``len`` vector.
 
-        The ragged wave runs as ONE padded batch: causal masking keeps each
-        slot's last-token logits and cache prefix exact (the reference's
-        attention-only branch; SSM-bearing families, which need one batch
-        per distinct length, are not ported)."""
+        Attention-only families run the ragged wave as ONE padded batch:
+        causal masking keeps each slot's last-token logits and cache
+        prefix exact.  SSM-bearing families run one batch per distinct
+        prompt length instead, each padded to the full slot width with
+        zero prompts, never within a row (their recurrent state
+        integrates every input position), and each group's rows are
+        copied into a cache of the wave's own before the next group runs
+        (a prefill graph's outputs are rewritten by its next replay)."""
+        if self._has_ssm():
+            return self._group_prefill_cache(wave)
         lens = np.array([r.prompt_len for r in wave], np.int32)
         width = max(int(lens.max()), 1)
         padded = np.zeros((self.slots, width), np.int32)
@@ -723,40 +752,72 @@ class PartitionEngine(EngineBase):
             padded[i, :r.prompt_len] = np.asarray(r.prompt, np.int32)
         lens_full = np.concatenate(
             [lens, np.ones(self.slots - len(wave), np.int32)])
-        if self.prefill_graphs is not None:
-            return self.prefill_graphs(self.params, padded, self.max_len,
-                                       lens=lens_full)
-        return self.api.prefill(
-            self.params, self._make_batch(list(padded)),
-            max_len=self.max_len,
-            lens=torch.as_tensor(lens_full, device=self.device))
+        return self._prefill(padded, self.max_len, lens=lens_full)
+
+    def _group_prefill_cache(self, wave: List[Request]):
+        """The SSM families' wave: one uniform prefill per distinct prompt
+        length (the reference's ``_wave_prefill_cache``, its SSM branch)."""
+        cache = self.api.init_cache(self.slots, self.max_len)
+        logits = None
+        by_len: dict = {}
+        for i, r in enumerate(wave):
+            by_len.setdefault(r.prompt_len, []).append(i)
+        for plen, idxs in by_len.items():
+            tokens = np.zeros((self.slots, plen), np.int32)
+            for j, i in enumerate(idxs):
+                tokens[j] = np.asarray(wave[i].prompt, np.int32)
+            lg, cg = self._prefill(tokens, self.max_len)
+            rows = torch.as_tensor(idxs, dtype=torch.long, device=self.device)
+            src = torch.arange(len(idxs), device=self.device)
+            for key, t in cache.items():
+                dim = 0 if key == "len" else 1
+                t.index_copy_(dim, rows, cg[key].index_select(dim, src))
+            if logits is None:
+                logits = torch.empty((len(wave), lg.shape[-1]),
+                                     dtype=lg.dtype, device=self.device)
+            logits.index_copy_(0, rows, lg.index_select(0, src))
+        return logits, cache
 
     def _ensure_pages(self) -> None:
-        """Lazily initialise the paged pool tensors (first prefill)."""
+        """Lazily initialise the paged pool tensors and the per-slot SSM
+        arrays (first prefill, or first import on a decode engine)."""
         if self.pages is None:
             self.pages = KV.init_pages(self.cfg, self.pool.n_blocks,
                                        self.block_size, device=self.device,
                                        kv_dtype=self.kv_dtype)
+            if self._has_ssm():
+                st = self.api.init_cache(self.slots, 1)
+                for key in _SSM_KEYS:
+                    self.pages[key] = st[key]
 
     def _install_paged(self, cache, rows: List[int],
                        src_rows: Optional[List[int]] = None) -> None:
         """Move batch rows ``src_rows`` (default: ``rows`` themselves) of a
         dense cache into slots ``rows``: K/V prefixes into the block pool,
-        one scatter per pool tensor regardless of how many slots are
-        installed."""
+        SSM state into the per-slot arrays, one scatter per pool tensor
+        regardless of how many slots are installed (an SSM-only cache has
+        no K/V to scatter)."""
         self._ensure_pages()
         src = list(src_rows if src_rows is not None else rows)
-        tables = np.zeros((len(rows), self.table_width), np.int32)
-        for j, i in enumerate(rows):
-            tables[j, :len(self.slot_tables[i])] = self.slot_tables[i]
-            # leading reference-shared blocks (prefix-cache hits) already
-            # hold this content: divert their rewrite to the null block
-            tables[j, :self.slot_shared[i]] = NULL_BLOCK
         src_t = torch.as_tensor(src, dtype=torch.long, device=self.device)
-        # a packed pool quantizes on this append (write_prefix_pages)
-        KV.write_prefix_pages(self.pages, cache["k"][:, src_t],
-                              cache["v"][:, src_t],
-                              torch.as_tensor(tables, device=self.device))
+        if "k" in cache:
+            tables = np.zeros((len(rows), self.table_width), np.int32)
+            for j, i in enumerate(rows):
+                tables[j, :len(self.slot_tables[i])] = self.slot_tables[i]
+                # leading reference-shared blocks (prefix-cache hits)
+                # already hold this content: divert their rewrite to the
+                # null block
+                tables[j, :self.slot_shared[i]] = NULL_BLOCK
+            # a packed pool quantizes on this append (write_prefix_pages)
+            KV.write_prefix_pages(self.pages, cache["k"][:, src_t],
+                                  cache["v"][:, src_t],
+                                  torch.as_tensor(tables, device=self.device))
+        if self._has_ssm():
+            rows_t = torch.as_tensor(rows, dtype=torch.long,
+                                     device=self.device)
+            for key in _SSM_KEYS:
+                self.pages[key].index_copy_(
+                    1, rows_t, cache[key].index_select(1, src_t))
 
     def _run_prefill(self, wave: List[Request]):
         # seat lens before installing storage (base sets them after
@@ -775,8 +836,8 @@ class PartitionEngine(EngineBase):
             # one slab for the engine's life: a captured decode step reads
             # the addresses of the first wave's slab, so later waves are
             # copied into it (a refill writes it in place as well)
-            for key in ("k", "v", "len"):
-                self.cache[key].copy_(cache[key])
+            for key, t in cache.items():
+                self.cache[key].copy_(t)
         first = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         last = np.ones((self.slots, 1), np.int32)
         last[:first.shape[0], 0] = first.reshape(-1)[:self.slots]
@@ -786,17 +847,14 @@ class PartitionEngine(EngineBase):
     def _refill_slot(self, i: int, req: Request):
         prompt = np.asarray(req.prompt, np.int32)
         ml = self._prefix + req.prompt_len if self.paged else self.max_len
-        if self.prefill_graphs is not None:
-            lg, c1 = self.prefill_graphs(self.params, prompt[None], ml)
-        else:
-            lg, c1 = self.api.prefill(self.params,
-                                      self._make_batch([prompt]), max_len=ml)
+        lg, c1 = self._prefill(prompt[None], ml)
         self.slot_lens[i] = self._prefix + req.prompt_len
         if self.paged:
             self._install_paged(c1, [i], src_rows=[0])
         else:
-            for key in ("k", "v"):
-                self.cache[key][:, i] = c1[key][:, 0]
+            for key in _CACHE_KEYS:
+                if key in c1:
+                    self.cache[key][:, i] = c1[key][:, 0]
             self.cache["len"][i] = c1["len"][0]
         tok = int(torch.argmax(lg, dim=-1).reshape(-1)[0])
         last = self._last_tok.copy()
@@ -807,9 +865,11 @@ class PartitionEngine(EngineBase):
     # -- KV handoff device-state movers --------------------------------------
     def _export_slot_state(self, i: int) -> dict:
         """Gather slot ``i``'s cache to host tensors, in table order (paged)
-        or as the slot's dense rows.  The last generated token is not
-        shipped — it is ``req.tokens[-1]`` and the importer rebuilds the
-        ``_last_tok`` row from it."""
+        or as the slot's dense rows, with its SSM state and conv window:
+        copies, since the engine goes on writing these tensors in place
+        (``.cpu()`` of a CPU tensor would be the tensor itself).  The last
+        generated token is not shipped — it is ``req.tokens[-1]``
+        and the importer rebuilds the ``_last_tok`` row from it."""
         out: dict = {}
         if self.paged:
             if self.pages is not None:
@@ -820,9 +880,14 @@ class PartitionEngine(EngineBase):
                 for name, key in _HANDOFF_PAGES:
                     if key in self.pages:
                         out[name] = self.pages[key][:, tbl].cpu()
+                for key in _SSM_KEYS:
+                    if key in self.pages:
+                        out[key] = self.pages[key][:, i].to("cpu",
+                                                             copy=True)
         elif self.cache is not None:
-            for key in ("k", "v"):
-                out[key] = self.cache[key][:, i].cpu()
+            for key in _CACHE_KEYS:
+                if key in self.cache:
+                    out[key] = self.cache[key][:, i].to("cpu", copy=True)
         return out
 
     def _import_slot_state(self, i: int, pages: dict,
@@ -865,11 +930,16 @@ class PartitionEngine(EngineBase):
                         dst = self.pages[key]
                         dst[:, idx] = pages[name].to(device=self.device,
                                                      dtype=dst.dtype)
+            for key in _SSM_KEYS:
+                if key in self.pages:
+                    dst = self.pages[key]
+                    dst[:, i] = pages[key].to(device=self.device,
+                                              dtype=dst.dtype)
         else:
             if self.cache is None:
                 self.cache = self.api.init_cache(self.slots, self.max_len)
-            for key in ("k", "v"):
-                if key in pages:
+            for key in _CACHE_KEYS:
+                if key in self.cache and key in pages:
                     dst = self.cache[key]
                     dst[:, i] = pages[key].to(device=self.device,
                                               dtype=dst.dtype)

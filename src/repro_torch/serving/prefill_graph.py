@@ -14,8 +14,9 @@ once per shape and replays them.
 A shape is ``(params, rows, width, max_len, ragged)``: the weights (a graph
 reads their addresses), the batch rows and padded prompt width of the
 token buffer, the cache length, and whether the prefill takes a ``lens``
-vector (a ragged wave) or not (a refill: one prompt, every row full).  A
-cache serves one api (an engine refuses another's), so a VLM's image
+vector (a ragged wave) or not (a refill: one prompt, every row full; or
+one group of an SSM family's wave, every prompt of one length, padded to
+the slot width with zero prompts).  A cache serves one api (an engine refuses another's), so a VLM's image
 prefix, the zero patch embeddings ``ModelAPI.prefill_batch`` makes inside
 the step, has one width per cache and needs no place in the key.
 Each shape's entry is a ``CapturedOp`` (``serving/step_graph.py``, the
@@ -26,7 +27,8 @@ lifecycle ``DecodeGraph`` has too), which owns
   writes the staging buffers and issues one non-blocking ``copy_`` per
   buffer;
 * **outputs** — ``(logits (rows, V) f32, dense cache)`` in the graph's own
-  tensors, rewritten by the next replay of the entry.  The caller copies
+  tensors (the SSM families' cache holds their state and conv window
+  too), rewritten by the next replay of the entry.  The caller copies
   what it keeps (the engine installs the cache into its pool or slab at
   once, outside the graph, which is what lets engines with different
   pools share one graph).

@@ -16,9 +16,10 @@ What a replay needs to hold still:
   the host writes the staging buffers (once the last step's copies have
   run) and issues one non-blocking ``copy_`` per buffer on the stream the
   graph replays on;
-* **state** — the KV pool (or the dense slab) is updated in place at fixed
-  addresses (the stand-in for ``donate_argnums``); the engine never
-  reallocates it;
+* **state** — the KV pool (or the dense slab), and for the SSM families
+  each slot's SSM state and conv window beside it, are updated in place
+  at fixed addresses (the stand-in for ``donate_argnums``); the engine
+  never reallocates them;
 * **outputs** — the logits (slots, V) f32 and greedy tokens (slots,) int32
   come back in the graph's own buffers, rewritten by every replay.
 

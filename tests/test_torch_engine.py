@@ -159,12 +159,10 @@ def test_serve_cli_refuses_unported_flags(flags, tmp_path, capsys):
         assert "lifecycle: " in out
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-base"])
+@pytest.mark.parametrize("arch", ["whisper-base"])
 def test_get_config_refusal_names_its_items(arch):
     with pytest.raises(NotImplementedError,
-                       match=r"item 10 \(the SSM and hybrid families: "
-                             r"mamba2-130m, hymba-1\.5b\) or 11 \(enc-dec: "
-                             r"whisper-base\)"):
+                       match=r"Queue 1 item 11 \(enc-dec: whisper-base\)"):
         get_config(arch)
 
 

@@ -138,28 +138,54 @@ def test_prefill_and_decode_match_reference(arch, paged):
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
 
 
+# the matmuls whose bf16 operands are not 16-byte rows (N or K not a
+# multiple of 8): the plan sends them to the CUDA cores, mm_skinny at a
+# decode step's M and mm_tiled at a prefill wave's
+CUDA_CORE_MATMULS = {"internvl2_26b": {"head"},
+                     "hymba_1p5b": {"ssm in_proj", "head"}}
+
+
+def _matmuls(cfg):
+    """(name, K, N) of every matmul a block issues through the wrapper."""
+    d, out = cfg.d_model, []
+    if cfg.family != "ssm":
+        hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        out += [("wq", d, Hq * hd), ("wk", d, Hkv * hd), ("wo", Hq * hd, d)]
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+        n_in = 2 * d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + \
+            cfg.ssm_heads
+        out += [("ssm in_proj", d, n_in), ("ssm out_proj", d_inner, d)]
+    f = cfg.d_ff * max(1, cfg.n_shared_experts)
+    if f and not cfg.n_experts:
+        out += [("w1", d, f), ("w2", f, d)]
+    return out
+
+
 @pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
 def test_published_shapes_pass_the_kernel_plans(arch):
     cfg = get_config(arch)
-    d, hd, Hq, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    slow = CUDA_CORE_MATMULS.get(arch, set())
+    prompt = 32 + (cfg.n_img_tokens or 0) + (cfg.n_meta_tokens or 0)
+    for M in (4, 4 * prompt):
+        for name, K, N in _matmuls(cfg):
+            p = mm_plan.plan(M, N, K, bf16=True, n_sm=132,
+                             is_aligned=mm_plan.aligned(N, K, 0, 0))
+            want = "mma" if name not in slow else \
+                "skinny" if M <= mm_plan.SK_MAXM else "tiled"
+            assert p.route == want, (name, M, K, N)
+            assert 1 <= p.splits and (p.splits - 1) * p.rows < K
+    head = mm_plan.plan(4, cfg.vocab, cfg.d_model, bf16=True, n_sm=132,
+                        is_aligned=mm_plan.aligned(cfg.vocab, cfg.d_model,
+                                                   0, 0))
+    assert head.route == ("skinny" if "head" in slow else "mma")
+    if cfg.family == "ssm":
+        return
+    hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     G = Hq // Hkv
     assert Hq % Hkv == 0 and hd % 8 == 0
     assert hd <= fa_k.MAX_D and G <= fa_k.MAX_GROUP
     assert hd <= pa_k.MAX_D and G <= pa_k.MAX_GROUP
-    f = cfg.d_ff * max(1, cfg.n_shared_experts)
-    projections = [(d, Hq * hd), (d, Hkv * hd), (Hq * hd, d)]
-    if not cfg.n_experts:
-        projections += [(d, f), (f, d)]
-    prompt = 32 + (cfg.n_img_tokens or 0)
-    for M in (4, 4 * prompt):
-        for K, N in projections:
-            p = mm_plan.plan(M, N, K, bf16=True, n_sm=132,
-                             is_aligned=mm_plan.aligned(N, K, 0, 0))
-            assert p.route == "mma", (M, K, N)
-            assert 1 <= p.splits and (p.splits - 1) * p.rows < K
-    head = mm_plan.plan(4, cfg.vocab, d, bf16=True, n_sm=132,
-                        is_aligned=mm_plan.aligned(cfg.vocab, d, 0, 0))
-    assert head.route == ("mma" if cfg.vocab % 8 == 0 else "skinny")
     for walk in (48 + prompt, 4096):
         assert 1 <= decode_split.plan(4, Hkv, walk, 132) <= -(-walk // 32)
 
