@@ -28,7 +28,10 @@ eleventh slice's checks of phases 1-3 (the MoE and VLM families and the
 dense family's other configs) alone, without the result line.  ``--only
 ssm`` builds the same four sources and runs the twelfth slice's checks of
 phases 1-3 (the SSM and hybrid families: mamba2-130m, hymba-1.5b) alone,
-without the result line.
+without the result line.  ``--only encdec`` builds the same four sources and
+runs the thirteenth slice's checks of phases 1-3 (the enc-dec family:
+whisper-base, and flash attention's bidirectional mode) alone, without the
+result line.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -85,7 +88,17 @@ Phases (each raises on failure; nothing is caught):
    attention at hymba's (Hq 25, Hkv 5, D 64), 4 x 160 rows and a 1,280-row
    prompt, windows 0 and 1024 (which bites there); ``paged_decode`` and
    ``flash_decode`` at (25, 5, 64), contexts 163-174 and ~1,290, windows 0
-   and 1024, at the plan's split count and at forced ones.
+   and 1024, at the plan's split count and at forced ones.  And at the
+   thirteenth slice's (``phase_encdec_kernels``): flash attention's
+   bidirectional mode (``causal=False``) at whisper's encoder (4 x 1500
+   rows, 8 heads of 64, G = 1), the cross shapes (32 and 1 rows over 1500
+   frames) and 240 tile-edge shapes (G 1 / 4, Sq and Skv apart and equal
+   on both sides of the 64-row and 64-key tiles, windows 0 / 16, D 64 /
+   80), bf16 and fp32, timed at the encoder beside SDPA; flash decode at G
+   = 1 over the 1500-row cross K/V at a device scalar position and over the
+   self slab, at forced splits, timed beside SDPA; the matmul at an encoder
+   wave's M = 6000 and a decode step's M = 4 (the 51,865-column head on
+   ``mm_skinny``), with routes and times beside ``torch.matmul``.
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
    weights on both; ragged prefill and 4 decode steps on a float pool
    (logits within 1e-3: f32 on both sides, summed in different orders
@@ -144,7 +157,14 @@ Phases (each raises on failure; nothing is caught):
    refills; the live slots' SSM state and conv compared bit for bit with
    their KV state); and the PD oracle of phase 4a on hymba's 3 layers: a
    wave handed over the wire, KV pages and SSM state, decodes bit for
-   bit as the never-migrated engine.
+   bit as the never-migrated engine.  whisper-base
+   (``phase_encdec_card_vs_cpu``) at full width, 2 + 2 layers, fp32, 4 x
+   1500 seeded frames: the teacher-forced forward (causal self attention,
+   bidirectional cross attention at Sq != Skv), the cross K/V and 8 greedy
+   decode steps within 1e-3, the same argmax every step; then a graph
+   engine and a ``cuda_graph=False`` engine over three waves (each of
+   another prompt width: one prefill key, eager, captured, replayed) equal
+   bit for bit in tokens, logits, self and cross K/V.
 3. The slice: ``repro_torch.launch.serve.main`` serves qwen2-7b at full
    width (28 layers, bf16, random weights from seed 0) with 2 partitions,
    then at a smaller load (1 partition, 4 requests, prompt 64) on the
@@ -180,7 +200,14 @@ Phases (each raises on failure; nothing is caught):
    each logs its replayed step beside a bound of its weights (mamba2's
    tied embedding included) and its slots' SSM state read and written,
    and its SSM path's device ms alone (every layer's ``ssm_decode``
-   captured as one graph).  The CNN slice: ``repro_torch.models.cnn
+   captured as one graph).  Then whisper-base at full width and depth
+   (6 + 6 layers), bf16, phase 3's load (``phase_encdec_serve``): the same
+   gates, flash decode and no paged kernel, every matmul on the tensor
+   cores but the 4 issued LM heads; it logs the replayed step beside its
+   bytes bound (the decoder's weights, the tied head, the cross K/V), the
+   encoder wave (a replay of the fleet's one captured prefill) beside its
+   operations bound, the idle share and the peak memory; then the graph
+   lockstep at that size.  The CNN slice: ``repro_torch.models.cnn
    .apply_cnn`` runs each of ResNet-50, GoogLeNet and VGG-16 at 224, batch
    64, fp32 on the card: one forward holds every conv2d and matmul call
    against its plain version on the call's own inputs (2e-4 of the
@@ -3243,6 +3270,471 @@ def phase_ssm(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the thirteenth slice: the enc-dec family (whisper-base)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-base"
+# flash attention's bidirectional tile edges: Sq and Skv apart (cross
+# attention) and equal, on both sides of the 64-row and 64-key tiles; a
+# window only where every query keeps a key (Sq - Skv < window)
+ENC_LENGTHS = (1, 63, 64, 65, 100, 129)
+ENC_GROUPS = (1, 4)
+ENC_WINDOWS = (0, 16)
+ENC_DIMS = (64, 80)
+ENC_CHECK_LAYERS = 2    # phase 2: 2 encoder + 2 decoder layers, fp32
+ENC_STEPS = 8
+ENC_DEC_LEN = 32        # the teacher-forced tokens: the cross Sq
+# the graph lockstep: three waves of SLOTS requests, each wave of another
+# prompt width (one prefill-cache key serves them all)
+ENC_LOCKSTEP = ([PROMPT] * SLOTS + [20] * SLOTS + [27] * SLOTS,
+                [8, 3, 7, 6, 5, 4, 3, 4, 6, 2, 5, 3])
+
+
+def encdec_matmuls(cfg):
+    """(M, K, N): calls of whisper's matmuls in an encoder wave (SLOTS x
+    enc_seq rows: q, k, v, o, w1, w2 a layer, and each decoder layer's
+    cross K and V) and in a decode step (M = SLOTS: the self q, k, v, o,
+    the cross q, o, w1, w2 a layer, and the tied head)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
+    M, el, dl = SLOTS * cfg.enc_seq, cfg.enc_layers, cfg.n_layers
+    wave, step = {}, {}
+    for shape, n in (((M, d, hd), 3 * el + 2 * dl), ((M, hd, d), el),
+                     ((M, d, f), el), ((M, f, d), el)):
+        wave[shape] = wave.get(shape, 0) + n
+    for shape, n in (((SLOTS, d, hd), 4 * dl), ((SLOTS, hd, d), 2 * dl),
+                     ((SLOTS, d, f), dl), ((SLOTS, f, d), dl),
+                     ((SLOTS, d, cfg.vocab), 1)):
+        step[shape] = step.get(shape, 0) + n
+    return wave, step
+
+
+def phase_encdec_kernels(torch):
+    """Phase 1 at whisper-base's shapes, each kernel against its plain
+    version in bf16 (3e-2) and fp32 (2e-4), then timed in bf16 beside its
+    plain version, one library call and its bound: flash attention's
+    bidirectional mode (``causal=False``) at the encoder's (SLOTS, 1500,
+    8, 64), the cross shape (ENC_DEC_LEN and 1 rows over 1500 frames) and
+    the tile edges (ENC_GROUPS x ENC_LENGTHS^2 x ENC_WINDOWS x ENC_DIMS),
+    timed at the encoder beside SDPA (``is_causal=False``); flash decode at
+    G = 1, D 64 over the 1500-row cross K/V at a device scalar position
+    and over the self slab at a position vector, through the wrapper and at
+    forced splits, timed beside SDPA (every key valid, no mask: the same
+    function); the matmul at every (M, K, N) of an encoder wave (M = SLOTS
+    x 1500) and a decode step (M = SLOTS, the 51,865-column head on the
+    CUDA cores), with its route, on weight buffers past the L2.  Returns
+    the timings by kernel."""
+    from repro_torch.kernels import decode_split
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_decode import flash_decode as fd_k
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import ref as mm_ref
+    from repro_torch.kernels.matmul.matmul import launch, plan_for
+
+    cfg = family_cfg(ENCDEC_ARCH)
+    T, H, D = cfg.enc_seq, cfg.n_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(24)
+    bf, f32 = torch.bfloat16, torch.float32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst = {}
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dt)
+
+    def name_of(dt):
+        return str(dt).split(".")[1]
+
+    def held(kernel, tag, dt, got, want):
+        e = check_close(torch, f"{kernel} {tag} {name_of(dt)}", got, want,
+                        TOL[name_of(dt)])
+        worst[f"{kernel} {name_of(dt)}"] = max(
+            worst.get(f"{kernel} {name_of(dt)}", 0.0), e)
+
+    # -- flash attention, bidirectional
+    cases = [("encoder", SLOTS, T, T, H, H, D, 0),
+             ("cross", SLOTS, ENC_DEC_LEN, T, H, H, D, 0),
+             ("cross one row", SLOTS, 1, T, H, H, D, 0)]
+    cases += [(f"G={G} Sq={Sq} Skv={Skv} window={w} D={Dh}", 2, Sq, Skv,
+               2 * G, 2, Dh, w)
+              for G in ENC_GROUPS for Sq in ENC_LENGTHS
+              for Skv in ENC_LENGTHS for w in ENC_WINDOWS for Dh in ENC_DIMS
+              if w == 0 or Sq - Skv < w]
+    for tag, B, Sq, Skv, hq, hkv, Dh, w in cases:
+        for dt in (bf, f32):
+            q = rnd((B, Sq, hq, Dh), dt)
+            k, v = rnd((B, Skv, hkv, Dh), dt), rnd((B, Skv, hkv, Dh), dt)
+            held("flash_attention bidirectional", tag, dt,
+                 fa_ops.flash_attention(q, k, v, causal=False, window=w),
+                 fa_ref.attention(q, k, v, causal=False, window=w))
+    q, k, v = (rnd((SLOTS, T, H, D), bf) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    fa = dict(ms=time_ms(torch, lambda i: fa_ops.flash_attention(
+        q, k, v, causal=False), 1),
+        plain_ms=time_ms(torch, lambda i: fa_ref.attention(
+            q, k, v, causal=False), 1, 5),
+        library_ms=time_ms(torch, lambda i: sdpa(qt, kt, vt,
+                                                 is_causal=False), 1))
+    flops = 4 * SLOTS * H * D * T * T
+    fa["bound_ms"], fa["bound_by"] = bound(2 * 4 * q.numel(), flops,
+                                           H100_BF16)
+    fa.update(shape=f"one encoder layer: q = k = v ({SLOTS},{T},{H},{D}), "
+                    "causal=False, bf16",
+              tflops=flops / fa["ms"] / 1e9,
+              max_abs_err=worst["flash_attention bidirectional bfloat16"])
+    log(f"  flash_attention bidirectional bf16 ({SLOTS},{T},{H},{D}): "
+        f"kernel_ms {fa['ms']:.4f} ({fa['tflops']:.1f} TFLOP/s) plain_ms "
+        f"{fa['plain_ms']:.4f} library_ms {fa['library_ms']:.4f} (SDPA, "
+        f"is_causal=False) bound_ms {fa['bound_ms']:.5f} ({fa['bound_by']})")
+
+    # -- flash decode at G = 1: the cross K/V and the self slab
+    sms = decode_split.sm_count(torch.device("cuda"))
+    self_len = PROMPT + 4 * GEN
+    fd = {}
+    for tag, S, cur in (
+            ("cross", T, torch.tensor(T - 1, dtype=torch.int32,
+                                      device="cuda")),
+            ("self", self_len, torch.tensor([GEN - 1] * SLOTS,
+                                            dtype=torch.int32,
+                                            device="cuda"))):
+        forced = sorted({1, decode_split.plan(SLOTS, H, S, sms),
+                         -(-S // decode_split.KT) + 3})
+        for dt in (bf, f32):
+            qd = rnd((SLOTS, H, D), dt)
+            kc, vc = rnd((SLOTS, S, H, D), dt), rnd((SLOTS, S, H, D), dt)
+            want = fd_ref.decode_attention(qd, kc, vc, cur)
+            held("flash_decode", f"{tag} plan", dt,
+                 fd_ops.flash_decode(qd, kc, vc, cur), want)
+            for n in forced:
+                held("flash_decode", f"{tag} splits={n}", dt,
+                     fd_k.flash_decode_cuda(qd, kc, vc, cur, splits=n), want)
+        if tag == "cross":
+            qd = rnd((SLOTS, H, D), bf)
+            kc, vc = rnd((SLOTS, S, H, D), bf), rnd((SLOTS, S, H, D), bf)
+            q4, k4, v4 = (qd[:, :, None], kc.transpose(1, 2).contiguous(),
+                          vc.transpose(1, 2).contiguous())
+            fd = dict(ms=time_ms(torch, lambda i: fd_ops.flash_decode(
+                qd, kc, vc, cur), 1),
+                plain_ms=time_ms(torch, lambda i: fd_ref.decode_attention(
+                    qd, kc, vc, cur), 1, 5),
+                library_ms=time_ms(torch, lambda i: sdpa(q4, k4, v4), 1))
+            fd["bound_ms"], fd["bound_by"] = bound(
+                2 * (2 * kc.numel() + 2 * qd.numel()),
+                4 * SLOTS * H * D * S, H100_BF16)
+            fd.update(shape=f"one decode step's cross attention: q "
+                            f"({SLOTS},{H},{D}), k/v ({SLOTS},{S},{H},{D}), "
+                            f"G = 1, cur a device scalar {T - 1}, bf16",
+                      splits=decode_split.plan(SLOTS, H, S, sms))
+    fd["max_abs_err"] = worst["flash_decode bfloat16"]
+    log(f"  flash_decode bf16 cross ({SLOTS},{T},{H},{D}) G = 1: kernel_ms "
+        f"{fd['ms']:.4f} plain_ms {fd['plain_ms']:.4f} library_ms "
+        f"{fd['library_ms']:.4f} (SDPA, no mask) bound_ms "
+        f"{fd['bound_ms']:.5f} ({fd['bound_by']}), {fd['splits']} splits")
+
+    # -- the matmul at an encoder wave's and a decode step's shapes
+    wave, step = encdec_matmuls(cfg)
+    for dt in (bf, f32):
+        for M, K, N in sorted(set(wave) | set(step)):
+            a, b = rnd((M, K), dt), rnd((K, N), dt, 1 / math.sqrt(K))
+            held("matmul", f"{M}x{K}x{N}", dt, mm_ops.matmul(a, b),
+                 mm_ref.matmul(a, b))
+            del a, b
+    mm = {}
+    for M, K, N in sorted(set(wave) | set(step)):
+        n_sets = max(1, min(64, math.ceil(120e6 / (2 * K * N))))
+        sets = [(rnd((M, K), bf), rnd((K, N), bf, 1 / math.sqrt(K)))
+                for _ in range(n_sets)]
+        route = plan_for(*sets[0]).route
+        want = "skinny" if N == cfg.vocab else "mma"
+        if route != want:
+            fail(f"matmul whisper {M}x{K}x{N}: route {route}, want {want}")
+        plans = [plan_for(a, b) for a, b in sets]
+        b_ms, by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K,
+                         H100_BF16)
+        mm[(M, K, N)] = dict(
+            route=route,
+            ms=time_ms(torch, lambda i: launch(*sets[i], plans[i]), n_sets),
+            plain_ms=time_ms(torch, lambda i: mm_ref.matmul(*sets[i]),
+                             n_sets, 5),
+            library_ms=time_ms(torch, lambda i: torch.matmul(*sets[i]),
+                               n_sets),
+            bound_ms=b_ms, bound_by=by)
+        t = mm[(M, K, N)]
+        log(f"  matmul bf16 {M}x{K}x{N} (whisper): route {route}, kernel_ms "
+            f"{t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms "
+            f"{t['library_ms']:.4f} bound_ms {b_ms:.4f} ({by})")
+        del sets
+    sums = {what: {key: sum(mm[s][key] * n for s, n in calls.items())
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for what, calls in (("wave", wave), ("step", step))}
+    log(f"phase 1 [encdec]: flash attention bidirectional at {len(cases)} "
+        f"shapes, flash decode at G = 1 (cross {T} rows, self {self_len}), "
+        f"the matmul at {len(mm)} (M, K, N) match their plain versions in "
+        "bf16 and fp32; max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+        + f"; an encoder wave's {sum(wave.values())} matmuls "
+        f"{sums['wave']['ms']:.3f} ms (torch.matmul "
+        f"{sums['wave']['library_ms']:.3f}, bound "
+        f"{sums['wave']['bound_ms']:.3f}), a decode step's "
+        f"{sum(step.values())} {sums['step']['ms']:.3f} ms (torch.matmul "
+        f"{sums['step']['library_ms']:.3f}, bound "
+        f"{sums['step']['bound_ms']:.3f})")
+    return {"flash_attention": fa, "flash_decode": fd,
+            "matmul": {f"{M}x{K}x{N}": t for (M, K, N), t in mm.items()},
+            "matmul_wave": sums["wave"], "matmul_step": sums["step"]}
+
+
+def encdec_lockstep(torch, cfg, params, name):
+    """A graph engine and a ``cuda_graph=False`` engine, one seed, in
+    lockstep over three waves (ENC_LOCKSTEP, wave-only): after every wave
+    and step the same tokens, live logits and slab bit for bit (the self
+    K/V and the cross K/V).  The graph engine's waves go through its
+    prefill cache, one key for all three (eager, captured, replayed), its
+    steps through its decode graph (eager, captured, replays across the
+    waves, whose slab is copied into the captured addresses); the
+    wrappers' counts of its eager and captured waves and steps equal the
+    eager engine's, and a replay adds none."""
+    import numpy as np
+
+    from repro_torch.kernels import counts
+    from repro_torch.models import api as mapi
+    from repro_torch.serving import PartitionEngine, RequestQueue
+    from repro_torch.serving.step_graph import WRAPPERS
+
+    api = mapi.build(cfg, "cuda")
+    lens, gens = ENC_LOCKSTEP
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab, size=(n,)).astype(np.int32)
+               for n in lens]
+    engines = {}
+    for mode in ("graph", "eager"):
+        eng = PartitionEngine(cfg, api, params, slots=SLOTS,
+                              max_len=max(lens) + max(gens), seed=3,
+                              cuda_graph=mode == "graph")
+        q = RequestQueue()
+        for p, n in zip(prompts, gens):
+            q.submit(p, n)
+        eng.assign(q.pop(len(prompts)))
+        engines[mode] = eng
+    ge, ee = engines["graph"], engines["eager"]
+    zero = tuple((0, {}) for _ in WRAPPERS)
+    n_waves = n_steps = 0
+    while ee.busy or ee.wants_prefill:
+        wave = ee.wants_prefill
+        seen = {}
+        for mode, eng in engines.items():
+            before = counts.snapshot(WRAPPERS)
+            if wave:
+                eng.prefill_wave(0.0)
+            else:
+                eng.decode_step(0.0)
+            seen[mode] = counts.diff(counts.snapshot(WRAPPERS), before)
+        where = f"wave {n_waves}" if wave else f"step {n_steps}"
+        n = n_waves if wave else n_steps
+        want = seen["eager"] if n < 2 else zero
+        if [(c, {k: v for k, v in r.items() if v}) for c, r in
+                seen["graph"]] != [(c, {k: v for k, v in r.items() if v})
+                                   for c, r in want]:
+            fail(f"encdec lockstep {name}: {where}: the graph engine's "
+                 f"counts {seen['graph']}, want {want}")
+        if ge.slot_tokens != ee.slot_tokens:
+            fail(f"encdec lockstep {name}: tokens differ after {where}")
+        for key in ("k", "v", "xk", "xv"):
+            if not torch.equal(ge.cache[key].view(torch.uint8),
+                               ee.cache[key].view(torch.uint8)):
+                fail(f"encdec lockstep {name}: {key} differs after {where}")
+        if wave:
+            n_waves += 1
+        else:
+            if not np.array_equal(ge.last_logits, ee.last_logits):
+                fail(f"encdec lockstep {name}: logits differ at {where}")
+            n_steps += 1
+    pg, gr = ge.prefill_graphs, ge.graph
+    if n_waves != 3 or len(pg.uses) != 1 or (
+            pg.n_eager, pg.n_captures, pg.n_replays) != (1, 1, 2) or \
+            gr.n_eager != 1 or gr.n_replays != n_steps - 1:
+        fail(f"encdec lockstep {name}: {n_waves} waves, prefill cache "
+             f"{len(pg.uses)} keys, {pg.n_eager} eager, {pg.n_captures} "
+             f"captures, {pg.n_replays} replays; decode {gr.n_eager} eager, "
+             f"{gr.n_replays} replays of {n_steps} steps")
+    log(f"  encdec graph lockstep {name}: {n_waves} waves (one prefill key: "
+        f"eager, captured, replayed; capture {pg.capture_s:.3f} s) and "
+        f"{n_steps} decode steps (1 eager + {gr.n_replays} replays, capture "
+        f"{gr.capture_s:.3f} s) equal the eager engine bit for bit in "
+        "tokens, logits, self K/V and cross K/V; the wrappers issued the "
+        "eager and captured waves and steps as the eager engine did and "
+        "nothing on a replay")
+
+
+def phase_encdec_card_vs_cpu(torch):
+    """Phase 2 for whisper-base: full width, ENC_CHECK_LAYERS encoder and
+    decoder layers, fp32, the same weights on the card (kernels) and the
+    CPU (plain versions), SLOTS x 1500 seeded frames: the teacher-forced
+    ``forward_encdec`` over ENC_DEC_LEN tokens (causal self attention and
+    bidirectional cross attention at Sq != Skv), the wave's cross K/V and
+    ENC_STEPS greedy decode steps from token 1 within MODEL_TOL, the same
+    argmax every step; then the graph lockstep at that size."""
+    import numpy as np
+
+    from repro_torch.models import api as mapi
+    from repro_torch.models import encdec as ED
+
+    cfg2 = family_cfg(ENCDEC_ARCH, dtype="float32",
+                      n_layers=ENC_CHECK_LAYERS, enc_layers=ENC_CHECK_LAYERS)
+    rng = np.random.default_rng(24)
+    frames = rng.standard_normal((SLOTS, cfg2.enc_seq, cfg2.d_model),
+                                 dtype=np.float32)
+    tokens = rng.integers(1, cfg2.vocab, (SLOTS, ENC_DEC_LEN)).astype(
+        np.int32)
+    params = {"cuda": ED.init_encdec(cfg2, torch.Generator(
+        device="cuda").manual_seed(2), "cuda")}
+    params["cpu"] = tree_to(params["cuda"], "cpu")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        api, p = mapi.build(cfg2, dev), params[dev]
+        fr = torch.from_numpy(frames).to(dev)
+        lf, _ = ED.forward_encdec(p, cfg2, {
+            "enc_embeds": fr, "tokens": torch.from_numpy(tokens).to(dev)})
+        _, cache = api.prefill(p, {"enc_embeds": fr},
+                               max_len=ENC_STEPS + 1)
+        rec = {"forward": [lf.cpu()], "cross K/V": [cache["xk"].cpu(),
+                                                    cache["xv"].cpu()],
+               "logits": []}
+        tok = torch.ones((SLOTS, 1), dtype=torch.int32, device=dev)
+        for _ in range(ENC_STEPS):
+            lg, cache = api.decode(p, tok, cache)
+            rec["logits"].append(lg[:, 0].cpu())
+            tok = lg[:, 0].argmax(-1).to(torch.int32)[:, None]
+        got[dev] = rec
+        del cache
+    errs = {}
+    for what in ("forward", "cross K/V", "logits"):
+        for i, (a, b) in enumerate(zip(got["cuda"][what], got["cpu"][what])):
+            if what == "logits" and not torch.equal(a.argmax(-1),
+                                                    b.argmax(-1)):
+                fail(f"card vs CPU whisper: argmax differs at step {i}")
+            errs[what] = max(errs.get(what, 0.0), check_close(
+                torch, f"card vs CPU whisper {what} {i}", a, b, MODEL_TOL))
+    log(f"phase 2: whisper-base at full width, {ENC_CHECK_LAYERS} + "
+        f"{ENC_CHECK_LAYERS} layers, fp32, {SLOTS} x {cfg2.enc_seq} frames, "
+        f"card vs CPU: the teacher-forced forward over {ENC_DEC_LEN} tokens, "
+        f"the cross K/V and {ENC_STEPS} greedy decode steps agree (max abs "
+        "err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f", tolerance {MODEL_TOL}), identical argmax every step")
+    cuda_params = params["cuda"]
+    del params, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_lockstep(torch, cfg2, cuda_params, "whisper fp32 2+2 layers")
+
+
+def encdec_measure(torch, engines, cfg):
+    """After whisper's serve run, on its first engine: the replayed decode
+    step's device ms (CUDA events over bare replays of its graph), the
+    engine's own step's wall ms (median of STEP_CALLS) and the idle share;
+    the step's bytes bound (the decoder's weights but the cross K and V
+    projections, the tied head, the wave's cross K/V and the self K/V up
+    to the step's position); the encoder wave's device ms (bare replays
+    of the fleet's one captured prefill) beside its operations bound; the
+    fleet's peak memory."""
+    from repro_torch.profiling.decode_profile import replay_ms, timed
+
+    eng = engines[0]
+    dev = eng.device
+    peak = torch.cuda.max_memory_allocated()
+    device_ms = replay_ms(eng.graph.graph, dev)
+    rows = int(eng.graph.buffers[1][0]) + 1     # the replay's position
+    wall_ms = 1e3 * float(sorted(timed(eng._run_decode, dev, STEP_CALLS))[
+        STEP_CALLS // 2])
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+    p = eng.params
+    cross = p["dec_blocks"]["cross_attn"]
+    weights = nbytes({k: p[k] for k in ("dec_blocks", "ln_dec", "embed")}) \
+        - nbytes({k: cross[k] for k in ("wk", "wv", "bk", "bv")})
+    c = eng.cache
+    self_kv = 2 * c["k"][:, :, :rows].numel() * c["k"].element_size()
+    xkv = nbytes({k: c[k] for k in ("xk", "xv")})
+    step_bytes = weights + xkv + self_kv
+    (_, op), = eng.prefill_graphs._entries.items()
+    wave_ms = replay_ms(op.graph, dev)
+    M, d, f = SLOTS * cfg.enc_seq, cfg.d_model, cfg.d_ff
+    hd = cfg.n_heads * cfg.head_dim
+    wave_flops = cfg.enc_layers * (
+        2 * M * (3 * d * hd + hd * d + 2 * d * f)
+        + 4 * SLOTS * cfg.n_heads * cfg.head_dim * cfg.enc_seq ** 2) + \
+        cfg.n_layers * 2 * M * 2 * d * hd
+    wave_bound, wave_by = bound(nbytes(p["enc_blocks"]) + M * d * 4,
+                                wave_flops, H100_BF16)
+    return dict(device_ms=device_ms, wall_ms=wall_ms,
+                idle=1 - device_ms / wall_ms,
+                bound_ms=step_bytes / H100_BW * 1e3, step_gb=step_bytes / 1e9,
+                weight_gb=weights / 1e9, xkv_gb=xkv / 1e9,
+                wave_ms=wave_ms, wave_bound_ms=wave_bound, wave_by=wave_by,
+                wave_gflop=wave_flops / 1e9, peak_gb=peak / 1e9)
+
+
+def phase_encdec_serve(torch, wrappers):
+    """Phase 3 for whisper-base: ``serve.main`` at full width and depth (6
+    + 6 layers), bf16, phase 3's load (8 requests, prompt 32, 16 tokens, 2
+    partitions x 4 slots, stagger demand) with ``serve_run``'s gates (each
+    engine's wave through the fleet's one prefill key: eager, then
+    captured); it must launch the matmul, flash attention and flash decode
+    and no paged kernel, with every matmul on the tensor cores but the 4
+    issued LM heads (51,865 columns: ``mm_skinny``).  Logs the replayed
+    step and the encoder wave beside their bounds, the idle share and the
+    peak memory (``encdec_measure``); then the graph lockstep at full
+    width and depth in bf16."""
+    from repro_torch.models import encdec as ED
+
+    cfg = family_cfg(ENCDEC_ARCH)
+    argv = ["--arch", ENCDEC_ARCH] + SERVE_ARGS[2:]
+    measured = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = serve_run(torch, cfg, wrappers, ENCDEC_ARCH, argv,
+                    flag(argv, "--requests"), flag(argv, "--gen"),
+                    after=lambda engines: measured.update(
+                        encdec_measure(torch, engines, cfg)))
+    for k, n in run["launches"].items():
+        if (n == 0) == (k in ("matmul", "flash_attention", "flash_decode")):
+            fail(f"serve {ENCDEC_ARCH}: kernel {k} launched {n} times")
+    routes = run["routes"]
+    if routes["tiled"] or routes["skinny"] != 4 or not routes["mma"]:
+        fail(f"serve {ENCDEC_ARCH}: matmul routes {routes} (want mm_mma but "
+             "the 4 issued heads on mm_skinny)")
+    m = measured
+    log(f"phase 3 [{ENCDEC_ARCH}]: {cfg.name} d={cfg.d_model} "
+        f"layers={cfg.enc_layers}+{cfg.n_layers}: replayed decode step "
+        f"{m['device_ms']:.3f} ms device, {m['wall_ms']:.3f} ms wall, idle "
+        f"share {m['idle']:.3f}; bytes bound {m['bound_ms']:.4f} ms "
+        f"({m['step_gb']:.4f} GB: {m['weight_gb']:.4f} of weights, the tied "
+        f"head included, {m['xkv_gb']:.4f} of cross K/V); encoder wave "
+        f"({SLOTS} x {cfg.enc_seq} frames, replayed) {m['wave_ms']:.3f} ms "
+        f"device, bound {m['wave_bound_ms']:.4f} ms ({m['wave_gflop']:.1f} "
+        f"GFLOP, {m['wave_by']}); peak memory {m['peak_gb']:.2f} GB")
+    run.update(step=m)
+    params = ED.init_encdec(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    encdec_lockstep(torch, cfg, params, "whisper-base full width bf16")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {ENCDEC_ARCH: run}
+
+
+def phase_encdec(torch) -> dict:
+    """``--only encdec``: the thirteenth slice's phase 1, 2 and 3 checks
+    alone."""
+    stats = phase_encdec_kernels(torch)
+    phase_encdec_card_vs_cpu(torch)
+    phase_encdec_serve(torch, serving_wrappers())
+    return stats
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the cluster on the card
 # ---------------------------------------------------------------------------
 
@@ -3556,7 +4048,9 @@ ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
                       "flash_decode"], lambda torch, cfg: phase_families(
             torch)),
         "ssm": (["matmul", "flash_attention", "paged_attention",
-                 "flash_decode"], lambda torch, cfg: phase_ssm(torch))}
+                 "flash_decode"], lambda torch, cfg: phase_ssm(torch)),
+        "encdec": (["matmul", "flash_attention", "paged_attention",
+                    "flash_decode"], lambda torch, cfg: phase_encdec(torch))}
 
 
 def serving_wrappers():
@@ -3666,9 +4160,11 @@ def main() -> None:
     stats.update(phase_decode_kernels(torch, cfg))
     phase_family_kernels(torch)
     ssm_stats = phase_ssm_kernels(torch)
+    encdec_stats = phase_encdec_kernels(torch)
     phase_card_vs_cpu(torch, cfg)
     phase_family_card_vs_cpu(torch)
     phase_ssm_card_vs_cpu(torch)
+    phase_encdec_card_vs_cpu(torch)
     phase_graph(torch, cfg)
     cnn_params, conv_shapes = phase_cnn_card_vs_cpu(torch)
     stats.update(phase_conv_kernel(torch, conv_shapes))
@@ -3686,6 +4182,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_ssm_serve(torch, wrappers))
+    runs.update(phase_encdec_serve(torch, wrappers))
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_cluster(torch, cfg))
@@ -3713,6 +4210,15 @@ def main() -> None:
               "flash_attention": ssm_stats["flash_attention"]}
     for k, t in ssm_stats["decode"].items():
         ssm_of.setdefault(k.split()[0], {})[k] = t
+    # the thirteenth slice's shapes (phase 1 [encdec]); flash attention's
+    # bidirectional mode beside its causal one
+    encdec_of = {"matmul": dict(encdec_stats["matmul"],
+                                encoder_wave=encdec_stats["matmul_wave"],
+                                decode_step=encdec_stats["matmul_step"]),
+                 "flash_decode": {"cross": encdec_stats["flash_decode"]}}
+    stats["flash_attention"].update(
+        modes=["causal", "bidirectional"],
+        bidirectional=encdec_stats["flash_attention"])
     kernels = []
     for name, (src, replaces) in meta.items():
         s = stats[name]
@@ -3735,7 +4241,8 @@ def main() -> None:
                             "library_tf32_ms", "bf16_ms", "bf16_plain_ms",
                             "bf16_library_ms", "bf16_bound_ms",
                             "bf16_bound_by",
-                            "bf16_route_ms", "bf16_route_bound_ms")
+                            "bf16_route_ms", "bf16_route_bound_ms", "modes",
+                            "bidirectional")
                            if key in s},
                         **({"routes_by_run": {
                             run: r["routes"] for run, r in runs.items()
@@ -3747,7 +4254,9 @@ def main() -> None:
                         **({"in_forward_ms": s["in_forward_ms"]}
                            if "in_forward_ms" in s else {}),
                         **({"ssm_shapes": ssm_of[name]} if name in ssm_of
-                           else {})})
+                           else {}),
+                        **({"encdec_shapes": encdec_of[name]}
+                           if name in encdec_of else {})})
     log(f"chip_smoke: {len(TRACE_RERUNS)} phase-2 lockstep reruns for lost "
         f"profiler records {[n for n, _ in TRACE_RERUNS]}")
     log(smi)      # again here: long runs push the first lines out of a tail

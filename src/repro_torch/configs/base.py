@@ -4,8 +4,7 @@ The port's own copy of ``repro.configs.base`` (the port imports nothing of
 the JAX package).  Every ported architecture gets one module in
 ``repro_torch.configs`` exporting ``CONFIG`` (the exact published config)
 and ``SMOKE`` (a reduced config of the same family for CPU tests).
-``get_config(name)`` resolves either and raises for an architecture whose
-slice has not landed.
+``get_config(name)`` resolves either, as the reference's does.
 """
 from __future__ import annotations
 
@@ -160,21 +159,15 @@ def canonical(name: str) -> str:
     return _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
 
 
-# architectures whose model path the port serves so far; enc-dec waits for
-# its slice (ROADMAP.md, Queue 1 item 11)
+# architectures whose model path the port serves: every one of ARCH_IDS
 PORTED_ARCH_IDS = ["qwen2_7b", "qwen1p5_4b", "mistral_nemo_12b",
                    "qwen1p5_110b", "qwen3_moe_30b_a3b", "dbrx_132b",
-                   "internvl2_26b", "mamba2_130m", "hymba_1p5b"]
+                   "internvl2_26b", "mamba2_130m", "hymba_1p5b",
+                   "whisper_base"]
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
-    arch = canonical(name)
-    if arch not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to PyTorch yet (ported: "
-            f"{PORTED_ARCH_IDS}); it is queued in ROADMAP.md, Queue 1 item "
-            "11 (enc-dec: whisper-base)")
-    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     return mod.SMOKE if smoke else mod.CONFIG
 
 

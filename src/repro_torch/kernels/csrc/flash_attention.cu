@@ -1,6 +1,7 @@
-// Prefill flash attention: causal + sliding-window + GQA, online softmax.
-// q (B, Sq, Hq, D), k / v (B, Skv, Hkv, D), out (B, Sq, Hq, D), bf16 or f32;
-// query i attends to keys j <= i (and i - j < window when window > 0);
+// Prefill flash attention: causal or bidirectional, sliding window, GQA,
+// online softmax.  q (B, Sq, Hq, D), k / v (B, Skv, Hkv, D), out (B, Sq, Hq,
+// D), bf16 or f32; query i attends to keys j < Skv, j <= i when causal (and
+// i - j < window when window > 0: one-sided, as in the reference);
 // scores, running max m, running sum l and the accumulator in f32, the
 // softmax weights rounded to the value dtype before p @ v.
 //
@@ -24,11 +25,13 @@
 // warps x 16) and walks 64-key tiles of K and V, staged in shared memory by
 // 16-byte cp.async in two stages (the next tile loads while this one is
 // used), rows padded by 8 bf16 so that ldmatrix hits no bank twice.  Key
-// tiles wholly past the CTA's last query position or wholly before its
-// first position's window are skipped, which is exact.  Q's fragments are
-// loaded once with ldmatrix and stay in registers; S = Q K^T takes K's
-// fragments by ldmatrix, O += P V takes V's by ldmatrix.trans.  Scores are
-// scaled after the dot (log2(e) folded in, exp2), masked keys score -1e30,
+// tiles wholly past the CTA's last query position (causal) or wholly before
+// its first position's window are skipped, which is exact; without causal
+// every walk runs to Skv (whisper's encoder: 24 tiles of 64 keys for every
+// CTA of 64 positions at G = 1).  Q's fragments are loaded once with
+// ldmatrix and stay in registers; S = Q K^T takes K's fragments by
+// ldmatrix, O += P V takes V's by ldmatrix.trans.  Scores are scaled
+// after the dot (log2(e) folded in, exp2), masked keys score -1e30,
 // never -inf (a row that meets a fully masked tile first accumulates junk
 // that the next real tile's correction exp(m - m_new) wipes exactly, as in
 // the reference), keys past Skv score -inf and weigh exactly 0.  The online
@@ -63,7 +66,7 @@ template <typename T, int DPL>         // DPL = ceil(D / 32): row elements per l
 __global__ void __launch_bounds__(WARPS * 32)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv, int Hq,
-          int Hkv, int D, int BQ, int window, float scale) {
+          int Hkv, int D, int BQ, int window, int causal, float scale) {
   extern __shared__ float smem[];
   const int DP = D + 1;                // padded rows: lanes read distinct banks
   float* qs = smem;                    // [ROWS][DP]
@@ -98,7 +101,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int k_lo = 0;
   if (window > 0) k_lo = max(0, q0 - window + 1);   // earlier keys: masked for every row
   k_lo = (k_lo / BK) * BK;
-  const int k_hi = min(Skv, q_last + 1);   // later keys: masked for every row
+  // later keys: masked for every row when causal
+  const int k_hi = causal ? min(Skv, q_last + 1) : Skv;
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();   // the previous tile is consumed (and q is staged)
@@ -126,7 +130,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float dot = 0.f;
       for (int d = 0; d < D; ++d) dot += qs[r * DP + d] * ks[lane * DP + d];
       float s = dot * scale;
-      const bool ok = exists && qi >= kj && (window <= 0 || qi - kj < window);
+      const bool ok = exists && (!causal || qi >= kj) &&
+                      (window <= 0 || qi - kj < window);
       if (!ok) s = NEG;
       const float m_new = fmaxf(m[i], warp_max(exists ? s : -INFINITY));
       const float p = exists ? expf(s - m_new) : 0.f;
@@ -164,7 +169,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DPL>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int Hq, int Hkv, int D, int window,
+           int Skv, int Hq, int Hkv, int D, int window, int causal,
            cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int BQ = ROWS / G;
@@ -174,17 +179,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   fa_kernel<T, DPL><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, D, BQ,
-      window, 1.f / sqrtf((float)D));
+      window, causal, 1.f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Skv, int Hq, int Hkv, int D, int window,
-               cudaStream_t s) {
-  if (D <= 32) return launch<T, 1>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
-  if (D <= 64) return launch<T, 2>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
-  return launch<T, 4>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
+               int causal, cudaStream_t s) {
+  if (D <= 32)
+    return launch<T, 1>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
+  if (D <= 64)
+    return launch<T, 2>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
+  return launch<T, 4>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -210,7 +217,8 @@ template <int DPAD>
 __global__ void __launch_bounds__(TC_WARPS * 32)
 fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-              int Skv, int Hq, int Hkv, int D, int window, float scale_log2) {
+              int Skv, int Hq, int Hkv, int D, int window, int causal,
+              float scale_log2) {
   constexpr int S = TcSmem<DPAD>::STRIDE;
   constexpr int CH = DPAD / 8;       // 16-byte chunks of a padded row
   constexpr int KSTEPS = DPAD / 16;  // k-steps of Q K^T
@@ -223,7 +231,8 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int G = Hq / Hkv;
   const int R = Sq * G;                            // flattened rows
-  const int tile = gridDim.x - 1 - blockIdx.x;     // longest causal walks first
+  // the longest causal walks first (without causal all walks are equal)
+  const int tile = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = tile * TC_ROWS;
   const int q_first = r0 / G;
@@ -244,7 +253,8 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   int k_lo = window > 0 ? max(0, q_first - window + 1) : 0;
   k_lo = (k_lo / TC_BK) * TC_BK;                   // earlier keys: masked for every row
-  const int k_hi = min(Skv, q_last + 1);           // later keys: masked for every row
+  // later keys: masked for every row when causal
+  const int k_hi = causal ? min(Skv, q_last + 1) : Skv;
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + TC_BK - 1) / TC_BK : 0;
 
   auto load_kv = [&](int t) {
@@ -307,7 +317,8 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scale after the dot; mask unless every key is valid for every row
     const int k0 = k_lo + t * TC_BK;
-    const bool full = k0 + TC_BK <= Skv && k0 + TC_BK - 1 <= q_first &&
+    const bool full = k0 + TC_BK <= Skv &&
+                      (!causal || k0 + TC_BK - 1 <= q_first) &&
                       (window <= 0 || q_last - k0 < window);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -319,7 +330,7 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int qi = c < 2 ? qi0 : qi1;
           if (kj >= Skv)
             x = -INFINITY;   // not part of the problem: weight exactly 0
-          else if (kj > qi || (window > 0 && qi - kj >= window))
+          else if ((causal && kj > qi) || (window > 0 && qi - kj >= window))
             x = NEG;
         }
         s[j][c] = x;
@@ -405,7 +416,7 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DPAD>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int Hq, int Hkv, int D, int window,
+               int Sq, int Skv, int Hq, int Hkv, int D, int window, int causal,
                cudaStream_t stream) {
   constexpr size_t smem = TcSmem<DPAD>::BYTES;
   static bool smem_set = false;   // above 48 KB needs an opt-in, once
@@ -421,32 +432,37 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   fa_mma_kernel<DPAD><<<grid, TC_WARPS * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, Hq, Hkv, D,
-      window, LOG2E / sqrtf((float)D));
+      window, causal, LOG2E / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B,
                  int Sq, int Skv, int Hq, int Hkv, int D, int window,
-                 cudaStream_t s) {
-  if (D <= 32) return launch_mma<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
-  if (D <= 64) return launch_mma<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
-  if (D <= 96) return launch_mma<96>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
-  return launch_mma<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
+                 int causal, cudaStream_t s) {
+  if (D <= 32)
+    return launch_mma<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
+  if (D <= 64)
+    return launch_mma<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
+  if (D <= 96)
+    return launch_mma<96>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
+  return launch_mma<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
 }
 
 }  // namespace
 
 // Limits checked by the Python wrapper: D <= 128, Hq % Hkv == 0,
 // Hq / Hkv <= 16; bf16 also D % 8 == 0 and 16-byte aligned pointers.
-// window <= 0 means no window.  bf16 runs fa_mma_kernel, f32 fa_kernel.
+// window <= 0 means no window; causal != 0 masks the keys past each
+// query's position.  bf16 runs fa_mma_kernel, f32 fa_kernel.
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                          int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                         int window, int dtype, void* stream) {
+                         int window, int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 128 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32)
-    return dispatch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
+    return dispatch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window,
+                             causal != 0, s);
   if (dtype == DT_BF16) {
     const uintptr_t bits = reinterpret_cast<uintptr_t>(q) |
                            reinterpret_cast<uintptr_t>(k) |
@@ -454,7 +470,8 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                            reinterpret_cast<uintptr_t>(o);
     if (D % 8 != 0 || (bits & 15) != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_mma(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, s);
+    return dispatch_mma(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window,
+                        causal != 0, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

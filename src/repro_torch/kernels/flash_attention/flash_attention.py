@@ -2,8 +2,10 @@
 (``kernels/csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py::
-flash_attention_pallas``.  Unlike the Pallas kernel it takes any Sq and
-Skv (ragged tiles are masked in the kernel).  bf16 runs on the tensor
+flash_attention_pallas`` in both of its modes, causal and bidirectional
+(``causal=False``, the enc-dec family's encoder and cross attention).
+Unlike the Pallas kernel it takes any Sq and Skv (ragged tiles are masked
+in the kernel).  bf16 runs on the tensor
 cores (``mma.sync``, 64 flattened query rows a CTA), f32 on the CUDA cores
 (one CTA packs a tile of query positions times the whole GQA group into
 16 rows).  Limits: D <= 128, at most 16 query heads per kv head, and for
@@ -19,15 +21,16 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURES = {"fa_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P]}
+SIGNATURES = {"fa_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P]}
 MAX_D = 128
 MAX_GROUP = 16
 
 
-def flash_attention_cuda(q, k, v, *, window: int = 0) -> torch.Tensor:
-    """Causal attention.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), CUDA,
-    contiguous, one dtype.  window <= 0 means no window.  Returns
-    (B, Sq, Hq, D)."""
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Causal (the default) or bidirectional attention.  q: (B, Sq, Hq, D);
+    k, v: (B, Skv, Hkv, D), CUDA, contiguous, one dtype.  window <= 0 means
+    no window.  Returns (B, Sq, Hq, D)."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -54,7 +57,8 @@ def flash_attention_cuda(q, k, v, *, window: int = 0) -> torch.Tensor:
     lib = _build.load("flash_attention", SIGNATURES)
     err = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
-                        int(window or 0), _build.dtype_code(q),
+                        int(window or 0), int(bool(causal)),
+                        _build.dtype_code(q),
                         _build.stream_of(q))
     _build.check(lib, err, "fa_launch")
     return o

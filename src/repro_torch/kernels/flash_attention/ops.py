@@ -14,14 +14,15 @@ from .flash_attention import flash_attention_cuda
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
-    """Causal attention.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).
-    window <= 0 means no window.  Returns (B, Sq, Hq, D)."""
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Causal (the default) or bidirectional attention.  q: (B, Sq, Hq, D);
+    k, v: (B, Skv, Hkv, D).  window <= 0 means no window.  Returns
+    (B, Sq, Hq, D)."""
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, window=window)
+        return ref.attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    out = flash_attention_cuda(q, k, v, window=window)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     flash_attention.launches += 1
     return out
 

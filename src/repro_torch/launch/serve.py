@@ -18,7 +18,10 @@ and the fluid-simulation validation of the shaping claim.
 the CPU.  The bandwidth levers run on both: ``--kv-dtype int8/fp8``
 (packed KV pages), ``--sparse-threshold T`` (blockwise-sparse decode) and
 ``--prefix-cache``, in any mix, and ``--dense`` serves from the dense KV
-slab instead of the paged pool.  Every engine runs its decode steps as
+slab instead of the paged pool (whisper-base always does, as in the
+reference: ``--arch whisper-base`` serves the enc-dec family wave by wave,
+each wave's frame embeddings drawn from the engine's seed).  Every engine
+runs its decode steps as
 replays of one captured CUDA graph on the card
 (``serving/step_graph.py``), and its prefill waves and slot refills as
 replays of one graph per shape from a cache the fleet shares
@@ -196,10 +199,12 @@ def main(argv=None, engines_out=None):
     api = mapi.build(cfg, device)
     params = api.init(torch.Generator(device=device).manual_seed(0))
     prefill_graphs = PrefillGraphs(api)
+    # enc-dec serves from the dense slab, as in the reference
+    paged = (cfg.family != "encdec") and not args.dense
     engines = [PartitionEngine(cfg, api, params, slots=slots,
                                max_len=max_len, pid=p,
                                peak_flops=peak_per_part,
-                               paged=not args.dense,
+                               paged=paged,
                                block_size=args.block_size,
                                cost_model=cost_model,
                                prefix_cache=args.prefix_cache,

@@ -1,5 +1,5 @@
-"""Model API over the ported families (the decoder-only LMs: dense, MoE,
-VLM, SSM and hybrid).
+"""Model API over the ported families: the decoder-only LMs (dense, MoE,
+VLM, SSM and hybrid) and the enc-dec family (whisper).
 
 ``build(cfg, device)`` returns a ``ModelAPI`` bound to one device:
   init(generator)                        -> params
@@ -13,9 +13,13 @@ VLM, SSM and hybrid).
                                             per-slot state and conv
                                             window included)
 
-The port's counterpart of ``repro.models.api._build_lm``; the loss,
-forward and the shape-spec helpers wait for their slices (ROADMAP.md,
-Queue 1 items 13 and 15).
+The port's counterpart of ``repro.models.api._build_lm`` and
+``_build_encdec``.  An enc-dec api's ``prefill_batch(frames)`` carries the
+stubbed frontend's frame embeddings (B, enc_seq, d), its ``prefill``
+returns ``(None, cache)`` (the encoder and each layer's cross K/V), ``decode_paged`` is None
+and ``init_cache`` returns None (the cache is built from the frames), as
+in the reference.  The loss, forward and the shape-spec helpers wait for
+their slices (ROADMAP.md, Queue 1 items 13 and 15).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve
 
+from . import encdec as ED
 from . import transformer as TF
 
 
@@ -44,8 +49,7 @@ class ModelAPI:
 
 def build(cfg: ModelConfig, device=DEFAULT_DEVICE) -> ModelAPI:
     if cfg.family == "encdec":
-        raise NotImplementedError("enc-dec models are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 11)")
+        return _build_encdec(cfg, resolve(device))
     return _build_lm(cfg, resolve(device))
 
 
@@ -81,3 +85,32 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
 
     return ModelAPI(cfg, device, init, prefill_batch, prefill, decode,
                     decode_paged, init_cache)
+
+
+def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
+    dt = getattr(torch, cfg.dtype)
+
+    def init(generator: torch.Generator):
+        return ED.init_encdec(cfg, generator, device, max_dec_len=cfg.max_seq)
+
+    def prefill_batch(frames):
+        """``{"enc_embeds": frames}``: the frames (B, enc_seq, d) f32 stand
+        in for the stubbed audio frontend (the serving engine draws them,
+        ``repro/serving/engine.py:719-721``); the prompts are not
+        consumed."""
+        return {"enc_embeds": frames}
+
+    def prefill(params, batch, max_len=None):
+        enc_out = ED.encode(params, cfg, batch["enc_embeds"].to(dt))
+        cache = ED.init_encdec_cache(params, cfg, enc_out,
+                                     max_len or cfg.max_seq)
+        return None, cache
+
+    def decode(params, token, cache):
+        return ED.decode_step_encdec(params, cfg, token, cache)
+
+    def init_cache(batch, max_len):
+        return None     # an enc-dec cache is built from the frames: prefill
+
+    return ModelAPI(cfg, device, init, prefill_batch, prefill, decode, None,
+                    init_cache)

@@ -1,5 +1,5 @@
-"""Core layers of the decoder-only LM in PyTorch: the main-path subset of
-the reference's ``repro/models/layers.py``.
+"""Core layers of the LMs in PyTorch: the main-path subset of the
+reference's ``repro/models/layers.py``.
 
 Conventions follow the reference, so the tests compare like with like:
 parameters are nested dicts of tensors, activations flow as
@@ -8,15 +8,17 @@ through the port's kernel wrappers, which run the hand-written CUDA kernel
 on a CUDA tensor and the plain PyTorch version on a CPU tensor:
 
 * every projection and the LM head -> ``kernels.matmul.ops.matmul``;
-* prefill attention -> ``kernels.flash_attention.ops.flash_attention``;
+* prefill attention -> ``kernels.flash_attention.ops.flash_attention``
+  (causal, or bidirectional for the enc-dec family's encoder and cross
+  attention);
 * paged decode attention -> ``kernels.paged_attention.ops``:
   ``paged_decode`` (float pool), ``paged_decode_sparse`` (float pool,
   blockwise-sparse) and ``paged_decode_quant`` (packed int8/fp8 pool,
   optionally sparse);
 * dense-slab decode attention -> ``kernels.flash_decode.ops.flash_decode``.
 
-The MoE FFN is ``models/moe.py`` and the Mamba-2 SSD ``models/ssm.py``; the
-enc-dec family waits for its slice (ROADMAP.md, Queue 1 item 11).
+The MoE FFN is ``models/moe.py``, the Mamba-2 SSD ``models/ssm.py`` and the
+enc-dec backbone ``models/encdec.py``, whose LayerNorm and GELU MLP are here.
 """
 from __future__ import annotations
 
@@ -82,6 +84,17 @@ def rms_norm(x, weight, eps: float = 1e-5):
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm over the last axis in f32 with the population variance
+    (the reference's ``jnp.var``), cast back to the input dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -254,23 +267,26 @@ def attention_decode_paged(p, cfg, x, k_pages, v_pages, tables, cur_pos, *,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU or GELU)
 # ---------------------------------------------------------------------------
 
 
 def init_mlp(generator, d_model, d_ff, act, dtype, device, n_layers: int):
-    if act != "silu":
-        raise NotImplementedError(f"mlp act {act!r}: only SwiGLU ('silu') "
-                                  "is ported (ROADMAP.md, Queue 1 item 11)")
+    """``w1``, ``w2`` and, for SwiGLU (``act == "silu"``), the gate ``w3``;
+    any other act is the plain GELU MLP, as in the reference."""
     L = n_layers
-    return {"w1": dense_init(generator, (L, d_model, d_ff), dtype, device),
-            "w2": dense_init(generator, (L, d_ff, d_model), dtype, device),
-            "w3": dense_init(generator, (L, d_model, d_ff), dtype, device)}
+    p = {"w1": dense_init(generator, (L, d_model, d_ff), dtype, device),
+         "w2": dense_init(generator, (L, d_ff, d_model), dtype, device)}
+    if act == "silu":
+        p["w3"] = dense_init(generator, (L, d_model, d_ff), dtype, device)
+    return p
 
 
 def mlp_block(p, x, act: str):
-    if act != "silu":
-        raise NotImplementedError(f"mlp act {act!r}: only SwiGLU ('silu') "
-                                  "is ported (ROADMAP.md, Queue 1 item 11)")
-    h = F.silu(_proj(x, p["w1"])) * _proj(x, p["w3"])
+    """SwiGLU for ``act == "silu"``, else GELU in its tanh approximation
+    (``jax.nn.gelu``'s default, which the reference calls)."""
+    if act == "silu":
+        h = F.silu(_proj(x, p["w1"])) * _proj(x, p["w3"])
+    else:
+        h = F.gelu(_proj(x, p["w1"]), approximate="tanh")
     return _proj(h, p["w2"])

@@ -65,9 +65,10 @@ def _dtype(cfg) -> torch.dtype:
 
 def _check_family(cfg) -> None:
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: the decoder-only "
-            "families are (ROADMAP.md, Queue 1 item 11)")
+        raise ValueError(
+            f"model family {cfg.family!r} is not a decoder-only LM: "
+            "enc-dec runs through models/encdec.py (models.api.build picks "
+            "it), and no other family exists")
 
 
 def _layer(tree, i: int):

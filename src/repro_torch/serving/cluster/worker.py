@@ -234,7 +234,8 @@ def build_engine(spec: WorkerSpec) -> EngineBase:
     api = mapi.build(cfg, device)
     params = api.init(torch.Generator(device).manual_seed(spec.seed))
     # the engine makes its own PrefillGraphs: one cache per worker process
-    return PartitionEngine(cfg, api, params, paged=spec.paged, **kw)
+    return PartitionEngine(cfg, api, params, paged=spec.paged,
+                           seed=spec.seed, **kw)
 
 
 def _process_age() -> float:

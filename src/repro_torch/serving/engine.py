@@ -643,10 +643,17 @@ class PartitionEngine(EngineBase):
     SSM and hybrid families keep each slot's SSM state and conv window in
     per-slot arrays beside the pool (or in the slab), updated in place by
     every decode step, idle slots included, as in the reference.
-    Enc-dec models are not ported yet and raise ``NotImplementedError``
-    naming their ROADMAP.md item.  ``export_kv`` / ``import_kv`` move a
+    Enc-dec models keep the dense slab (``paged`` defaults to False and
+    True raises) and wave-only batching, as in the reference: each wave
+    encodes frame embeddings drawn from ``np.random.default_rng(seed +
+    pid)``, one (slots, enc_seq, d) f32 draw a wave, into the slab's cross
+    K/V; the wave's prefill emits no first token (every slot's first
+    decode input is token 1), and every decode step writes and attends at
+    one position for the whole wave, the number of steps since its
+    prefill.  ``export_kv`` / ``import_kv`` move a
     slot's KV state between engines (PD disaggregation) as host tensors,
-    the reference's ``KvHandoff`` payload.
+    the reference's ``KvHandoff`` payload (not for enc-dec, whose cache is
+    the wave's: they raise, as the reference's do).
 
     Every decode step runs through the engine's ``DecodeGraph``
     (``serving/step_graph.py``), the counterpart of the reference's jitted
@@ -667,22 +674,22 @@ class PartitionEngine(EngineBase):
     def __init__(self, cfg: ModelConfig, api, params, *, slots: int,
                  max_len: int, pid: int = 0,
                  peak_flops: float = hw.H100_PEAK_FLOPS,
-                 paged: Optional[bool] = None,
+                 seed: int = 0, paged: Optional[bool] = None,
                  block_size: int = 16, pool_blocks: Optional[int] = None,
                  wave_only: bool = False,
                  cost_model: Optional[CostModel] = None,
                  prefix_cache: bool = False, kv_dtype: str = "fp32",
                  sparse_threshold: float = 0.0, cuda_graph: bool = True,
                  prefill_graphs: Optional[PrefillGraphs] = None):
-        if cfg.family == "encdec":
-            raise NotImplementedError("enc-dec serving is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 11)")
         super().__init__(cfg, slots=slots, max_len=max_len, pid=pid,
                          peak_flops=peak_flops, block_size=block_size,
                          pool_blocks=pool_blocks, wave_only=wave_only,
                          cost_model=cost_model, prefix_cache=prefix_cache,
                          kv_dtype=kv_dtype, sparse_threshold=sparse_threshold)
-        self.paged = True if paged is None else bool(paged)
+        self.encdec = cfg.family == "encdec"
+        self.paged = (not self.encdec) if paged is None else bool(paged)
+        if self.paged and self.encdec:
+            raise ValueError("paged KV is not supported for enc-dec models")
         if self.prefix_cache and not self.paged:
             raise ValueError("prefix caching shares KV *blocks* and needs "
                              "the paged pool (paged=True); the dense "
@@ -709,6 +716,10 @@ class PartitionEngine(EngineBase):
                              "for an engine with cuda_graph=True")
         self.prefill_graphs = prefill_graphs if prefill_graphs is not None \
             else PrefillGraphs(api) if self.cuda_graph else None
+        # enc-dec: the stub frontend's frames (the reference's draw) and
+        # the decode position of the current wave
+        self._rng = np.random.default_rng(seed + pid)
+        self._wave_pos = 0
 
     # -- batch assembly ------------------------------------------------------
     def _make_batch(self, prompts: List[np.ndarray]) -> dict:
@@ -819,7 +830,40 @@ class PartitionEngine(EngineBase):
                 self.pages[key].index_copy_(
                     1, rows_t, cache[key].index_select(1, src_t))
 
+    def _encdec_prefill(self) -> None:
+        """An enc-dec wave: the encoder and the cross K/V of one draw of
+        frames for every slot, into the engine's slab; the prompts are not
+        consumed (stub frontend), and no first token is emitted."""
+        frames = self._rng.standard_normal(
+            (self.slots, self.cfg.enc_seq, self.cfg.d_model),
+            dtype=np.float32)
+        if self.prefill_graphs is not None:
+            _, cache = self.prefill_graphs.encode(self.params, frames,
+                                                  self.max_len)
+        else:
+            _, cache = self.api.prefill(
+                self.params, self.api.prefill_batch(torch.as_tensor(
+                    frames, device=self.device)), max_len=self.max_len)
+        self._install_dense(cache)
+        self._wave_pos = 0
+        self._last_tok = np.ones((self.slots, 1), np.int32)
+
+    def _install_dense(self, cache) -> None:
+        """Make ``cache`` the engine's slab: at the first wave a copy of
+        its own (a prefill graph's output tensors are rewritten by its
+        next replay, this engine's or another's), at every later one
+        copied into that slab, which a captured decode step reads by
+        address."""
+        if self.cache is None:
+            self.cache = {k: t.clone() for k, t in cache.items()}
+        else:
+            for key, t in cache.items():
+                self.cache[key].copy_(t)
+
     def _run_prefill(self, wave: List[Request]):
+        if self.encdec:
+            self._encdec_prefill()
+            return None
         # seat lens before installing storage (base sets them after
         # _run_prefill returns, so mirror the assignment here first)
         for i, req in enumerate(wave):
@@ -828,16 +872,9 @@ class PartitionEngine(EngineBase):
         if self.paged:
             self._install_paged(cache, list(range(len(wave))))
             self.cache = None
-        elif self.cache is None:
-            # the engine owns its slab: a prefill graph's output tensors
-            # are rewritten by its next replay (this engine's or another's)
-            self.cache = {k: t.clone() for k, t in cache.items()}
         else:
-            # one slab for the engine's life: a captured decode step reads
-            # the addresses of the first wave's slab, so later waves are
-            # copied into it (a refill writes it in place as well)
-            for key, t in cache.items():
-                self.cache[key].copy_(t)
+            # one slab for the engine's life (a refill writes it in place)
+            self._install_dense(cache)
         first = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         last = np.ones((self.slots, 1), np.int32)
         last[:first.shape[0], 0] = first.reshape(-1)[:self.slots]
@@ -870,6 +907,9 @@ class PartitionEngine(EngineBase):
         (``.cpu()`` of a CPU tensor would be the tensor itself).  The last
         generated token is not shipped — it is ``req.tokens[-1]``
         and the importer rebuilds the ``_last_tok`` row from it."""
+        if self.encdec:
+            raise ValueError("KV handoff is not supported for enc-dec "
+                             "models (wave-shared decoder cache)")
         out: dict = {}
         if self.paged:
             if self.pages is not None:
@@ -899,6 +939,9 @@ class PartitionEngine(EngineBase):
         life, as ``_run_prefill`` does).  The slot then reaches the graph's
         next replay through its host-side lens, tables and ``_last_tok``,
         exactly as a refill does."""
+        if self.encdec:
+            raise ValueError("KV handoff is not supported for enc-dec "
+                             "models (wave-shared decoder cache)")
         if not req.tokens:
             raise ValueError(f"request {req.rid} imported before prefill "
                              "(no generated tokens to resume from)")
@@ -950,6 +993,10 @@ class PartitionEngine(EngineBase):
 
     # -- decode --------------------------------------------------------------
     def _device_lens(self) -> np.ndarray:
+        """Each slot's decode position: its length, 0 for an idle slot; for
+        enc-dec the wave's one position, the steps since its prefill."""
+        if self.encdec:
+            return np.full((self.slots,), self._wave_pos, np.int32)
         return np.array([l if r is not None else 0
                          for r, l in zip(self.active, self.slot_lens)],
                         np.int32)
@@ -1010,6 +1057,7 @@ class PartitionEngine(EngineBase):
         logits, toks = self.graph(
             self._last_tok, self._device_lens(),
             self._host_tables() if self.paged else None)
+        self._wave_pos += 1
         self._last_tok = toks.reshape(self.slots, 1).cpu().numpy()
         self.last_logits = logits.cpu().numpy()
         return self._last_tok[:, 0]
@@ -1033,10 +1081,14 @@ class PartitionEngine(EngineBase):
             cache = dict(self.cache)
             cache["len"] = lens
             logits, self.cache = self.api.decode(self.params, token, cache)
+        self._wave_pos += 1
         toks = torch.argmax(logits, dim=-1).to(torch.int32)
         self._last_tok = toks.reshape(self.slots, 1).cpu().numpy()
         self.last_logits = logits.reshape(self.slots, -1).cpu().numpy()
         return self._last_tok[:, 0]
+
+    def _supports_slot_refill(self) -> bool:
+        return not self.encdec and not self.wave_only
 
     def _sync_device(self) -> None:
         """Wait for the issued op's device work (the stop edge of a

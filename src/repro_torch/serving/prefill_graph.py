@@ -16,19 +16,25 @@ reads their addresses), the batch rows and padded prompt width of the
 token buffer, the cache length, and whether the prefill takes a ``lens``
 vector (a ragged wave) or not (a refill: one prompt, every row full; or
 one group of an SSM family's wave, every prompt of one length, padded to
-the slot width with zero prompts).  A cache serves one api (an engine refuses another's), so a VLM's image
+the slot width with zero prompts).  An enc-dec wave (``encode``) takes
+no tokens: its one input is the frames (rows, enc_seq, d) f32, which the
+encoder and each layer's cross K/V are computed from, so its width is
+enc_seq whatever the prompts' width and one entry serves every wave of
+a fleet (the serve CLI's jitted enc-dec ``prefill_fn`` in the reference,
+``src/repro/launch/serve.py:193-194``).  A cache serves one api (an engine refuses another's), so a VLM's image
 prefix, the zero patch embeddings ``ModelAPI.prefill_batch`` makes inside
 the step, has one width per cache and needs no place in the key.
 Each shape's entry is a ``CapturedOp`` (``serving/step_graph.py``, the
 lifecycle ``DecodeGraph`` has too), which owns
 
 * **inputs** — static device buffers ``tokens`` (rows, width) and, ragged,
-  ``lens`` (rows,), int32, beside pinned host staging buffers; each use
-  writes the staging buffers and issues one non-blocking ``copy_`` per
-  buffer;
+  ``lens`` (rows,), int32 (an enc-dec wave: ``frames`` f32), beside
+  pinned host staging buffers; each use writes the staging buffers and
+  issues one non-blocking ``copy_`` per buffer;
 * **outputs** — ``(logits (rows, V) f32, dense cache)`` in the graph's own
   tensors (the SSM families' cache holds their state and conv window
-  too), rewritten by the next replay of the entry.  The caller copies
+  too; an enc-dec wave's logits are None), rewritten by the next replay
+  of the entry.  The caller copies
   what it keeps (the engine installs the cache into its pool or slab at
   once, outside the graph, which is what lets engines with different
   pools share one graph).
@@ -53,6 +59,7 @@ from collections import Counter, OrderedDict
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.serving.step_graph import CapturedOp
 
@@ -104,8 +111,18 @@ class PrefillGraphs:
 
     def __call__(self, params, tokens: np.ndarray, max_len: int,
                  lens: Optional[np.ndarray] = None):
-        rows, width = tokens.shape
-        key = self.key(params, rows, width, max_len, lens is not None)
+        inputs = [tokens] + ([lens] if lens is not None else [])
+        return self._use(params, inputs, max_len, lens is not None)
+
+    def encode(self, params, frames: np.ndarray, max_len: int):
+        """An enc-dec api's wave: ``api.prefill`` of the frames ((rows,
+        enc_seq, d) f32 host array), returning ``(None, cache)``, keyed
+        (params, rows, enc_seq, max_len, False)."""
+        return self._use(params, [frames], max_len, False)
+
+    def _use(self, params, inputs, max_len: int, ragged: bool):
+        rows, width = inputs[0].shape[:2]
+        key = self.key(params, rows, width, max_len, ragged)
         self.uses[key] += 1
         op = self._entries.get(key)
         if op is None:
@@ -113,12 +130,11 @@ class PrefillGraphs:
                 self._entries.popitem(last=False)
                 self.n_evictions += 1
             op = self._entries[key] = self._new_op(
-                params, max_len, [(rows, width)] + ([(rows,)] if lens is
-                                                    not None else []))
+                params, max_len, [a.shape for a in inputs])
         else:
             self._entries.move_to_end(key)
         self.n_steady += op.warm
-        out = op(tokens, *([lens] if lens is not None else []))
+        out = op(*inputs)
         if op.last == "eager":
             self.n_eager += 1
         else:
@@ -131,6 +147,12 @@ class PrefillGraphs:
     def _new_op(self, params, max_len: int, shapes) -> CapturedOp:
         """One shape's entry; its step holds ``params``, which keeps
         ``id(params)`` in the key in use while the entry lives."""
+        if self.api.cfg.family == "encdec":
+            def encode(frames):
+                return self.api.prefill(params, self.api.prefill_batch(
+                    frames), max_len=max_len)
+            return self.op_type(encode, shapes, self.device, [torch.float32])
+
         def step(tokens, lens=None):
             return self.api.prefill(params, self.api.prefill_batch(tokens),
                                     max_len=max_len, lens=lens)

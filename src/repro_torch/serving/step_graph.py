@@ -64,11 +64,12 @@ WRAPPERS = (mm_ops.matmul, fa_ops.flash_attention, pa_ops.paged_decode,
 
 
 class CapturedOp:
-    """One op on static int32 device buffers: run eagerly at its first
-    call, captured as a CUDA graph at its second, replayed after that.
+    """One op on static device buffers: run eagerly at its first call,
+    captured as a CUDA graph at its second, replayed after that.
 
     ``step(*buffers)`` is the op on the static buffers, one of each of
-    ``shapes``, and returns its output tensors.  Calling the op with host
+    ``shapes``, int32 unless ``dtypes`` gives each buffer's dtype (an
+    enc-dec wave's frames are f32), and returns its output tensors.  Calling the op with host
     arrays, one a buffer, copies them in through pinned staging (one
     non-blocking ``copy_`` each), runs the step (eagerly the first time,
     captured the second, replayed after that; eagerly every time on the
@@ -78,15 +79,16 @@ class CapturedOp:
     and ``capture_s`` count its calls and time its capture.
     """
 
-    def __init__(self, step: Callable, shapes, device: torch.device):
+    def __init__(self, step: Callable, shapes, device: torch.device,
+                 dtypes=None):
         self._step = step
         self.device = device
         self.on_card = device.type == "cuda"
-        self.buffers = [torch.zeros(s, dtype=torch.int32, device=device)
-                        for s in shapes]
-        self._staging = [torch.zeros(s, dtype=torch.int32,
-                                     pin_memory=self.on_card)
-                         for s in shapes]
+        dtypes = dtypes or [torch.int32] * len(shapes)
+        self.buffers = [torch.zeros(s, dtype=dt, device=device)
+                        for s, dt in zip(shapes, dtypes, strict=True)]
+        self._staging = [torch.zeros(s, dtype=dt, pin_memory=self.on_card)
+                         for s, dt in zip(shapes, dtypes, strict=True)]
         self._copied = None     # the card's event after the last copy_ in
         self.graph = None
         self.out = None

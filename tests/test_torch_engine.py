@@ -11,13 +11,17 @@
   wall-clock throughput may differ).
 * The port's serve CLI completes every request on the CPU, with each
   bandwidth lever, with ``--dense``, with ``--cost-model measured``, with
-  ``--trace`` and as a ``--cluster`` of simulated workers; ``get_config``
-  refuses an unported architecture naming its ROADMAP.md items.
+  ``--trace`` and as a ``--cluster`` of simulated workers.
+* ``get_config`` resolves every architecture id and alias of the
+  reference's registry to the reference's config, field for field.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 
+from repro.configs import base as jbase
 from repro.configs import get_config as jget_config
 from repro.models import api as japi
 from repro.serving import EventScheduler as JEventScheduler
@@ -159,11 +163,11 @@ def test_serve_cli_refuses_unported_flags(flags, tmp_path, capsys):
         assert "lifecycle: " in out
 
 
-@pytest.mark.parametrize("arch", ["whisper-base"])
-def test_get_config_refusal_names_its_items(arch):
-    with pytest.raises(NotImplementedError,
-                       match=r"Queue 1 item 11 \(enc-dec: whisper-base\)"):
-        get_config(arch)
+@pytest.mark.parametrize("name", jbase.ARCH_IDS + sorted(jbase._ALIASES))
+def test_get_config_resolves_every_reference_name(name):
+    for smoke in (False, True):
+        assert dataclasses.asdict(get_config(name, smoke=smoke)) == \
+            dataclasses.asdict(jget_config(name, smoke=smoke))
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -9,7 +9,9 @@ port, held against the JAX package at the smoke sizes in fp32 (2e-4).
   2e-4 and the same argmax every step.
 * Every published config's shapes pass the kernels' limits and plans:
   the matmul routes, flash attention's and the decode kernels' head and
-  group limits, the decode split plan.
+  group limits, the decode split plan (whisper-base: its encoder's M = 4 x
+  1500 rows, the 51,865-column tied head, the bidirectional (1500, 8, 64)
+  attention and the cross attention's 1500-row walk at G = 1).
 * internvl2's ``PartitionEngine`` in lockstep with the reference's engine
   (zero patch embeddings, the prefix counted in every slot's length):
   identical tokens.
@@ -142,7 +144,8 @@ def test_prefill_and_decode_match_reference(arch, paged):
 # multiple of 8): the plan sends them to the CUDA cores, mm_skinny at a
 # decode step's M and mm_tiled at a prefill wave's
 CUDA_CORE_MATMULS = {"internvl2_26b": {"head"},
-                     "hymba_1p5b": {"ssm in_proj", "head"}}
+                     "hymba_1p5b": {"ssm in_proj", "head"},
+                     "whisper_base": {"head"}}
 
 
 def _matmuls(cfg):
@@ -167,7 +170,8 @@ def test_published_shapes_pass_the_kernel_plans(arch):
     cfg = get_config(arch)
     slow = CUDA_CORE_MATMULS.get(arch, set())
     prompt = 32 + (cfg.n_img_tokens or 0) + (cfg.n_meta_tokens or 0)
-    for M in (4, 4 * prompt):
+    # an enc-dec wave runs the encoder and the cross K/V on its frames
+    for M in (4, 4 * prompt) + ((4 * cfg.enc_seq,) if cfg.enc_seq else ()):
         for name, K, N in _matmuls(cfg):
             p = mm_plan.plan(M, N, K, bf16=True, n_sm=132,
                              is_aligned=mm_plan.aligned(N, K, 0, 0))
@@ -186,7 +190,8 @@ def test_published_shapes_pass_the_kernel_plans(arch):
     assert Hq % Hkv == 0 and hd % 8 == 0
     assert hd <= fa_k.MAX_D and G <= fa_k.MAX_GROUP
     assert hd <= pa_k.MAX_D and G <= pa_k.MAX_GROUP
-    for walk in (48 + prompt, 4096):
+    for walk in (48 + prompt, 4096) + ((cfg.enc_seq,) if cfg.enc_seq
+                                       else ()):
         assert 1 <= decode_split.plan(4, Hkv, walk, 132) <= -(-walk // 32)
 
 
