@@ -15,6 +15,7 @@ H100_PEAK_FLOPS = 989e12       # dense bf16 tensor-core FLOP/s
 H100_HBM_BW = 3.35e12          # HBM3 bytes/s
 H100_HBM_GB = 80.0
 H100_FP32_FLOPS = 67e12        # float32 FLOP/s outside the tensor cores
+H100_NVLINK_BW = 900e9         # NVLink 4 bytes/s to the host's other cards
 
 # --- The paper's Intel Knights Landing (Xeon Phi 7210) ---
 # Published figures of the paper's evaluation platform, NOT of the H100

@@ -29,8 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "flash_attention", "paged_attention",
-           "flash_decode", "conv2d")
+SOURCES = ("matmul", "flash_attention", "flash_attention_bwd",
+           "paged_attention", "flash_decode", "conv2d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -47,6 +47,12 @@
 // scoring one key of a 32-key tile with a D-long dot from shared memory.
 // Next redesign: wgmma on 64-row warpgroup tiles with K/V brought in by TMA
 // and a producer warp (warp specialisation), as FA3 does.
+// Training: with a non-null ``lse`` both kernels also write each row's
+// log-sum-exp of its scaled scores, m + log(max(l, 1e-30)) in natural
+// units, f32, (B, Sq, Hq): the statistic the backward kernels
+// (flash_attention_bwd.cu) rebuild the softmax weights from.  The store is
+// a template flag (LSE), so serving's calls (null) run instances compiled
+// exactly as they were before it existed.
 #include "common.cuh"
 
 namespace {
@@ -62,11 +68,13 @@ constexpr int WARPS = 4;
 constexpr int RPW = 4;                 // rows (query position x head) per warp
 constexpr int ROWS = WARPS * RPW;      // rows per CTA: BQ * G <= ROWS
 
-template <typename T, int DPL>         // DPL = ceil(D / 32): row elements per lane
+// DPL = ceil(D / 32): row elements per lane; LSE: write each row's LSE
+template <typename T, int DPL, bool LSE>
 __global__ void __launch_bounds__(WARPS * 32)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv, int Hq,
-          int Hkv, int D, int BQ, int window, int causal, float scale) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          int Sq, int Skv, int Hq, int Hkv, int D, int BQ, int window,
+          int causal, float scale) {
   extern __shared__ float smem[];
   const int DP = D + 1;                // padded rows: lanes read distinct banks
   float* qs = smem;                    // [ROWS][DP]
@@ -158,7 +166,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r / G;
     if (r >= R || qi >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = o + (((size_t)b * Sq + qi) * Hq + h * G + r % G) * D;
+    const size_t row = ((size_t)b * Sq + qi) * Hq + h * G + r % G;
+    T* orow = o + row * D;
+    if (LSE && lane == 0) lse[row] = m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int e = 0; e < DPL; ++e) {
       const int d = lane + 32 * e;
@@ -167,31 +177,35 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DPL>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int Hq, int Hkv, int D, int window, int causal,
-           cudaStream_t stream) {
+template <typename T, int DPL, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int Hq, int Hkv, int D, int window,
+           int causal, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int BQ = ROWS / G;
   const size_t smem = sizeof(float) * ((size_t)ROWS * (D + 1) + (size_t)BK * (D + 1) +
                                        (size_t)BK * D);
   dim3 grid((Sq + BQ - 1) / BQ, Hkv, B);
-  fa_kernel<T, DPL><<<grid, WARPS * 32, smem, stream>>>(
+  fa_kernel<T, DPL, LSE><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, D, BQ,
-      window, causal, 1.f / sqrtf((float)D));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, Hq, Hkv, D,
+      BQ, window, causal, 1.f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int Hq, int Hkv, int D, int window,
-               int causal, cudaStream_t s) {
-  if (D <= 32)
-    return launch<T, 1>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
-  if (D <= 64)
-    return launch<T, 2>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
-  return launch<T, 4>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+               int window, int causal, cudaStream_t s) {
+#define FA_F32(DPL)                                                         \
+  return lse ? launch<T, DPL, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, \
+                                    window, causal, s)                       \
+             : launch<T, DPL, false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv,   \
+                                     D, window, causal, s)
+  if (D <= 32) FA_F32(1);
+  if (D <= 64) FA_F32(2);
+  FA_F32(4);
+#undef FA_F32
 }
 
 // ---------------------------------------------------------------------------
@@ -203,6 +217,7 @@ constexpr int TC_WARPS = 4;
 constexpr int TC_ROWS = TC_WARPS * 16;   // flattened query rows per CTA
 constexpr int TC_BK = 64;                // keys per tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DPAD>
 struct TcSmem {
@@ -212,13 +227,14 @@ struct TcSmem {
       sizeof(bf16) * ((size_t)TC_ROWS * STRIDE + 4 * (size_t)TILE);
 };
 
-// grid (row tiles, Hkv, B), TC_WARPS * 32 threads; DPAD = D rounded up to 32
-template <int DPAD>
+// grid (row tiles, Hkv, B), TC_WARPS * 32 threads; DPAD = D rounded up to
+// 32; LSE: write each row's LSE
+template <int DPAD, bool LSE>
 __global__ void __launch_bounds__(TC_WARPS * 32)
 fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-              int Skv, int Hq, int Hkv, int D, int window, int causal,
-              float scale_log2) {
+              const bf16* __restrict__ v, bf16* __restrict__ o,
+              float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+              int D, int window, int causal, float scale_log2) {
   constexpr int S = TcSmem<DPAD>::STRIDE;
   constexpr int CH = DPAD / 8;       // 16-byte chunks of a padded row
   constexpr int KSTEPS = DPAD / 16;  // k-steps of Q K^T
@@ -399,8 +415,14 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   const int ra = r0 + wr + g, rb = ra + 8;
-  bf16* oa = o + (((size_t)b * Sq + ra / G) * Hq + h * G + ra % G) * D;
-  bf16* ob = o + (((size_t)b * Sq + rb / G) * Hq + h * G + rb % G) * D;
+  const size_t row_a = ((size_t)b * Sq + ra / G) * Hq + h * G + ra % G;
+  const size_t row_b = ((size_t)b * Sq + rb / G) * Hq + h * G + rb % G;
+  bf16* oa = o + row_a * D;
+  bf16* ob = o + row_b * D;
+  if (LSE && t4 == 0) {   // m is in log2 units: m ln 2 + log l
+    if (ra < R) lse[row_a] = m0 * LN2 + logf(fmaxf(l0, 1e-30f));
+    if (rb < R) lse[row_b] = m1 * LN2 + logf(fmaxf(l1, 1e-30f));
+  }
 #pragma unroll
   for (int n = 0; n < DT; ++n) {
     const int col = n * 8 + 2 * t4;
@@ -414,38 +436,41 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DPAD>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int Hq, int Hkv, int D, int window, int causal,
-               cudaStream_t stream) {
+template <int DPAD, bool LSE>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+               int window, int causal, cudaStream_t stream) {
   constexpr size_t smem = TcSmem<DPAD>::BYTES;
   static bool smem_set = false;   // above 48 KB needs an opt-in, once
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fa_mma_kernel<DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa_mma_kernel<DPAD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const int rows = Sq * (Hq / Hkv);
   dim3 grid((rows + TC_ROWS - 1) / TC_ROWS, Hkv, B);
-  fa_mma_kernel<DPAD><<<grid, TC_WARPS * 32, smem, stream>>>(
+  fa_mma_kernel<DPAD, LSE><<<grid, TC_WARPS * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, Hq, Hkv, D,
-      window, causal, LOG2E / sqrtf((float)D));
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Skv, Hq,
+      Hkv, D, window, causal, LOG2E / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Skv, int Hq, int Hkv, int D, int window,
-                 int causal, cudaStream_t s) {
-  if (D <= 32)
-    return launch_mma<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
-  if (D <= 64)
-    return launch_mma<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
-  if (D <= 96)
-    return launch_mma<96>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
-  return launch_mma<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window, causal, s);
+int dispatch_mma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                 int window, int causal, cudaStream_t s) {
+#define FA_MMA(DPAD)                                                        \
+  return lse ? launch_mma<DPAD, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv,  \
+                                      D, window, causal, s)                  \
+             : launch_mma<DPAD, false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, \
+                                       D, window, causal, s)
+  if (D <= 32) FA_MMA(32);
+  if (D <= 64) FA_MMA(64);
+  if (D <= 96) FA_MMA(96);
+  FA_MMA(128);
+#undef FA_MMA
 }
 
 }  // namespace
@@ -453,16 +478,19 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B,
 // Limits checked by the Python wrapper: D <= 128, Hq % Hkv == 0,
 // Hq / Hkv <= 16; bf16 also D % 8 == 0 and 16-byte aligned pointers.
 // window <= 0 means no window; causal != 0 masks the keys past each
-// query's position.  bf16 runs fa_mma_kernel, f32 fa_kernel.
+// query's position.  bf16 runs fa_mma_kernel, f32 fa_kernel.  lse: null,
+// or f32 (B, Sq, Hq) for each row's log-sum-exp (training).
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
-                         int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                         int window, int causal, int dtype, void* stream) {
+                         void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                         int D, int window, int causal, int dtype,
+                         void* stream) {
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 128 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32)
-    return dispatch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window,
-                             causal != 0, s);
+    return dispatch_d<float>(q, k, v, o, lse_f, B, Sq, Skv, Hq, Hkv, D,
+                             window, causal != 0, s);
   if (dtype == DT_BF16) {
     const uintptr_t bits = reinterpret_cast<uintptr_t>(q) |
                            reinterpret_cast<uintptr_t>(k) |
@@ -470,7 +498,7 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
                            reinterpret_cast<uintptr_t>(o);
     if (D % 8 != 0 || (bits & 15) != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_mma(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, window,
+    return dispatch_mma(q, k, v, o, lse_f, B, Sq, Skv, Hq, Hkv, D, window,
                         causal != 0, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

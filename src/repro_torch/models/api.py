@@ -3,6 +3,8 @@ VLM, SSM and hybrid) and the enc-dec family (whisper).
 
 ``build(cfg, device)`` returns a ``ModelAPI`` bound to one device:
   init(generator)                        -> params
+  loss(params, batch)                    -> (loss, metrics)   (training)
+  forward(params, batch)                 -> (logits f32, aux)
   prefill_batch(tokens)                  -> prefill batch of a (B, S)
                                             token tensor
   prefill(params, batch, max_len, lens)  -> (logits, cache)
@@ -18,8 +20,11 @@ The port's counterpart of ``repro.models.api._build_lm`` and
 stubbed frontend's frame embeddings (B, enc_seq, d), its ``prefill``
 returns ``(None, cache)`` (the encoder and each layer's cross K/V), ``decode_paged`` is None
 and ``init_cache`` returns None (the cache is built from the frames), as
-in the reference.  The loss, forward and the shape-spec helpers wait for
-their slices (ROADMAP.md, Queue 1 items 13 and 15).
+in the reference.  ``loss`` and ``forward`` take a training batch of
+tensors (``tokens``, ``labels``, a VLM's ``img_embeds``, an enc-dec's
+``enc_embeds``).  The shape-spec helpers (``input_specs``,
+``cache_specs``) are ``jax.ShapeDtypeStruct`` tooling and wait for their
+slice (ROADMAP.md, Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -40,6 +45,8 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    loss: Callable
+    forward: Callable
     prefill_batch: Callable
     prefill: Callable
     decode: Callable
@@ -58,6 +65,12 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
 
     def init(generator: torch.Generator):
         return TF.init_lm(cfg, generator, device)
+
+    def loss(params, batch):
+        return TF.loss_fn(params, cfg, batch)
+
+    def forward(params, batch):
+        return TF.forward_lm(params, cfg, batch)
 
     def prefill_batch(tokens):
         """``{"tokens": tokens}``, and for a VLM the serving engine's
@@ -83,8 +96,8 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def init_cache(batch, max_len):
         return TF.init_cache(cfg, batch, max_len, device=device)
 
-    return ModelAPI(cfg, device, init, prefill_batch, prefill, decode,
-                    decode_paged, init_cache)
+    return ModelAPI(cfg, device, init, loss, forward, prefill_batch,
+                    prefill, decode, decode_paged, init_cache)
 
 
 def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
@@ -92,6 +105,12 @@ def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
 
     def init(generator: torch.Generator):
         return ED.init_encdec(cfg, generator, device, max_dec_len=cfg.max_seq)
+
+    def loss(params, batch):
+        return ED.loss_encdec(params, cfg, batch)
+
+    def forward(params, batch):
+        return ED.forward_encdec(params, cfg, batch)
 
     def prefill_batch(frames):
         """``{"enc_embeds": frames}``: the frames (B, enc_seq, d) f32 stand
@@ -112,5 +131,5 @@ def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def init_cache(batch, max_len):
         return None     # an enc-dec cache is built from the frames: prefill
 
-    return ModelAPI(cfg, device, init, prefill_batch, prefill, decode, None,
-                    init_cache)
+    return ModelAPI(cfg, device, init, loss, forward, prefill_batch, prefill,
+                    decode, None, init_cache)

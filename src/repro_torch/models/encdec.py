@@ -23,6 +23,7 @@ sinusoids(length, channels)                   -> np.ndarray (f32)
 init_encdec(cfg, generator, device, max_dec_len=0) -> params
 encode(params, cfg, enc_embeds)               -> (B, T, d)
 forward_encdec(params, cfg, batch)            -> (logits f32, aux 0)
+loss_encdec(params, cfg, batch)               -> (loss, {"loss": loss})
 init_encdec_cache(params, cfg, enc_out, max_len) -> cache
 decode_step_encdec(params, cfg, token, cache) -> (logits (B, 1, V) f32,
                                                   cache)
@@ -34,6 +35,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -41,7 +43,7 @@ from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.matmul.ops import matmul
 
 from . import layers as L
-from .transformer import _dtype, _head, _layer
+from .transformer import _dtype, _head, _layer, unbind_layers
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -139,8 +141,7 @@ def encode(params, cfg, enc_embeds):
     pos = _sinusoid_table(enc_embeds.shape[1], cfg.d_model,
                           enc_embeds.device, dt)
     x = enc_embeds + pos[None]
-    for li in range(cfg.enc_layers):
-        bp = _layer(params["enc_blocks"], li)
+    for bp in unbind_layers(params["enc_blocks"])[:cfg.enc_layers]:
         h = _ln(x, bp["ln1"], cfg.norm_eps)
         x = x + _mha(bp["attn"], cfg, h, h, causal=False)[0]
         h = _ln(x, bp["ln2"], cfg.norm_eps)
@@ -156,23 +157,48 @@ def encode(params, cfg, enc_embeds):
 def forward_encdec(params, cfg, batch):
     """batch: ``enc_embeds`` (B, T, d), ``tokens`` (B, S).  Returns (logits
     (B, S, V) f32, aux 0): the teacher-forced decoder, causal self
-    attention and bidirectional cross attention to the encoder."""
+    attention and bidirectional cross attention to the encoder.  Unless
+    ``cfg.remat == "none"`` each decoder block is recomputed in the
+    backward, as the reference checkpoints its decoder scan body."""
     enc_out = encode(params, cfg, batch["enc_embeds"].to(_dtype(cfg)))
     tokens = batch["tokens"].long()
     B, S = tokens.shape
     x = params["embed"][tokens] + params["pos_dec"][None, :S]
-    for li in range(cfg.n_layers):
-        bp = _layer(params["dec_blocks"], li)
+
+    def body(bp, x, enc_out):
         h = _ln(x, bp["ln1"], cfg.norm_eps)
         x = x + _mha(bp["self_attn"], cfg, h, h, causal=True)[0]
         h = _ln(x, bp["ln2"], cfg.norm_eps)
         x = x + _mha(bp["cross_attn"], cfg, h, enc_out, causal=False)[0]
         h = _ln(x, bp["ln3"], cfg.norm_eps)
-        x = x + L.mlp_block(bp["mlp"], h, "gelu")
+        return x + L.mlp_block(bp["mlp"], h, "gelu")
+
+    for bp in unbind_layers(params["dec_blocks"])[:cfg.n_layers]:
+        if cfg.remat == "none":
+            x = body(bp, x, enc_out)
+        else:
+            x = checkpoint(body, bp, x, enc_out, use_reentrant=False,
+                           preserve_rng_state=False)
     x = _ln(x, params["ln_dec"], cfg.norm_eps)
     logits = matmul(x.reshape(B * S, -1).contiguous(), _head(params, cfg))
     return logits.float().reshape(B, S, -1), torch.zeros(
         (), dtype=torch.float32, device=x.device)
+
+
+def loss_encdec(params, cfg, batch):
+    """Teacher-forced cross entropy over ``forward_encdec``'s logits.
+    ``batch``: enc_embeds, tokens, labels[, mask].  Returns (loss,
+    {"loss": loss})."""
+    logits, _ = forward_encdec(params, cfg, batch)
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    loss = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"loss": loss}
 
 
 # ---------------------------------------------------------------------------

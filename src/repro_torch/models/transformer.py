@@ -12,9 +12,19 @@ normed input and takes their mean) and an MLP or MoE FFN (neither for
 SSM).  The SSM state and conv window are per-slot cache tensors beside
 the KV cache or pool, updated in place each decode step.
 
+Training runs the full sequence once: ``forward_hidden`` loops over the
+layers of a stack unbound once per call (``unbind(0)``, whose backward
+stacks each parameter's gradient once), each block under
+``torch.utils.checkpoint`` when ``cfg.remat == "full"`` (the reference's
+``jax.checkpoint``), and ``loss_fn`` takes the cross entropy chunk by chunk
+(``chunked_ce``).  Gradients reach the matmul and flash-attention kernels
+through their wrappers' autograd Functions.
+
 Public entry points
 -------------------
 init_lm(cfg, generator, device)                -> params
+forward_lm(params, cfg, batch)                 -> (logits f32, aux)
+loss_fn(params, cfg, batch)                    -> (loss, metrics)
 init_cache(cfg, batch, max_len, device=...)    -> dense cache dict
 prefill(params, cfg, batch, max_len, lens)     -> (logits_last, cache)
 decode_step(params, cfg, token, cache)         -> (logits, cache)
@@ -26,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.kernels.matmul.ops import matmul
@@ -120,6 +131,158 @@ def init_lm(cfg, generator: torch.Generator, device=DEFAULT_DEVICE):
                                       dtype=torch.float32, device=dev)
                           * 0.02).to(dt)
     return params
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward and the loss (training)
+# ---------------------------------------------------------------------------
+
+
+def unbind_layers(tree):
+    """A layer-stacked parameter tree -> a list of per-layer trees, by one
+    ``unbind(0)`` per tensor (indexing ``v[i]`` layer by layer would give
+    each index its own full-size zero gradient of the stack)."""
+    flat = {}
+
+    def walk(t, path):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                flat[path + (k,)] = v.unbind(0)
+
+    walk(tree, ())
+    n = len(next(iter(flat.values())))
+    layers = []
+    for i in range(n):
+        layer = {}
+        for path, parts in flat.items():
+            node = layer
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = parts[i]
+        layers.append(layer)
+    return layers
+
+
+def apply_block(bp, cfg, x, window: int, positions):
+    """One block on a full sequence.  Returns (x, aux): the MoE FFN's load
+    balance loss, 0 for every other block."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    a_out = s_out = None
+    if has_attn(cfg):
+        a_out, _ = L.attention_block(bp["attn"], cfg, h, window=window,
+                                     positions=positions)
+    if has_ssm(cfg):
+        s_out, _ = SSM.ssm_block(bp["ssm"], cfg, h)
+    x = x + _mix(a_out, s_out)
+    if "moe" in bp:
+        h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        m_out, aux = MOE.moe_block(bp["moe"], cfg, h)
+        x = x + m_out
+    elif "mlp" in bp:
+        h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        x = x + L.mlp_block(bp["mlp"], h, cfg.act)
+    return x, aux
+
+
+def _remat(cfg, fn):
+    """``cfg.remat``: "full" recomputes each block in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``; the
+    forward kernels run twice), "none" keeps its activations.  The
+    reference's "dots" is a JAX checkpoint policy (save the matmul outputs)
+    that no config uses and PyTorch has no counterpart of: it raises."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise ValueError(
+            "remat='dots' is JAX's dots_with_no_batch_dims_saveable policy; "
+            "the port has no counterpart (no config uses it): use 'full' or "
+            "'none'")
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run
+
+
+def forward_hidden(params, cfg, batch):
+    """Full-sequence forward up to the final norm.  ``batch``: ``tokens``
+    (B, S_text) and, for a VLM, ``img_embeds``.  Returns (hidden (B, S_text,
+    d), aux averaged over the layers)."""
+    _check_family(cfg)
+    x, n_prefix = _embed_input(params, cfg, batch)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    windows = layer_windows(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(bp, x, li):
+        return apply_block(bp, cfg, x, int(windows[li]), positions)
+
+    run = _remat(cfg, body)
+    for li, bp in enumerate(unbind_layers(params["blocks"])[:cfg.n_layers]):
+        x, a = run(bp, x, li)
+        aux = aux + a
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    return x, aux / cfg.n_layers
+
+
+def forward_lm(params, cfg, batch):
+    """Full-sequence forward.  Returns (logits (B, S_text, V) f32, aux)."""
+    x, aux = forward_hidden(params, cfg, batch)
+    B, S, d = x.shape
+    logits = matmul(x.reshape(B * S, d).contiguous(), _head(params, cfg))
+    return logits.float().reshape(B, S, -1), aux
+
+
+def _ce_chunk(xc, head, lc, mc):
+    """One chunk's summed masked cross entropy: xc (B, c, d)."""
+    B, c, d = xc.shape
+    logits = matmul(xc.reshape(B * c, d).contiguous(), head).float()
+    logits = logits.reshape(B, c, -1)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return ((logz - gold) * mc).sum()
+
+
+def chunked_ce(x, head, labels, mask, chunk: int = 512):
+    """Cross entropy without materializing (B, S, V) logits: the sequence
+    in chunks of c = min(chunk, S), lowered until it divides S, each
+    chunk's logits recomputed in the backward (the reference's checkpointed
+    scan body), the chunk sums added in order.  Returns the f32 sum."""
+    B, S, d = x.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_ce_chunk, x[:, sl], head, labels[:, sl],
+                                   mask[:, sl], use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total
+
+
+def loss_fn(params, cfg, batch, *, loss_chunk: int = 256):
+    """Causal-LM cross entropy (+ the MoE aux term).  ``batch``: tokens,
+    labels[, mask].  Returns (total, {"loss", "aux"})."""
+    x, aux = forward_hidden(params, cfg, batch)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    nll = chunked_ce(x, _head(params, cfg), labels, mask, loss_chunk)
+    loss = nll / torch.clamp(mask.sum(), min=1.0)
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
