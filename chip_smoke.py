@@ -111,8 +111,10 @@ Phases (each raises on failure; nothing is caught):
    whisper's encoder and cross shapes in both dtypes: the forward's
    output by the rule above, its LSE and dQ, dK, dV within 3e-2 / 2e-4 x
    (rms + |plain|) of the plain version run in f32 on the same inputs,
-   each backward bit for bit on a second launch; timed at the training
-   shape beside the plain version, SDPA's forward + backward and the
+   each backward bit for bit on a second launch (bf16 on the tensor
+   cores, f32 on the CUDA cores); timed, the three kernels together and
+   each alone, at the training shape and at whisper's encoder and cross
+   shapes beside the plain version, SDPA's forward + backward and the
    operations bound (2.5x the forward's FLOPs).  Then the matmul's
    training products (each projection's forward and two backward products
    at M = 4096, the loss chunk's head product and its two), each against
@@ -4190,7 +4192,9 @@ def phase_train_kernels(torch, cfg):
     and fp32; then the matmul's training products (every projection's
     forward at M = 4096 tokens and its two backward products, the loss
     chunk's head product and its two) against ``ref.matmul``.  Each is
-    timed beside its plain version, the library's call and its bound."""
+    timed beside its plain version, the library's call and its bound: the
+    backward at the training shape and at whisper's two, its three kernels
+    together and each alone."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -4289,55 +4293,77 @@ def phase_train_kernels(torch, cfg):
         f"edges, both dtypes), each bit for bit on a second launch; worst "
         f"max abs errors {worst}")
 
-    # timings at the training shape: the backward (3 kernels) beside its
-    # plain version (autograd through ref.attention, the forward included)
-    # and SDPA's forward + backward with K/V expanded to the query heads
-    B, S = 1, TRAIN_SEQ
-    q, k, v, do = (rnd((B, S, Hq, hd), torch.bfloat16),
-                   rnd((B, S, Hkv, hd), torch.bfloat16),
-                   rnd((B, S, Hkv, hd), torch.bfloat16),
-                   rnd((B, S, Hq, hd), torch.bfloat16))
-    o, lse = fa.flash_attention_cuda(q, k, v, lse=True)
-    t_bwd = time_ms(torch, lambda i: fa.flash_attention_bwd_cuda(
-        q, k, v, lse, do), 1, 10)
-    t_fwd = time_ms(torch, lambda i: fa.flash_attention_cuda(
-        q, k, v, lse=True), 1, 10)
-    t_plain = time_ms(torch, lambda i: fa_ref.attention_backward(
-        q, k, v, do), 1, 3)
-    G = Hq // Hkv
+    # timings: the backward (its 3 launches together and each alone)
+    # beside its plain version (autograd through ref.attention, the forward
+    # included) and SDPA's forward + backward with K/V expanded to the query
+    # heads, at the training shape and at whisper's encoder and cross
+    # attention (bidirectional)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
-        .requires_grad_(True)
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
-        .requires_grad_(True)
-    dot = do.transpose(1, 2).contiguous()
 
-    def library(i):
-        with torch.enable_grad():
-            out = sdpa(qt, kt, vt, is_causal=True)
-            return torch.autograd.grad(out, (qt, kt, vt), dot)
+    def bwd_timed(tag, B, Sq, Skv, hq, hkv, D, causal):
+        q, k, v, do = (rnd((B, Sq, hq, D), torch.bfloat16),
+                       rnd((B, Skv, hkv, D), torch.bfloat16),
+                       rnd((B, Skv, hkv, D), torch.bfloat16),
+                       rnd((B, Sq, hq, D), torch.bfloat16))
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, lse=True)
+        t_bwd = time_ms(torch, lambda i: fa.flash_attention_bwd_cuda(
+            q, k, v, lse, do, causal=causal), 1, 10)
+        _, launches = fa.flash_attention_bwd_launches(q, k, v, lse, do,
+                                                      causal=causal)
+        # in launch order: each kernel's inputs are written by the one
+        # before (time_ms runs each once before it times it)
+        per = {name: time_ms(torch, lambda i, run=run: run(), 1, 10)
+               for name, run in launches.items()}
+        t_plain = time_ms(torch, lambda i: fa_ref.attention_backward(
+            q, k, v, do, causal=causal), 1, 3)
+        G = hq // hkv
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
+            .requires_grad_(True)
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
+            .requires_grad_(True)
+        dot = do.transpose(1, 2).contiguous()
 
-    t_lib = time_ms(torch, library, 1, 10)
-    fwd_flops = 4 * B * Hq * hd * S * (S + 1) / 2
-    bwd_bytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    b_ms, by = bound(bwd_bytes, 2.5 * fwd_flops, H100_BF16)
-    f_ms, fby = bound(2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(),
-                      fwd_flops, H100_BF16)
-    log(f"  flash_attention backward bf16 (1,{S},{Hq},{hd}) causal: "
-        f"kernel_ms {t_bwd:.4f} ({2.5 * fwd_flops / t_bwd / 1e9:.1f} TFLOP/s "
-        f"at 2.5x the forward's FLOPs) plain_ms {t_plain:.4f} library_ms "
-        f"{t_lib:.4f} (SDPA forward + backward, K/V expanded) bound_ms "
-        f"{b_ms:.4f} ({by}); the forward with LSE {t_fwd:.4f} ms (bound "
-        f"{f_ms:.4f}, {fby})")
-    bwd_stats = dict(
-        shape=f"q (1,{S},{Hq},{hd}), k/v (1,{S},{Hkv},{hd}), causal, bf16",
+        def library(i):
+            with torch.enable_grad():
+                out = sdpa(qt, kt, vt, is_causal=causal)
+                return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        t_lib = time_ms(torch, library, 1, 10)
+        pairs = Sq * (Sq + 1) / 2 if causal and Sq == Skv else Sq * Skv
+        fwd_flops = 4 * B * hq * D * pairs
+        b_ms, by = bound(2 * (3 * q.numel() + 4 * k.numel())
+                         + 4 * lse.numel(), 2.5 * fwd_flops, H100_BF16)
+        r = dict(shape=f"q ({B},{Sq},{hq},{D}), k/v ({B},{Skv},{hkv},{D}), "
+                       f"{'causal' if causal else 'bidirectional'}, bf16",
+                 ms=t_bwd, kernel_ms=per, plain_ms=t_plain, library_ms=t_lib,
+                 bound_ms=b_ms, bound_by=by,
+                 tflops=2.5 * fwd_flops / t_bwd / 1e9)
+        by_kernel = ", ".join(f"{n} {t:.4f}" for n, t in per.items())
+        log(f"  flash_attention backward {tag} {r['shape']}: kernel_ms "
+            f"{t_bwd:.4f} ({r['tflops']:.1f} TFLOP/s at 2.5x the forward's "
+            f"FLOPs; by kernel {by_kernel}) plain_ms {t_plain:.4f} "
+            f"library_ms {t_lib:.4f} (SDPA forward + backward, K/V "
+            f"expanded) bound_ms {b_ms:.4f} ({by})")
+        if tag == "train":
+            t_fwd = time_ms(torch, lambda i: fa.flash_attention_cuda(
+                q, k, v, causal=causal, lse=True), 1, 10)
+            f_ms, fby = bound(2 * (2 * q.numel() + 2 * k.numel())
+                              + 4 * lse.numel(), fwd_flops, H100_BF16)
+            log(f"  the forward with LSE {t_fwd:.4f} ms (bound {f_ms:.4f}, "
+                f"{fby})")
+            r.update(forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms)
+        del q, k, v, do, o, lse, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+        return r
+
+    bwd_stats = bwd_timed("train", 1, TRAIN_SEQ, TRAIN_SEQ, Hq, Hkv, hd, True)
+    bwd_stats.update(
         max_abs_err=max(main_err[k] for k in ("dq", "dk", "dv")),
-        errs=main_err, worst=worst,
-        shapes=len(shapes) + 1, ms=t_bwd, plain_ms=t_plain,
-        library_ms=t_lib, bound_ms=b_ms, bound_by=by,
-        forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms)
-    del q, k, v, do, o, lse, qt, kt, vt, dot
+        errs=main_err, worst=worst, shapes=len(shapes) + 1,
+        whisper={tag: bwd_timed(tag, *shape) for tag, shape in (
+            ("encoder", (4, 1500, 1500, 8, 8, 64, False)),
+            ("cross", (4, 32, 1500, 8, 8, 64, False)))})
 
     # the matmul's training products at M = 4096 tokens (a microbatch)
     d, kv, ff, V = cfg.d_model, Hkv * hd, cfg.d_ff, cfg.vocab
@@ -4997,7 +5023,7 @@ def main() -> None:
     # the fourteenth slice's training shapes (phase 1 [train])
     stats["flash_attention_backward"] = dict(
         train_stats["flash_attention_backward"],
-        kernels=["fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq"])
+        kernels=list(fa_ops.BWD_KERNELS))
     stats["matmul"]["train"] = train_stats["matmul_train"]
     bwd = train_stats["flash_attention_backward"]
     stats["flash_attention"]["train"] = dict(
@@ -5044,7 +5070,7 @@ def main() -> None:
                             "bf16_route_ms", "bf16_route_bound_ms", "modes",
                             "bidirectional", "train", "kernels", "errs",
                             "worst", "shapes", "forward_lse_ms",
-                            "forward_lse_bound_ms")
+                            "forward_lse_bound_ms", "kernel_ms", "whisper")
                            if key in s},
                         **({"routes_by_run": {
                             run: r["routes"] for run, r in runs.items()

@@ -15,7 +15,8 @@ chunks of a row).
 Training: ``lse=True`` also returns each row's log-sum-exp (B, Sq, Hq) f32,
 and ``flash_attention_bwd_cuda`` launches the three backward kernels of
 ``kernels/csrc/flash_attention_bwd.cu`` (Delta = rowsum(P dP), dK / dV,
-dQ) under the same limits.
+dQ) under the same limits: bf16 on the tensor cores (``mma.sync``), f32 on
+the CUDA cores.
 """
 from __future__ import annotations
 
@@ -88,12 +89,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     return (o, stat) if lse else o
 
 
-def flash_attention_bwd_cuda(q, k, v, lse, do, *, causal: bool = True,
-                             window: int = 0):
-    """dQ, dK, dV of ``flash_attention_cuda(q, k, v)`` given its
-    log-sum-exp ``lse`` (B, Sq, Hq) f32 and the output's gradient ``do``:
-    three launches (Delta = rowsum(P o dP), then dK / dV, then dQ), each
-    output in the input dtype.  All CUDA and contiguous."""
+def flash_attention_bwd_launches(q, k, v, lse, do, *, causal: bool = True,
+                                 window: int = 0, lib=None):
+    """The backward's outputs (dQ, dK, dV, allocated, not yet written) and
+    its three launches in order, ``{kernel name: launch}`` (each launch a
+    function of no arguments that raises on a CUDA error): Delta =
+    rowsum(P o dP) into a (B, Sq, Hq) f32 scratch, then dK / dV, then dQ.
+    ``flash_attention_bwd_cuda`` runs them; a timing script runs each
+    alone.  ``lib``: a library with the entry points of BWD_SIGNATURES
+    (another build of the source, for an A/B); by default this one's."""
     _check(q, k, v)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -111,12 +115,30 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, causal: bool = True,
              _build.dtype_code(q), _build.stream_of(q))
     qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr())
-    lib = _build.load("flash_attention_bwd", BWD_SIGNATURES)
-    err = lib.fa_bwd_delta_launch(*qkv, delta.data_ptr(), *shape)
-    _build.check(lib, err, "fa_bwd_delta_launch")
-    err = lib.fa_bwd_dkdv_launch(*qkv, delta.data_ptr(), dk.data_ptr(),
-                                 dv.data_ptr(), *shape)
-    _build.check(lib, err, "fa_bwd_dkdv_launch")
-    err = lib.fa_bwd_dq_launch(*qkv, delta.data_ptr(), dq.data_ptr(), *shape)
-    _build.check(lib, err, "fa_bwd_dq_launch")
-    return dq, dk, dv
+    if lib is None:
+        lib = _build.load("flash_attention_bwd", BWD_SIGNATURES)
+    writes = {"fa_bwd_delta": (delta,), "fa_bwd_dkdv": (delta, dk, dv),
+              "fa_bwd_dq": (delta, dq)}
+
+    def launch(name):
+        fn, outs = getattr(lib, f"{name}_launch"), writes[name]
+
+        def run():    # holds its tensors (the Delta scratch among them)
+            err = fn(*qkv, *(t.data_ptr() for t in outs), *shape)
+            _build.check(lib, err, f"{name}_launch")
+        return run
+
+    return (dq, dk, dv), {name: launch(name) for name in BWD_KERNELS}
+
+
+def flash_attention_bwd_cuda(q, k, v, lse, do, *, causal: bool = True,
+                             window: int = 0):
+    """dQ, dK, dV of ``flash_attention_cuda(q, k, v)`` given its
+    log-sum-exp ``lse`` (B, Sq, Hq) f32 and the output's gradient ``do``:
+    three launches (Delta = rowsum(P o dP), then dK / dV, then dQ), each
+    output in the input dtype.  All CUDA and contiguous."""
+    out, launches = flash_attention_bwd_launches(q, k, v, lse, do,
+                                                 causal=causal, window=window)
+    for run in launches.values():
+        run()
+    return out

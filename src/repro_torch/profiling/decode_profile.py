@@ -57,8 +57,9 @@ GEN = 1 + WARM + 3 * STEPS + 1   # every slot stays active to the end
 MODES = ("eager", "graph")
 # the __global__ functions of kernels/csrc, as the profiler names them
 PORT_KERNEL = re.compile(r"\b(mm_mma|mm_skinny|mm_tiled|split_reduce|"
-                         r"fa_kernel|fa_mma_kernel|fa_bwd_delta|fa_bwd_dkdv|"
-                         r"fa_bwd_dq|decode::kernel|"
+                         r"fa_kernel|fa_mma_kernel|fa_bwd_delta(?:_mma)?|"
+                         r"fa_bwd_dkdv(?:_mma)?|fa_bwd_dq(?:_mma)?|"
+                         r"decode::kernel|"
                          r"decode::combine|conv_igemm|conv_mma)\b")
 
 

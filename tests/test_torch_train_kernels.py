@@ -201,3 +201,134 @@ def test_backward_rejects_before_build():
         fa.flash_attention_bwd_cuda(q32, k32, k32, lse[:, :3], q32)
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_attention_bwd_cuda(q32, k32, k32, lse, q32)
+
+
+
+def test_backward_launches_in_order_with_declared_arguments(monkeypatch):
+    """The backward's three launches run in the order Delta, dK / dV, dQ,
+    each with as many arguments as its C entry point declares, the Delta
+    scratch written by the first and read by the other two; with ``lib`` a
+    given library (an A/B's other build) takes the calls."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    monkeypatch.setattr(_build, "check_inputs", lambda *a: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    q = torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16)
+    (dq, dk, dv), launches = fa.flash_attention_bwd_launches(
+        q, k, k, torch.zeros((1, 8, 4)), q, window=3, lib=Lib())
+    assert list(launches) == list(fa.BWD_KERNELS) and not calls
+    for run in launches.values():
+        run()
+    assert [n for n, _ in calls] == list(fa.BWD_SIGNATURES)
+    for name, args in calls:
+        assert len(args) == len(fa.BWD_SIGNATURES[name])
+        assert args[-10:-1] == (1, 8, 8, 4, 2, 16, 3, 1, 1)
+    delta = calls[0][1][5]
+    assert calls[1][1][5] == calls[2][1][5] == delta
+    assert calls[1][1][6:8] == (dk.data_ptr(), dv.data_ptr())
+    assert calls[2][1][6] == dq.data_ptr()
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core backward's rounding points
+# ---------------------------------------------------------------------------
+
+
+def _hi_lo(x):
+    """x as the kernels feed it to a product: hi = x rounded to bf16 plus lo
+    = the rest rounded to bf16 (two A fragments, one f32 sum)."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def _one_bf16(x):
+    return x.bfloat16().float()
+
+
+def _emulated_bf16_backward(q, k, v, do, lse, *, causal=True, delta=None,
+                            rounding=_hi_lo, rows=1024):
+    """The bf16 backward kernels' arithmetic (``flash_attention_bwd.cu``,
+    the ``*_mma`` kernels) in plain torch, on bf16 inputs: S and dP in f32
+    from the bf16 operands, P = exp(scale S - LSE) (masked entries 0), Delta
+    = rowsum(P o dP) in f32 (or ``delta`` (B, Hkv, G, Sq) given), dS = P o
+    (dP - Delta); P taken through ``rounding`` before dV = P^T dO, dS before
+    dK = scale dS^T Q and dQ = scale dS K, f32 sums, each output rounded to
+    bf16.  ``rows`` query rows at a time."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(D)
+    qf, dof = (t.float().reshape(B, Sq, Hkv, G, D) for t in (q, do))
+    kf, vf = k.float(), v.float()
+    lse = lse.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)   # (B, Hkv, G, Sq)
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    kj = torch.arange(Skv)
+    for r0 in range(0, Sq, rows):
+        sl = slice(r0, min(r0 + rows, Sq))
+        qi = torch.arange(sl.start, sl.stop)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, sl], kf) * scale
+        ok = qi[:, None] >= kj[None, :] if causal else \
+            torch.ones(len(qi), Skv, dtype=torch.bool)
+        p = torch.where(ok, torch.exp(s - lse[..., sl, None]),
+                        torch.zeros(()))
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dof[:, sl], vf)
+        dl = (p * dp).sum(-1) if delta is None else delta[..., sl]
+        ds = rounding(p * (dp - dl[..., None]))
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", rounding(p), dof[:, sl])
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qf[:, sl]) * scale
+        dq[:, sl] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    return (dq.reshape(B, Sq, Hq, D).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+def _rounding_inputs():
+    """q (1, 4096, 2, 128) against k / v (1, 4096, 1, 128), causal, bf16:
+    4096 rows, where Delta from the bf16 output missed; the log-sum-exp and
+    the plain backward in f32 on the same bf16 values."""
+    rng = np.random.default_rng(26)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32))
+                   .bfloat16() for s in ((1, 4096, 2, 128), (1, 4096, 1, 128),
+                                         (1, 4096, 1, 128),
+                                         (1, 4096, 2, 128)))
+    o, lse = fa_ref.attention_lse(*(t.float() for t in (q, k, v)))
+    want = fa_ref.attention_backward(*(t.float() for t in (q, k, v, do)))
+    return (q, k, v, do), o, lse, want
+
+
+def _worst(got, want):
+    """Largest |got - want| / (3e-2 (rms(want) + |want|))."""
+    w = want.float()
+    rms = float(w.pow(2).mean().sqrt())
+    return float(((got.float() - w).abs() / (3e-2 * (rms + w.abs()))).max())
+
+
+def test_bf16_backward_rounding_points_at_4096_rows():
+    """The tensor-core kernels feed P and dS to their products as two bf16
+    parts each (hi + lo) and keep Delta = rowsum(P o dP) in f32: emulated in
+    plain torch, dQ, dK and dV stay within 3e-2 x (rms + |want|) of the f32
+    plain backward at 4096 causal rows.  Two simpler layouts, emulated the
+    same way, do not, and this shape is one where each shows: P and dS
+    rounded once to bf16 (an early key's dV takes O(1) weights of the first
+    rows, each off by up to 2^-9, against an RMS set by the many small
+    ones), and FA2's Delta = rowsum(dO o O) from the bf16 output (ROADMAP,
+    parity hazards)."""
+    (q, k, v, do), o, lse, want = _rounding_inputs()
+    got = _emulated_bf16_backward(q, k, v, do, lse)
+    for name, a, b in zip(("dQ", "dK", "dV"), got, want):
+        assert a.dtype == torch.bfloat16
+        assert torch.isfinite(a.float()).all(), name
+        assert _worst(a, b) <= 1, (name, _worst(a, b))
+    once = _emulated_bf16_backward(q, k, v, do, lse, rounding=_one_bf16)
+    assert max(_worst(a, b) for a, b in zip(once, want)) > 1
+    o16 = o.bfloat16().float()
+    fa2 = (do.float() * o16).sum(-1)                         # (B, Sq, Hq)
+    fa2 = fa2.reshape(1, 4096, 1, 2).permute(0, 2, 3, 1)
+    got_fa2 = _emulated_bf16_backward(q, k, v, do, lse, delta=fa2)
+    assert max(_worst(a, b) for a, b in zip(got_fa2, want)) > 1
