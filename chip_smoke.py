@@ -34,7 +34,9 @@ whisper-base, and flash attention's bidirectional mode) alone, without the
 result line.  ``--only train`` builds the training path's three sources
 (the matmul, flash attention and its backward) and runs the fourteenth
 slice's checks of phases 1-3 (training qwen2-7b at full width) alone,
-without the result line.
+without the result line.  ``--only train_families`` builds the same three
+and runs the sixteenth slice's checks of phases 1-3 (training the MoE,
+VLM, SSM, hybrid and enc-dec families) alone, without the result line.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -119,7 +121,14 @@ Phases (each raises on failure; nothing is caught):
    training products (each projection's forward and two backward products
    at M = 4096, the loss chunk's head product and its two), each against
    ``ref.matmul`` and timed beside ``torch.matmul`` and its bound, summed
-   over a step.
+   over a step.  And at the sixteenth slice's
+   (``phase_train_family_kernels``): the same attention checks and
+   timings at each family's training shapes (qwen3-moe's and internvl2's
+   GQA, hymba's G = 5 at D = 64 with and without its 1024-key window,
+   whisper's decoder self attention and its cross attention of 4096
+   queries over 1500 frames), and every training product that takes the
+   CUDA cores (hymba's in_proj, the heads of 32,001, 92,553 and 51,865
+   columns): forward, dA and dB, bit for bit on a second launch.
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
    weights on both; ragged prefill and 4 decode steps on a float pool
    (logits within 1e-3: f32 on both sides, summed in different orders
@@ -191,7 +200,14 @@ Phases (each raises on failure; nothing is caught):
    2 x 128-token ``synth_lm_batch`` batches: the loss and every gradient
    before each step, then the metrics, m, v and the update within 1e-3 x
    (rms + |cpu|) (the update where the CPU's m is above UPDATE_MASK of
-   the RMS of its nonzero entries).
+   the RMS of its nonzero entries).  The same for each other family
+   (``phase_train_family_card_vs_cpu``) at full width: qwen3-moe-30b-a3b
+   (its expert ids equal on both devices in every routed call) and
+   internvl2-26b at 1 layer, mamba2-130m and whisper-base at 2,
+   hymba-1.5b at 3 (a windowed layer), on batches of 2 x (the prefix + 128
+   text rows; hymba's 1152, so that its window masks keys), a vocabulary
+   table's rms over the rows and columns the batch touches
+   (``token_rms``).
 3. The slice: ``repro_torch.launch.serve.main`` serves qwen2-7b at full
    width (28 layers, bf16, random weights from seed 0) with 2 partitions,
    then at a smaller load (1 partition, 4 requests, prompt 64) on the
@@ -247,7 +263,13 @@ Phases (each raises on failure; nothing is caught):
    Then ``--partitions 2 --sync-every 2 --fail-at 3:1 --ckpt-every 2`` at
    2 layers, 4 steps: the live replicas equal bit for bit after each
    sync, partition 1 gone from step 3, one checkpoint at the second
-   sync.  The CNN slice: ``repro_torch.models.cnn
+   sync.  Then the other families (``phase_train_family_run``) in bf16 at
+   full width through ``make_train_step``, qwen3-moe at 4 of 48 layers,
+   internvl2 at 6 of 48, mamba2, hymba and whisper whole: 4 steps, one
+   measured as above (its bound from ``profiling/train_counts``), and two
+   runs of 2 steps from one seed equal bit for bit; whisper's and
+   mamba2's CLI for 2 steps and ``--resume`` for 1 against a straight run
+   of 3.  The CNN slice: ``repro_torch.models.cnn
    .apply_cnn`` runs each of ResNet-50, GoogLeNet and VGG-16 at 224, batch
    64, fp32 on the card: one forward holds every conv2d and matmul call
    against its plain version on the call's own inputs (2e-4 of the
@@ -1782,10 +1804,14 @@ def trace_check(name, what, traced: dict, issued) -> None:
     eager engine's wrapper counts for it (``issued``, ``counts.diff`` over
     ``step_graph.WRAPPERS``): one matmul, flash-attention or decode kernel
     per counted launch.  Both complete passes.  The eager trace short
-    while the replay's holds no kernel more than was counted raises
+    while the replay's holds no kernel more than was counted, or a
+    complete eager trace beside a replay's that holds none of the port's
+    kernels at all (the profiler lost the replay's records: its outputs
+    were already held bit for bit to the eager engine's), raises
     ``TraceIncomplete`` (the lockstep runs again and must end with both
     complete); anything else (a complete eager trace beside a replay's
-    that differs, above all) fails at once."""
+    that holds some kernels but not the counted ones, above all) fails at
+    once."""
     launches = [n for n, _ in issued]
     want = {"matmul": launches[0], "flash attention": launches[1],
             "decode attention": sum(launches[2:])}
@@ -1803,7 +1829,8 @@ def trace_check(name, what, traced: dict, issued) -> None:
            f"port's kernels eager {eager}, replayed {graph}; the eager "
            f"engine's wrappers issued {want}")
     short = eager != want and all(eager[k] <= want[k] for k in want)
-    if short and all(graph[k] <= want[k] for k in want):
+    lost = eager == want and not any(graph.values())
+    if lost or short and all(graph[k] <= want[k] for k in want):
         raise TraceIncomplete(msg)
     fail(msg)
 
@@ -4165,20 +4192,156 @@ def read_counts():
                 bwd_kernels=dict(fa_ops.flash_attention_backward.kernels))
 
 
-def train_issues(cfg, tokens_per_micro, micro_steps):
-    """The launches a training run issues: per microbatch, each layer's 7
-    products and 1 attention forward twice (the forward and its recompute
-    under remat "full"), 2 backward products per product and 1 attention
-    backward (3 kernels); each loss chunk's head product twice and its 2
-    backward products."""
-    chunk = min(LOSS_CHUNK, tokens_per_micro)
-    while tokens_per_micro % chunk:
-        chunk -= 1
-    chunks = tokens_per_micro // chunk
-    L = cfg.n_layers
-    return {"matmul": micro_steps * (28 * L + 4 * chunks),
-            "flash_attention": micro_steps * 2 * L,
-            "flash_attention_backward": micro_steps * L}
+def train_rnd(torch, seed):
+    """``rnd(shape, dtype)``: standard normal draws on the card from one
+    seeded generator, cast to ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return rnd
+
+
+def bwd_case(torch, rnd, tag, dt, shape, failures):
+    """Flash attention's forward with LSE and its backward at ``shape`` =
+    (B, Sq, Skv, Hq, Hkv, D, causal, window) in ``dt`` against their plain
+    versions: the output by phase 1's rule, the LSE, dQ, dK and dV within
+    tol x (rms + |want|) of the f32 plain backward (a miss recorded in
+    ``failures``); a second launch bit for bit.  Returns each output's
+    max abs error."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, Sq, Skv, hq, hkv, D, causal, w = shape
+    q, k, v = (rnd((B, Sq, hq, D), dt), rnd((B, Skv, hkv, D), dt),
+               rnd((B, Skv, hkv, D), dt))
+    do = rnd((B, Sq, hq, D), dt)
+    tol = TOL[str(dt).split(".")[1]]
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=w,
+                                     lse=True)
+    po, plse = fa_ref.attention_lse(q, k, v, causal=causal, window=w)
+    name = f"flash_attention backward {tag} {dt}"
+    # the forward's output by its own phase-1 rule (tol + tol |want|: it
+    # rounds the unnormalized weights to bf16, the plain version the
+    # normalized ones), the rest scaled by each output's RMS
+    errs = {"out": check_close(torch, name + " out", o, po, tol),
+            "lse": check_rms(torch, name + " lse", lse, plse, tol, failures)}
+    del po, plse
+    got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, causal=causal,
+                                      window=w)
+    # the plain backward in f32 on the same (bf16) inputs: run in bf16 it
+    # rounds P before P V and dP at the cast's backward, and at 4096 rows
+    # those roundings alone reach 1.5x the bound on dV (PERF.md)
+    want = fa_ref.attention_backward(
+        *(t.float() for t in (q, k, v, do)), causal=causal, window=w)
+    for n_, a, b in zip(("dq", "dk", "dv"), got, want):
+        errs[n_] = check_rms(torch, f"{name} {n_}", a, b, tol, failures)
+    twice = fa.flash_attention_bwd_cuda(q, k, v, lse, do, causal=causal,
+                                        window=w)
+    if not all(torch.equal(a, b) for a, b in zip(got, twice)):
+        fail(f"{name}: two launches on the same inputs differ")
+    if tag == "train":    # for the record: the plain version in bf16
+        plain16 = fa_ref.attention_backward(q, k, v, do, causal=causal,
+                                            window=w)
+        errs["vs_bf16_plain"] = {}
+        for n_, a, b in zip(("dq", "dk", "dv"), got, plain16):
+            bf = b.float()
+            rms = float(bf.pow(2).mean().sqrt())
+            errs["vs_bf16_plain"][n_] = float(
+                ((a.float() - bf).abs() / (tol * (rms + bf.abs()))).max())
+    del q, k, v, do, o, lse, got, want, twice
+    torch.cuda.empty_cache()
+    return errs
+
+
+def bwd_timed(torch, rnd, tag, shape):
+    """The backward in bf16 at ``shape`` (as ``bwd_case``), its 3 launches
+    together and each alone, beside its plain version (autograd through
+    ref.attention, the forward included), SDPA's forward + backward with
+    K/V expanded to the query heads (a window as a boolean mask) and its
+    bound; at the training shape also the forward with LSE."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Sq, Skv, hq, hkv, D, causal, w = shape
+    q, k, v, do = (rnd((B, Sq, hq, D), torch.bfloat16),
+                   rnd((B, Skv, hkv, D), torch.bfloat16),
+                   rnd((B, Skv, hkv, D), torch.bfloat16),
+                   rnd((B, Sq, hq, D), torch.bfloat16))
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=w,
+                                     lse=True)
+    t_bwd = time_ms(torch, lambda i: fa.flash_attention_bwd_cuda(
+        q, k, v, lse, do, causal=causal, window=w), 1, 10)
+    _, launches = fa.flash_attention_bwd_launches(q, k, v, lse, do,
+                                                  causal=causal, window=w)
+    # in launch order: each kernel's inputs are written by the one before
+    # (time_ms runs each once before it times it)
+    per = {name: time_ms(torch, lambda i, run=run: run(), 1, 10)
+           for name, run in launches.items()}
+    t_plain = time_ms(torch, lambda i: fa_ref.attention_backward(
+        q, k, v, do, causal=causal, window=w), 1, 3)
+    G = hq // hkv
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    dot = do.transpose(1, 2).contiguous()
+    mask = None
+    if w:
+        pos_q = torch.arange(Sq, device="cuda")[:, None]
+        pos_k = torch.arange(Skv, device="cuda")[None, :]
+        mask = (pos_q >= pos_k) & (pos_q - pos_k < w)
+
+    def library(i, masked=True):
+        with torch.enable_grad():
+            out = (sdpa(qt, kt, vt, attn_mask=mask) if w and masked else
+                   sdpa(qt, kt, vt, is_causal=causal))
+            return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    t_lib = time_ms(torch, library, 1, 10)
+    # a boolean mask takes SDPA off its flash backend: its causal call, more
+    # work but the fastest single library call at the shape, is timed too
+    t_lib_causal = time_ms(torch, lambda i: library(i, False), 1, 10) \
+        if w else None
+    if causal and Sq == Skv:      # the (query, key) pairs each query sees
+        n = min(w, Sq) if w else Sq
+        pairs = n * (n + 1) / 2 + (Sq - n) * n
+    else:
+        pairs = Sq * Skv
+    fwd_flops = 4 * B * hq * D * pairs
+    b_ms, by = bound(2 * (3 * q.numel() + 4 * k.numel())
+                     + 4 * lse.numel(), 2.5 * fwd_flops, H100_BF16)
+    mode = "bidirectional" if not causal else (
+        f"causal, window {w}" if w else "causal")
+    r = dict(shape=f"q ({B},{Sq},{hq},{D}), k/v ({B},{Skv},{hkv},{D}), "
+                   f"{mode}, bf16",
+             ms=t_bwd, kernel_ms=per, plain_ms=t_plain, library_ms=t_lib,
+             bound_ms=b_ms, bound_by=by,
+             tflops=2.5 * fwd_flops / t_bwd / 1e9)
+    masked = ""
+    if w:
+        r["library_causal_ms"] = t_lib_causal
+        masked = (f"; a boolean window mask, off SDPA's flash backend: its "
+                  f"causal call without the window {t_lib_causal:.4f}")
+    by_kernel = ", ".join(f"{n} {t:.4f}" for n, t in per.items())
+    log(f"  flash_attention backward {tag} {r['shape']}: kernel_ms "
+        f"{t_bwd:.4f} ({r['tflops']:.1f} TFLOP/s at 2.5x the forward's "
+        f"FLOPs; by kernel {by_kernel}) plain_ms {t_plain:.4f} "
+        f"library_ms {t_lib:.4f} (SDPA forward + backward, K/V "
+        f"expanded{masked}) bound_ms {b_ms:.4f} ({by})")
+    if tag == "train":
+        t_fwd = time_ms(torch, lambda i: fa.flash_attention_cuda(
+            q, k, v, causal=causal, lse=True), 1, 10)
+        f_ms, fby = bound(2 * (2 * q.numel() + 2 * k.numel())
+                          + 4 * lse.numel(), fwd_flops, H100_BF16)
+        log(f"  the forward with LSE {t_fwd:.4f} ms (bound {f_ms:.4f}, "
+            f"{fby})")
+        r.update(forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms)
+    del q, k, v, do, o, lse, qt, kt, vt, dot, mask
+    torch.cuda.empty_cache()
+    return r
 
 
 def phase_train_kernels(torch, cfg):
@@ -4195,62 +4358,16 @@ def phase_train_kernels(torch, cfg):
     timed beside its plain version, the library's call and its bound: the
     backward at the training shape and at whisper's two, its three kernels
     together and each alone."""
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
 
-    dev = "cuda"
     t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(14)
-
-    def rnd(shape, dtype):
-        return torch.randn(shape, generator=g, device=dev).to(dtype)
-
-    def attn_case(tag, dt, B, Sq, Skv, hq, hkv, D, causal, w):
-        q, k, v = (rnd((B, Sq, hq, D), dt), rnd((B, Skv, hkv, D), dt),
-                   rnd((B, Skv, hkv, D), dt))
-        do = rnd((B, Sq, hq, D), dt)
-        tol = TOL[str(dt).split(".")[1]]
-        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=w,
-                                         lse=True)
-        po, plse = fa_ref.attention_lse(q, k, v, causal=causal, window=w)
-        name = f"flash_attention backward {tag} {dt}"
-        # the forward's output by its own phase-1 rule (tol + tol |want|:
-        # it rounds the unnormalized weights to bf16, the plain version the
-        # normalized ones), the rest scaled by each output's RMS
-        errs = {"out": check_close(torch, name + " out", o, po, tol),
-                "lse": check_rms(torch, name + " lse", lse, plse, tol,
-                                 failures)}
-        got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, causal=causal,
-                                          window=w)
-        # the plain backward in f32 on the same (bf16) inputs: run in bf16
-        # it rounds P before P V and dP at the cast's backward, and at 4096
-        # rows those roundings alone reach 1.5x the bound on dV (PERF.md)
-        want = fa_ref.attention_backward(
-            *(t.float() for t in (q, k, v, do)), causal=causal, window=w)
-        for n_, a, b in zip(("dq", "dk", "dv"), got, want):
-            errs[n_] = check_rms(torch, f"{name} {n_}", a, b, tol, failures)
-        twice = fa.flash_attention_bwd_cuda(q, k, v, lse, do,
-                                            causal=causal, window=w)
-        if not all(torch.equal(a, b) for a, b in zip(got, twice)):
-            fail(f"{name}: two launches on the same inputs differ")
-        if tag == "train":    # for the record: the plain version in bf16
-            plain16 = fa_ref.attention_backward(q, k, v, do, causal=causal,
-                                                window=w)
-            errs["vs_bf16_plain"] = {}
-            for n_, a, b in zip(("dq", "dk", "dv"), got, plain16):
-                bf = b.float()
-                rms = float(bf.pow(2).mean().sqrt())
-                errs["vs_bf16_plain"][n_] = float(
-                    ((a.float() - bf).abs() / (tol * (rms + bf.abs()))).max())
-        return errs
+    rnd = train_rnd(torch, 14)
 
     failures = []
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     main = (1, TRAIN_SEQ, TRAIN_SEQ, Hq, Hkv, hd, True, 0)
-    main_err = attn_case("train", torch.bfloat16, *main)
+    main_err = bwd_case(torch, rnd, "train", torch.bfloat16, main, failures)
     log(f"phase 1 [train]: flash attention's forward with LSE and backward "
         f"at q (1,{TRAIN_SEQ},{Hq},{hd}) bf16 causal: max abs err {main_err}")
     worst = {}
@@ -4278,7 +4395,7 @@ def phase_train_kernels(torch, cfg):
                 shapes.append((f"G={G} Sq={Sq} Skv={Skv} D={D} bidir", dt,
                                (2, Sq, Skv, 2 * G, 2, D, False, 0)))
     for tag, dt, shape in shapes:
-        errs = attn_case(tag, dt, *shape)
+        errs = bwd_case(torch, rnd, tag, dt, shape, failures)
         key = str(dt).split(".")[1]
         for k_, e in errs.items():
             if k_ != "vs_bf16_plain":
@@ -4293,77 +4410,16 @@ def phase_train_kernels(torch, cfg):
         f"edges, both dtypes), each bit for bit on a second launch; worst "
         f"max abs errors {worst}")
 
-    # timings: the backward (its 3 launches together and each alone)
-    # beside its plain version (autograd through ref.attention, the forward
-    # included) and SDPA's forward + backward with K/V expanded to the query
-    # heads, at the training shape and at whisper's encoder and cross
+    # timings: the backward beside its plain version and SDPA's forward +
+    # backward at the training shape and at whisper's encoder and cross
     # attention (bidirectional)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def bwd_timed(tag, B, Sq, Skv, hq, hkv, D, causal):
-        q, k, v, do = (rnd((B, Sq, hq, D), torch.bfloat16),
-                       rnd((B, Skv, hkv, D), torch.bfloat16),
-                       rnd((B, Skv, hkv, D), torch.bfloat16),
-                       rnd((B, Sq, hq, D), torch.bfloat16))
-        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, lse=True)
-        t_bwd = time_ms(torch, lambda i: fa.flash_attention_bwd_cuda(
-            q, k, v, lse, do, causal=causal), 1, 10)
-        _, launches = fa.flash_attention_bwd_launches(q, k, v, lse, do,
-                                                      causal=causal)
-        # in launch order: each kernel's inputs are written by the one
-        # before (time_ms runs each once before it times it)
-        per = {name: time_ms(torch, lambda i, run=run: run(), 1, 10)
-               for name, run in launches.items()}
-        t_plain = time_ms(torch, lambda i: fa_ref.attention_backward(
-            q, k, v, do, causal=causal), 1, 3)
-        G = hq // hkv
-        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
-        kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
-            .requires_grad_(True)
-        vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
-            .requires_grad_(True)
-        dot = do.transpose(1, 2).contiguous()
-
-        def library(i):
-            with torch.enable_grad():
-                out = sdpa(qt, kt, vt, is_causal=causal)
-                return torch.autograd.grad(out, (qt, kt, vt), dot)
-
-        t_lib = time_ms(torch, library, 1, 10)
-        pairs = Sq * (Sq + 1) / 2 if causal and Sq == Skv else Sq * Skv
-        fwd_flops = 4 * B * hq * D * pairs
-        b_ms, by = bound(2 * (3 * q.numel() + 4 * k.numel())
-                         + 4 * lse.numel(), 2.5 * fwd_flops, H100_BF16)
-        r = dict(shape=f"q ({B},{Sq},{hq},{D}), k/v ({B},{Skv},{hkv},{D}), "
-                       f"{'causal' if causal else 'bidirectional'}, bf16",
-                 ms=t_bwd, kernel_ms=per, plain_ms=t_plain, library_ms=t_lib,
-                 bound_ms=b_ms, bound_by=by,
-                 tflops=2.5 * fwd_flops / t_bwd / 1e9)
-        by_kernel = ", ".join(f"{n} {t:.4f}" for n, t in per.items())
-        log(f"  flash_attention backward {tag} {r['shape']}: kernel_ms "
-            f"{t_bwd:.4f} ({r['tflops']:.1f} TFLOP/s at 2.5x the forward's "
-            f"FLOPs; by kernel {by_kernel}) plain_ms {t_plain:.4f} "
-            f"library_ms {t_lib:.4f} (SDPA forward + backward, K/V "
-            f"expanded) bound_ms {b_ms:.4f} ({by})")
-        if tag == "train":
-            t_fwd = time_ms(torch, lambda i: fa.flash_attention_cuda(
-                q, k, v, causal=causal, lse=True), 1, 10)
-            f_ms, fby = bound(2 * (2 * q.numel() + 2 * k.numel())
-                              + 4 * lse.numel(), fwd_flops, H100_BF16)
-            log(f"  the forward with LSE {t_fwd:.4f} ms (bound {f_ms:.4f}, "
-                f"{fby})")
-            r.update(forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms)
-        del q, k, v, do, o, lse, qt, kt, vt, dot
-        torch.cuda.empty_cache()
-        return r
-
-    bwd_stats = bwd_timed("train", 1, TRAIN_SEQ, TRAIN_SEQ, Hq, Hkv, hd, True)
+    bwd_stats = bwd_timed(torch, rnd, "train", main)
     bwd_stats.update(
         max_abs_err=max(main_err[k] for k in ("dq", "dk", "dv")),
         errs=main_err, worst=worst, shapes=len(shapes) + 1,
-        whisper={tag: bwd_timed(tag, *shape) for tag, shape in (
-            ("encoder", (4, 1500, 1500, 8, 8, 64, False)),
-            ("cross", (4, 32, 1500, 8, 8, 64, False)))})
+        whisper={tag: bwd_timed(torch, rnd, tag, shape) for tag, shape in (
+            ("encoder", (4, 1500, 1500, 8, 8, 64, False, 0)),
+            ("cross", (4, 32, 1500, 8, 8, 64, False, 0)))})
 
     # the matmul's training products at M = 4096 tokens (a microbatch)
     d, kv, ff, V = cfg.d_model, Hkv * hd, cfg.d_ff, cfg.vocab
@@ -4424,57 +4480,118 @@ def phase_train_kernels(torch, cfg):
                                  max_abs_err=mm_worst)}
 
 
-def train_tree_close(torch, what, got, want, tol, masks=None):
+def nz_rms(t) -> float:
+    """The RMS of ``t``'s nonzero entries (0 when it has none)."""
+    nz = t[t != 0]
+    return float(nz.float().pow(2).mean().sqrt()) if nz.numel() else 0.0
+
+
+def token_rms(torch, path, w, targets=None):
+    """The RMS that scales the absolute term of leaf ``path``'s comparison.
+    With ``targets`` (the ids the batch's labels name) a vocabulary table's
+    is taken over the slices the batch touches: the embedding's rows with a
+    nonzero entry (the rows of the tokens it holds; every row of a tied
+    table) and an untied LM head's target columns (the others carry only
+    the softmax weight, ~1/vocab of a target's: internvl2's batch names ~95
+    of 92,553); every other leaf's, and every leaf's without ``targets``,
+    over all of its entries."""
+    if targets is not None and path == "embed":
+        w = w[w.abs().amax(-1) > 0]
+    elif targets is not None and path == "lm_head":
+        w = w[:, targets.to(w.device)]
+    return w.pow(2).mean().sqrt() if w.numel() else w.new_zeros(())
+
+
+def ratio(torch, err, scale, w, tol):
+    """err / (tol x (scale + |w|)) element by element; 0 where both the
+    error and the bound are 0 (a row no token used)."""
+    lim = tol * (scale + w.abs())
+    return torch.where(err == 0, torch.zeros_like(err), err / lim)
+
+
+def train_tree_close(torch, what, got, want, tol, masks=None, noise=None,
+                     targets=None):
     """Each leaf of ``got`` (on the card) within tol * (rms + |want|) of
     the same leaf of ``want`` (on the CPU), compared on the card one leaf
-    at a time; ``masks`` (path -> the CPU leaf whose large entries are
-    compared) limits a leaf's comparison to entries above UPDATE_MASK of
-    the RMS of that leaf's nonzero entries.  Returns the worst error as a
-    fraction of its bound."""
+    at a time, rms the CPU leaf's (``token_rms``: with ``targets``, a
+    vocabulary table's over the rows and columns the batch touches).
+    ``masks`` (path -> the CPU leaf
+    whose large entries are compared) limits a leaf's comparison to
+    entries above UPDATE_MASK of the RMS of that leaf's nonzero entries.
+    ``noise`` (path -> the path of a scale leaf) names leaves that are
+    rounding noise on both devices: a key bias without rotary positions,
+    whose gradient is 0 in exact arithmetic (the softmax ignores a shift
+    common to all keys), against the same layer's query bias.  Each side's
+    largest entry must stay below tol x the scale leaf's RMS, as
+    ``tests/_torch_train_common.py`` holds it against the reference; with
+    ``masks``, the scale leaf's mask RMS selects the entries (Adam's update
+    of noise is noise).  Returns the worst error as a fraction of its
+    bound."""
     from repro_torch.tree import leaves_with_paths
 
+    noise = noise or {}
     want = dict(leaves_with_paths(want))
     worst = 0.0
     for path, g in leaves_with_paths(got):
         g = g.float()
         w = want[path].to(g.device).float()
-        ratio = (g - w).abs() / (tol * (float(w.pow(2).mean().sqrt())
-                                        + w.abs()))
-        if masks is not None:
-            m = masks[path].to(g.device).abs()
-            nz = m[m != 0]
-            ratio = ratio[m > UPDATE_MASK * (
-                float(nz.pow(2).mean().sqrt()) if nz.numel() else 0.0)]
-            del m, nz
-        r = float(ratio.max()) if ratio.numel() else 0.0
+        if path in noise and masks is None:
+            scale = tol * nz_rms(want[noise[path]])
+            r = max(float(g.abs().max()), float(w.abs().max())) / scale
+        else:
+            rat = ratio(torch, (g - w).abs(),
+                        token_rms(torch, path, w, targets), w, tol)
+            if masks is not None:
+                m = masks[path].to(g.device).abs()
+                rat = rat[m > UPDATE_MASK * nz_rms(
+                    masks[noise.get(path, path)])]
+                del m
+            r = float(rat.max()) if rat.numel() else 0.0
+            del rat
         if not bool(torch.isfinite(g).all()) or r > 1:
             fail(f"{what} {path}: card and CPU disagree (max abs err "
                  f"{float((g - w).abs().max()):.3g}, {r:.3g} x the limit "
                  f"{tol} * (rms + |cpu|))")
         worst = max(worst, r)
-        del g, w, ratio
+        del g, w
     return worst
 
 
 def phase_train_card_vs_cpu(torch, cfg):
     """Phase 2 [train]: qwen2-7b at full width, TRAIN_CHECK_LAYERS layers,
-    fp32, the same weights on the card and the CPU; two ``make_train_step``
-    steps (warmup 1: the first step's rate is 0) on ``synth_lm_batch``
-    batches of TRAIN_CHECK_SHAPE.  After each step: every gradient the
+    fp32, on batches of TRAIN_CHECK_SHAPE (``train_card_vs_cpu``)."""
+    return train_card_vs_cpu(torch, cfg.replace(
+        n_layers=TRAIN_CHECK_LAYERS, dtype="float32"), TRAIN_CHECK_SHAPE[1],
+        "train")
+
+
+def train_card_vs_cpu(torch, cfg2, seq, tag, tables=False):
+    """``cfg2`` (fp32) with the same weights on the card and the CPU; two
+    ``make_train_step`` steps (warmup 1: the first step's rate is 0) on
+    ``synth_lm_batch`` batches of TRAIN_CHECK_SHAPE's batch x ``seq``
+    positions (the prefix included).  After each step: every gradient the
     step's update took (recorded at its ``adamw_update`` call), the loss
     and metrics, m, v and the params' update where the CPU's m is above
     UPDATE_MASK of the RMS of its nonzero entries (Adam's early updates are
     ~ sign(m) x lr, so an entry whose m is near the card's rounding flips;
     an embedding's gradient is zero on every row the batch does not use),
-    each within MODEL_TOL x (rms + |cpu|)."""
+    each within MODEL_TOL x (rms + |cpu|), rms the CPU leaf's; with
+    ``tables`` a vocabulary table's over the rows and columns the batch
+    touches (``token_rms``: the step's targets for its gradient, every
+    step's so far for m, v and the update).  An MoE's expert ids, every
+    routed call's (the forward's, the recompute's), must be equal on both
+    devices: a row that differs fails, with its token and the CPU's margin
+    between the k-th and the (k+1)-th probability."""
+    import contextlib
+
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data.pipeline import synth_lm_batch
     from repro_torch.models import api as mapi
+    from repro_torch.models import moe as MOE
     from repro_torch.optim import adamw_init
     from repro_torch.runtime import steps as RS
-    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.tree import leaves_with_paths, tree_map
 
-    cfg2 = cfg.replace(n_layers=TRAIN_CHECK_LAYERS, dtype="float32")
     t0 = time.perf_counter()
     devs = {"card": "cuda", "cpu": "cpu"}
     apis = {k: mapi.build(cfg2, dev) for k, dev in devs.items()}
@@ -4484,11 +4601,16 @@ def phase_train_card_vs_cpu(torch, cfg):
     opts = {dev: adamw_init(p) for dev, p in params.items()}
     steps = {dev: RS.make_train_step(api, warmup=1, total=50)
              for dev, api in apis.items()}
-    B, S = TRAIN_CHECK_SHAPE
-    shape = ShapeCell("train", S, B, "train")
+    B = TRAIN_CHECK_SHAPE[0]
+    shape = ShapeCell("train", seq, B, "train")
     worst = {}
     used = []                     # the gradients each step's update took
     update = RS.adamw_update
+    routed = 0
+    seen = torch.zeros(0, dtype=torch.long)    # every step's targets so far
+    # key biases without rotary positions: rounding noise on both devices
+    noise = {p: p[:-2] + "bq" for p, _ in leaves_with_paths(params["cpu"])
+             if p.endswith("/bk")} if not cfg2.rope_theta else {}
 
     def recorded(grads, *a, **kw):
         used.append(grads)
@@ -4496,45 +4618,76 @@ def phase_train_card_vs_cpu(torch, cfg):
 
     for step in range(2):
         batch = synth_lm_batch(cfg2, shape, step)
+        step_ids = torch.unique(torch.from_numpy(batch["labels"]).long())
+        seen = torch.unique(torch.cat([seen, step_ids]))
+        targets, so_far = (step_ids, seen) if tables else (None, None)
         prev = {dev: dict((k, v.detach().clone()) for k, v in
                           leaves_with_paths(p)) for dev, p in params.items()}
-        mets, grads = {}, {}
+        mets, grads, routing = {}, {}, {}
         for dev in devs:
             used.clear()
             RS.adamw_update = recorded
             try:
-                params[dev], opts[dev], mets[dev] = steps[dev](
-                    params[dev], opts[dev], batch)
+                with (Routing(MOE) if cfg2.n_experts
+                      else contextlib.nullcontext()) as routing[dev]:
+                    params[dev], opts[dev], mets[dev] = steps[dev](
+                        params[dev], opts[dev], batch)
             finally:
                 RS.adamw_update = update
             grads[dev] = used.pop()
+        if cfg2.n_experts:
+            card, cpu = routing["card"].calls, routing["cpu"].calls
+            if len(card) != len(cpu):
+                fail(f"phase 2 [{tag}] step {step}: {len(card)} routed calls "
+                     f"on the card, {len(cpu)} on the CPU")
+            flips = []
+            for call, ((ea, _), (eb, top)) in enumerate(zip(card, cpu)):
+                k = cfg2.top_k
+                for r in (ea != eb).any(-1).nonzero().flatten().tolist():
+                    flips.append(
+                        f"call {call} token {r}: card {ea[r].tolist()}, CPU "
+                        f"{eb[r].tolist()}, the CPU's margin between the "
+                        f"{k}-th and the next probability "
+                        f"{float(top[r, k - 1] - top[r, k]):.3g}")
+            if flips:
+                fail(f"phase 2 [{tag}] step {step}: expert ids differ between "
+                     f"the card and the CPU in {len(flips)} rows: {flips}")
+            routed += len(cpu)
         worst["grads"] = max(worst.get("grads", 0), train_tree_close(
-            torch, f"phase 2 [train] step {step} gradient", grads["card"],
-            grads["cpu"], MODEL_TOL))
+            torch, f"phase 2 [{tag}] step {step} gradient", grads["card"],
+            grads["cpu"], MODEL_TOL, noise=noise, targets=targets))
         del grads
         worst["metrics"] = max(worst.get("metrics", 0), train_tree_close(
-            torch, f"phase 2 [train] step {step} loss and metrics",
+            torch, f"phase 2 [{tag}] step {step} loss and metrics",
             mets["card"], mets["cpu"], MODEL_TOL))
         for part in ("m", "v"):
             worst[part] = max(worst.get(part, 0), train_tree_close(
-                torch, f"phase 2 [train] step {step} {part}",
+                torch, f"phase 2 [{tag}] step {step} {part}",
                 getattr(opts["card"], part), getattr(opts["cpu"], part),
-                MODEL_TOL))
+                MODEL_TOL, noise=noise, targets=so_far))
         upd = {dev: {k: v.detach() - prev[dev][k] for k, v in
                      leaves_with_paths(p)} for dev, p in params.items()}
         worst["update"] = max(worst.get("update", 0), train_tree_close(
-            torch, f"phase 2 [train] step {step} update", upd["card"],
+            torch, f"phase 2 [{tag}] step {step} update", upd["card"],
             upd["cpu"], MODEL_TOL, masks=dict(leaves_with_paths(
-                opts["cpu"].m))))
+                opts["cpu"].m)), noise=noise, targets=so_far))
         del prev, upd
-        log(f"phase 2 [train] step {step}: loss card "
+        aux = (f", aux card {float(mets['card']['aux']):.6g} cpu "
+               f"{float(mets['cpu']['aux']):.6g}" if "aux" in mets["cpu"]
+               else "")
+        log(f"phase 2 [{tag}] step {step}: loss card "
             f"{float(mets['card']['loss']):.6f} cpu "
-            f"{float(mets['cpu']['loss']):.6f}, lr "
+            f"{float(mets['cpu']['loss']):.6f}{aux}, lr "
             f"{float(mets['cpu']['lr']):.3g}")
-    log(f"phase 2 [train]: {cfg2.name} d={cfg2.d_model} {cfg2.n_layers} "
-        f"layers fp32, batch {B} x {S}, 2 steps: card and CPU agree within "
-        f"{MODEL_TOL} x (rms + |cpu|); worst fraction of the bound {worst} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    del params, opts
+    gc.collect()
+    torch.cuda.empty_cache()
+    experts = (f"; expert ids equal on both devices in all {routed} routed "
+               "calls" if cfg2.n_experts else "")
+    log(f"phase 2 [{tag}]: {cfg2.name} d={cfg2.d_model} {cfg2.n_layers} "
+        f"layers fp32, batch {B} x {seq}, 2 steps: card and CPU agree within "
+        f"{MODEL_TOL} x (rms + |cpu|); worst fraction of the bound {worst}"
+        f"{experts} ({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -4544,10 +4697,12 @@ def train_measure(torch, cfg, api, params, opt, step_fn, batch):
     profiler (device ms = the kernels', copies' and memsets' time; idle =
     1 - device / that step's wall; the port's kernels by name); then one
     step split into each microbatch's forward and backward, the f32
-    accumulation and the optimizer by CUDA events.  The step's bound: 6 x
-    the products' parameters x tokens at the tensor cores' rate."""
+    accumulation and the optimizer by CUDA events.  The step's bound: the
+    products' forward and backward FLOPs at the tensor cores' rate, an MoE
+    router's and the SSD's at the CUDA cores' (``train_flops``)."""
     from repro_torch.optim import adamw_update, cosine_lr
     from repro_torch.profiling.decode_profile import PORT_KERNEL, _device_us
+    from repro_torch.profiling.train_counts import train_flops
     from repro_torch.runtime import steps as RS
     from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -4607,16 +4762,68 @@ def train_measure(torch, cfg, api, params, opt, step_fn, batch):
     torch.cuda.synchronize()
     parts["optimizer"] = ev[4].elapsed_time(ev[5])
     del grads
-    n_mm = TRAIN_LAYERS * (
-        2 * cfg.d_model * cfg.n_heads * cfg.head_dim
-        + 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim
-        + 3 * cfg.d_model * cfg.d_ff) + cfg.d_model * cfg.vocab
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_SEQ, TRAIN_BATCH)
     return dict(wall_ms=wall, traced_wall_ms=traced_wall, device_ms=device,
                 idle=1 - device / traced_wall, parts_ms=parts,
                 kernels_ms=by_kernel, tokens_per_s=tokens / (wall / 1e3),
-                peak_gb=peak, matmul_params=n_mm,
-                bound_ms=6 * n_mm * tokens / H100_BF16 * 1e3)
+                peak_gb=peak, flops=flops, bound_ms=flops.pop("bound_ms"))
+
+
+def train_straight(torch, cfg, n_steps, keep=None, snap=None):
+    """``n_steps`` of what ``train.main`` runs without partitions, from its
+    seed, on its batches (its total as it sets it), without checkpoints;
+    returns the losses.  ``keep`` (a dict) receives the api, step function,
+    params and optimizer state at the end; ``snap`` (a dict with key
+    "at") receives a host copy of the params after that many steps."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synth_lm_batch
+    from repro_torch.models import api as mapi
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import steps as RS
+    from repro_torch.tree import leaves_with_paths
+
+    shape = ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    api = mapi.build(cfg, "cuda")
+    step_fn = RS.make_train_step(api, peak_lr=3e-4, accum=TRAIN_ACCUM,
+                                 total=max(TRAIN_STEPS + TRAIN_RESUME, 100))
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params)
+    out = []
+    for step in range(n_steps):
+        params, opt, m = step_fn(params, opt, synth_lm_batch(cfg, shape, step))
+        out.append(float(m["loss"]))
+        if snap is not None and step + 1 == snap["at"]:
+            snap["params"] = {k: v.to("cpu", copy=True)
+                              for k, v in leaves_with_paths(params)}
+    if keep is not None:
+        keep.update(api=api, step_fn=step_fn, params=params, opt=opt)
+    return out
+
+
+def train_step_logged(torch, name, cfg, state):
+    """``train_measure`` on the trained state ``state`` (api, step_fn,
+    params, opt; cleared after), logged; returns the record."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synth_lm_batch
+
+    shape = ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    meas = train_measure(torch, cfg, state["api"], state["params"],
+                         state["opt"], state["step_fn"],
+                         synth_lm_batch(cfg, shape, TRAIN_STEPS))
+    state.clear()
+    flops = ", ".join(f"{k} {v / 1e12:.3f}" for k, v in meas["flops"].items())
+    log(f"phase 3 [{name}]: {cfg.name} {cfg.n_layers} layers at full width, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_ACCUM} microbatches: "
+        f"wall {meas['wall_ms']:.1f} ms ({meas['tokens_per_s']:.0f} tokens "
+        f"per s); under the profiler wall {meas['traced_wall_ms']:.1f} ms, "
+        f"device {meas['device_ms']:.1f} ms, idle share {meas['idle']:.3f}; "
+        f"parts (ms) { {k: round(v, 2) for k, v in meas['parts_ms'].items()} }"
+        f"; the port's kernels (device ms) "
+        f"{ {k: round(v, 2) for k, v in meas['kernels_ms'].items()} }; peak "
+        f"{meas['peak_gb']:.2f} GB; bound {meas['bound_ms']:.1f} ms (TFLOP "
+        f"{flops}: products at 989 TFLOP/s, router and SSD at 67)")
+    return meas
 
 
 def counted(torch, name, want, fn):
@@ -4642,6 +4849,66 @@ def counted(torch, name, want, fn):
                      peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def train_cli_resume(torch, arch, n_layers, n_steps, n_resume, ckpt_dir,
+                     tag):
+    """The train CLI (``launch/train.main``) on ``arch`` at ``n_layers``
+    layers (None: its full depth), bf16, seq TRAIN_SEQ x batch TRAIN_BATCH
+    in TRAIN_ACCUM microbatches: ``n_steps`` steps to a checkpoint in
+    ``ckpt_dir``, then ``--resume`` for ``n_resume``; their losses must
+    equal a straight run's (``train_straight``) bit for bit, and each run's
+    launches what the code issues.  Returns the three runs' records, named
+    "<tag> cli", "<tag> resume" and "<tag> straight"."""
+    import shutil
+
+    from repro_torch.launch import train
+    from repro_torch.profiling.train_counts import train_issues
+
+    real, cut = depth_of(train, n_layers)
+    full_layers = real(arch).n_layers
+    cfg = cut(arch)
+    sync_args = ["--arch", arch, "--seq", str(TRAIN_SEQ), "--batch",
+                 str(TRAIN_BATCH), "--accum", str(TRAIN_ACCUM)]
+    losses, runs = {}, {}
+    train.get_config = cut
+    try:
+        for name, extra, n in (
+                (f"{tag} cli", ["--steps", str(n_steps)], n_steps),
+                (f"{tag} resume", ["--steps", str(n_resume), "--resume"],
+                 n_resume)):
+            argv = sync_args + extra + ["--ckpt-dir", str(ckpt_dir)]
+            losses[name], runs[name] = counted(
+                torch, name, train_issues(cfg, TRAIN_SEQ, n * TRAIN_ACCUM),
+                lambda: train.main(argv))
+            if not all(math.isfinite(x) for x in losses[name]):
+                fail(f"phase 3 [{name}]: losses {losses[name]}")
+            runs[name]["losses"] = losses[name]
+            log(f"phase 3 [{name}]: {cfg.name} d={cfg.d_model} "
+                f"{cfg.n_layers} of {full_layers} layers, bf16, seq "
+                f"{TRAIN_SEQ} x batch {TRAIN_BATCH} (accum {TRAIN_ACCUM}), "
+                f"{n} steps in {runs[name]['wall']:.2f} s wall (model "
+                f"init, checkpoint restore and save included), losses "
+                f"{losses[name]}, peak {runs[name]['peak_gb']:.2f} GB, "
+                f"launches {runs[name]['launches']} (= what the code "
+                f"issues), backward kernels {runs[name]['bwd_kernels']}")
+    finally:
+        train.get_config = real
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_all = n_steps + n_resume
+    name = f"{tag} straight"
+    losses[name], runs[name] = counted(
+        torch, name, train_issues(cfg, TRAIN_SEQ, n_all * TRAIN_ACCUM),
+        lambda: train_straight(torch, cfg, n_all))
+    runs[name]["losses"] = losses[name]
+    if losses[f"{tag} cli"] + losses[f"{tag} resume"] != losses[name]:
+        fail(f"phase 3 [{tag}]: {n_steps} steps + resume "
+             f"{losses[f'{tag} cli']} + {losses[f'{tag} resume']} differ "
+             f"from the straight run {losses[name]}")
+    log(f"phase 3 [{tag}]: the CLI's {n_steps} steps and its resumed "
+        f"{n_resume} equal a straight run's losses bit for bit "
+        f"({losses[name]})")
+    return runs
+
+
 def phase_train_run(torch):
     """Phase 3 [train], at qwen2-7b's full width in bf16 on the card, seq
     TRAIN_SEQ, batch TRAIN_BATCH in TRAIN_ACCUM microbatches.  The CLI
@@ -4658,89 +4925,30 @@ def phase_train_run(torch):
     import shutil
     import tempfile
 
-    from repro_torch.configs.base import ShapeCell
-    from repro_torch.data.pipeline import synth_lm_batch
     from repro_torch.launch import train
-    from repro_torch.models import api as mapi
-    from repro_torch.optim import adamw_init
+    from repro_torch.profiling.train_counts import train_issues
     from repro_torch.runtime import partition_runtime as PR
-    from repro_torch.runtime import steps as RS
     from repro_torch.tree import leaves
 
     runs = {}
     base = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch",
             str(TRAIN_BATCH)]
-    sync_args = base + ["--accum", str(TRAIN_ACCUM)]
-    micro = TRAIN_BATCH // TRAIN_ACCUM * TRAIN_SEQ
-    shape = ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
 
-    def straight(cfg, n_steps, keep=None):
-        """``n_steps`` of what train.main runs, from its seed, on its
-        batches (total as it sets it), without checkpoints."""
-        api = mapi.build(cfg, "cuda")
-        step_fn = RS.make_train_step(api, peak_lr=3e-4, accum=TRAIN_ACCUM,
-                                     total=max(TRAIN_STEPS + TRAIN_RESUME,
-                                               100))
-        params = api.init(torch.Generator(device="cuda").manual_seed(0))
-        opt = adamw_init(params)
-        out = []
-        for step in range(n_steps):
-            params, opt, m = step_fn(params, opt,
-                                     synth_lm_batch(cfg, shape, step))
-            out.append(float(m["loss"]))
-        if keep is not None:
-            keep.update(api=api, step_fn=step_fn, params=params, opt=opt)
-        return out
-
     # the CLI and its resume, at CLI_LAYERS layers
+    runs.update(train_cli_resume(torch, TRAIN_ARCH, CLI_LAYERS, TRAIN_STEPS,
+                                 TRAIN_RESUME, tmp / "sync", "train"))
     real, cut = depth_of(train, CLI_LAYERS)
     full_layers = real(TRAIN_ARCH).n_layers
-    cfg = cut(TRAIN_ARCH)
     losses = {}
-    train.get_config = cut
-    try:
-        for name, extra, n_steps in (
-                ("train cli", ["--steps", str(TRAIN_STEPS)], TRAIN_STEPS),
-                ("train resume", ["--steps", str(TRAIN_RESUME), "--resume"],
-                 TRAIN_RESUME)):
-            argv = sync_args + extra + ["--ckpt-dir", str(tmp / "sync")]
-            losses[name], runs[name] = counted(
-                torch, name, train_issues(cfg, micro, n_steps * TRAIN_ACCUM),
-                lambda: train.main(argv))
-            if not all(math.isfinite(x) for x in losses[name]):
-                fail(f"phase 3 [{name}]: losses {losses[name]}")
-            runs[name]["losses"] = losses[name]
-            log(f"phase 3 [{name}]: {cfg.name} d={cfg.d_model} "
-                f"{cfg.n_layers} of {full_layers} layers, bf16, seq "
-                f"{TRAIN_SEQ} x batch {TRAIN_BATCH} (accum {TRAIN_ACCUM}), "
-                f"{n_steps} steps in {runs[name]['wall']:.2f} s wall (model "
-                f"init, checkpoint restore and save included), losses "
-                f"{losses[name]}, peak {runs[name]['peak_gb']:.2f} GB, "
-                f"launches {runs[name]['launches']} (= what the code "
-                f"issues), backward kernels {runs[name]['bwd_kernels']}")
-    finally:
-        train.get_config = real
-    shutil.rmtree(tmp / "sync", ignore_errors=True)
-    n_all = TRAIN_STEPS + TRAIN_RESUME
-    losses["straight"], runs["train straight"] = counted(
-        torch, "train straight", train_issues(cfg, micro,
-                                              n_all * TRAIN_ACCUM),
-        lambda: straight(cfg, n_all))
-    if losses["train cli"] + losses["train resume"] != losses["straight"]:
-        fail(f"phase 3 [train]: {TRAIN_STEPS} steps + resume "
-             f"{losses['train cli']} + {losses['train resume']} differ from "
-             f"the straight run {losses['straight']}")
-    log(f"phase 3 [train]: the CLI's {TRAIN_STEPS} steps and its resumed "
-        f"{TRAIN_RESUME} equal a straight run's losses bit for bit "
-        f"({losses['straight']})")
 
     # TRAIN_LAYERS layers through make_train_step, then measured
     cfg = cut(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
     state = {}
     losses["train"], runs["train"] = counted(
-        torch, "train", train_issues(cfg, micro, TRAIN_STEPS * TRAIN_ACCUM),
-        lambda: straight(cfg, TRAIN_STEPS, keep=state))
+        torch, "train", train_issues(cfg, TRAIN_SEQ,
+                                     TRAIN_STEPS * TRAIN_ACCUM),
+        lambda: train_straight(torch, cfg, TRAIN_STEPS, keep=state))
     if not all(math.isfinite(x) for x in losses["train"]):
         fail(f"phase 3 [train]: losses {losses['train']}")
     runs["train"]["losses"] = losses["train"]
@@ -4752,22 +4960,8 @@ def phase_train_run(torch):
         f"launches {runs['train']['launches']} (= what the code issues), "
         f"backward kernels {runs['train']['bwd_kernels']}, matmul routes "
         f"{runs['train']['routes']}")
-    meas = train_measure(torch, cfg, state["api"], state["params"],
-                         state["opt"], state["step_fn"],
-                         synth_lm_batch(cfg, shape, TRAIN_STEPS))
-    state.clear()
-    runs["train"]["step"] = meas
-    log(f"phase 3 [train step]: {cfg.n_layers} layers at full width, "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_ACCUM} microbatches: "
-        f"wall {meas['wall_ms']:.1f} ms ({meas['tokens_per_s']:.0f} tokens "
-        f"per s); under the profiler wall {meas['traced_wall_ms']:.1f} ms, "
-        f"device {meas['device_ms']:.1f} ms, idle share {meas['idle']:.3f}; "
-        f"parts (ms) { {k: round(v, 2) for k, v in meas['parts_ms'].items()} }"
-        f"; the port's kernels (device ms) "
-        f"{ {k: round(v, 2) for k, v in meas['kernels_ms'].items()} }; peak "
-        f"{meas['peak_gb']:.2f} GB; bound {meas['bound_ms']:.1f} ms (6 x "
-        f"{meas['matmul_params'] / 1e9:.3f} B product parameters x "
-        f"{TRAIN_BATCH * TRAIN_SEQ} tokens at 989 TFLOP/s)")
+    runs["train"]["step"] = train_step_logged(torch, "train step", cfg,
+                                              state)
 
     # the partitioned path: every sync leaves the live replicas equal
     real, cut = depth_of(train, PART_LAYERS)
@@ -4833,6 +5027,281 @@ def phase_train(torch) -> dict:
                              for k, v in runs.items()})
 
 
+# ---------------------------------------------------------------------------
+# the sixteenth slice: training the other families
+# ---------------------------------------------------------------------------
+
+# one config a family at published width, and the layers phase 3 trains on
+# one card (None: all), leaving at least 10 GB of its 80 free: 16 bytes a
+# parameter (bf16 params and grads, the f32 accumulator, m and v) and the
+# optimizer's f32 temporaries of a leaf; qwen3-moe's 623 M a layer and
+# internvl2's 390 M beside 622 M / 1,137 M of embedding and head
+TRAIN_FAMILIES = {"qwen3-moe-30b-a3b": 4, "internvl2-26b": 6,
+                  "mamba2-130m": None, "hymba-1.5b": None,
+                  "whisper-base": None}
+# the CLI and its resume only where a checkpoint is small: whisper-base's
+# ~1.1 GB and mamba2's ~1.6 GB (f32 params, m and v); qwen2-7b's CLI runs
+# already write ~32 GB of a call's 45 GiB
+TRAIN_FAMILY_CLI = ("whisper-base", "mamba2-130m")
+FAMILY_CLI_STEPS, FAMILY_CLI_RESUME = 2, 1
+FAMILY_BITWISE_STEPS = 2    # two runs from one seed, equal bit for bit
+# phase 2: fp32 at 2 layers on batches of 2 x (prefix + text): hymba at 3
+# layers and 1152 text rows, since its global layers (0, 15, 31) taken
+# modulo 2 layers leave no windowed layer, and 128 meta rows + 1152 make
+# 1280 > its 1024-key window; the two largest at 1 layer, for the full
+# run's time (its CPU steps took 111 and 135 s of the 994 s run at 2)
+TRAIN_FAMILY_CHECK = {"hymba_1p5b": (3, 1152),          # by config name
+                      "qwen3_moe_30b_a3b": (1, 128), "internvl2_26b": (1, 128)}
+TRAIN_CHECK_TEXT = 128
+
+
+def train_check_seq(cfg) -> tuple:
+    """(layers, positions) of phase 2 [train families] for ``cfg``: the
+    prefix (image or meta rows) + the text rows (TRAIN_FAMILY_CHECK, or 2
+    layers and TRAIN_CHECK_TEXT)."""
+    layers, text = TRAIN_FAMILY_CHECK.get(cfg.name, (2, TRAIN_CHECK_TEXT))
+    return layers, (cfg.n_img_tokens or 0) + (cfg.n_meta_tokens or 0) + text
+
+
+def train_family_cfg(arch):
+    depth = TRAIN_FAMILIES[arch]
+    return family_cfg(arch) if depth is None else family_cfg(
+        arch, n_layers=depth)
+
+
+def train_family_attention():
+    """(tag, (B, Sq, Skv, Hq, Hkv, D, causal, window)) of each attention
+    the families' training step runs at TRAIN_SEQ positions a microbatch:
+    each distinct window of an LM's layers; whisper's decoder self
+    attention and its cross attention over the encoder's frames."""
+    from repro_torch.models.transformer import layer_windows
+
+    out = []
+    for arch in TRAIN_FAMILIES:
+        cfg = family_cfg(arch)
+        if cfg.family == "ssm":
+            continue
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.family == "encdec":
+            out += [(f"{arch} self", (1, TRAIN_SEQ, TRAIN_SEQ, *heads, True,
+                                      0)),
+                    (f"{arch} cross", (1, TRAIN_SEQ, cfg.enc_seq, *heads,
+                                       False, 0))]
+            continue
+        for w in sorted({int(x) for x in layer_windows(cfg)}, reverse=True):
+            out.append((f"{arch} window {w}" if w else f"{arch} global",
+                        (1, TRAIN_SEQ, TRAIN_SEQ, *heads, True, w)))
+    return out
+
+
+def train_family_products():
+    """(tag, M, K, N, forward calls a step, backward calls a step) of each
+    training product whose forward or backward cannot take the tensor
+    cores (a dimension off 8 elements, a row off 16 bytes: ``mm_tiled``):
+    a block's over TRAIN_SEQ rows, forward twice under remat; a loss
+    chunk's head over the chunk, forward twice (its recompute); whisper's
+    head over the whole sequence, once."""
+    from repro_torch.profiling.train_counts import _chunk, block_products
+
+    out = []
+    for arch in TRAIN_FAMILIES:
+        cfg = train_family_cfg(arch)
+        if cfg.family == "encdec":
+            head = (TRAIN_SEQ, TRAIN_ACCUM, TRAIN_ACCUM)
+        else:
+            text = TRAIN_SEQ - (cfg.n_img_tokens or 0) - (
+                cfg.n_meta_tokens or 0)
+            rows = _chunk(text, LOSS_CHUNK)
+            n = text // rows * TRAIN_ACCUM
+            head = (rows, 2 * n, n)
+            prods = block_products(cfg)
+            for K, N in sorted(set(prods)):
+                n = prods.count((K, N)) * cfg.n_layers * TRAIN_ACCUM
+                if K % 8 or N % 8:
+                    out.append((f"{arch} block", TRAIN_SEQ, K, N, 2 * n, n))
+        if head[0] % 8 or cfg.d_model % 8 or cfg.vocab % 8:
+            out.append((f"{arch} head", head[0], cfg.d_model, cfg.vocab,
+                        *head[1:]))
+    return out
+
+
+def phase_train_family_kernels(torch):
+    """Phase 1 [train families]: flash attention's forward with LSE and its
+    backward at each family's training shapes (``train_family_attention``)
+    in bf16 and fp32 against the f32 plain backward, bit for bit on a
+    second launch, and each timed in bf16 beside SDPA and its bound; then
+    the products on the CUDA cores (``train_family_products``): forward,
+    dA and dB against ``ref.matmul`` within tol x (rms + |want|), bit for
+    bit on a second launch, timed beside ``torch.matmul`` and the bound."""
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import ref as mm_ref
+
+    t0 = time.perf_counter()
+    rnd = train_rnd(torch, 16)
+    failures, worst, attn = [], {}, {}
+    shapes = train_family_attention()
+    for tag, shape in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            errs = bwd_case(torch, rnd, tag, dt, shape, failures)
+            key = str(dt).split(".")[1]
+            for k_, e in errs.items():
+                worst[f"{key} {k_}"] = max(worst.get(f"{key} {k_}", 0.0), e)
+    if failures:
+        fail(f"phase 1 [train families]: {len(failures)} outputs outside "
+             f"their bound (name, fraction of the bound, max abs err), worst "
+             f"first: {sorted(failures, key=lambda f: -f[1])}")
+    log(f"phase 1 [train families]: LSE, dQ, dK, dV match their plain "
+        f"versions at {len(shapes)} training shapes in bf16 and fp32, each "
+        f"bit for bit on a second launch; worst max abs errors {worst}")
+    for tag, shape in shapes:
+        attn[tag] = bwd_timed(torch, rnd, tag, shape)
+
+    rows, mm_worst = {}, 0.0
+    for tag, M, K, N, n_fwd, n_bwd in train_family_products():
+        a, b, dc = (rnd((M, K), torch.bfloat16), rnd((K, N), torch.bfloat16),
+                    rnd((M, N), torch.bfloat16))
+        bt, at = b.t().contiguous(), a.t().contiguous()
+        for kind, (x, y) in {"forward": (a, b), "dA = dC B^T": (dc, bt),
+                             "dB = A^T dC": (at, dc)}.items():
+            name = f"matmul train {tag} {kind}"
+            got = mm_ops.matmul(x, y)
+            mm_worst = max(mm_worst, check_rms(
+                torch, name, got, mm_ref.matmul(x, y), TOL["bfloat16"]))
+            if not torch.equal(got, mm_ops.matmul(x, y)):
+                fail(f"{name}: two launches on the same inputs differ")
+            del got
+            t_k = time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10)
+            t_p = time_ms(torch, lambda i: mm_ref.matmul(x, y), 1, 3)
+            t_l = time_ms(torch, lambda i: torch.matmul(x, y), 1, 10)
+            Mx, Kx = x.shape
+            Nx = y.shape[1]
+            b_ms, by = bound(2 * (Mx * Kx + Kx * Nx + Mx * Nx),
+                             2 * Mx * Kx * Nx, H100_BF16)
+            n = n_fwd if kind == "forward" else n_bwd
+            rows[f"{tag} {kind} ({Mx},{Kx},{Nx})"] = dict(
+                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                bound_by=by, calls_per_step=n,
+                route=mm_ops.plan_for(x, y).route,
+                tflops=2 * Mx * Kx * Nx / t_k / 1e9)
+        del a, b, dc, bt, at
+        torch.cuda.empty_cache()
+    for shape, r in rows.items():
+        log(f"  matmul train {shape} [{r['route']}]: kernel_ms "
+            f"{r['ms']:.4f} ({r['tflops']:.1f} TFLOP/s) plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"(torch.matmul) bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); "
+            f"{r['calls_per_step']} a step")
+    log(f"phase 1 [train families]: the products on the CUDA cores match "
+        f"ref.matmul (max abs err {mm_worst:.3g}), bit for bit on a second "
+        f"launch ({time.perf_counter() - t0:.1f} s for phase 1 [train "
+        f"families])")
+    return {"attention": attn, "attention_worst": worst,
+            "attention_shapes": len(shapes),
+            "matmul": dict(shapes=rows, max_abs_err=mm_worst)}
+
+
+def phase_train_family_card_vs_cpu(torch):
+    """Phase 2 [train families]: each family at full width in fp32, the
+    card against the CPU over two steps (``train_card_vs_cpu``) at
+    ``train_check_seq``'s depth and positions, a vocabulary table's
+    absolute term over the rows and columns the batch touches
+    (``token_rms``; qwen2-7b's phase 2 keeps the leaf's)."""
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = family_cfg(arch, dtype="float32")
+        layers, seq = train_check_seq(cfg)
+        cfg2 = cfg.replace(n_layers=layers, **(
+            {"enc_layers": layers} if cfg.family == "encdec" else {}))
+        out[arch] = train_card_vs_cpu(torch, cfg2, seq,
+                                      f"train families {arch}", tables=True)
+    return out
+
+
+def phase_train_family_run(torch):
+    """Phase 3 [train families]: each family in bf16 at full width and the
+    depth of TRAIN_FAMILIES, seq TRAIN_SEQ x batch TRAIN_BATCH in
+    TRAIN_ACCUM microbatches, through ``make_train_step`` (what the CLI
+    runs): TRAIN_STEPS steps, then one measured (``train_measure``); a
+    second run of FAMILY_BITWISE_STEPS steps from the same seed must give
+    the first run's losses and parameters at that step bit for bit.  For
+    TRAIN_FAMILY_CLI, the CLI's steps and resume against a straight run
+    (``train_cli_resume``).  Every run's launches must equal what the code
+    issues, and every loss be finite."""
+    import shutil
+    import tempfile
+
+    from repro_torch.profiling.train_counts import train_issues
+    from repro_torch.tree import leaves_with_paths
+
+    runs = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_families_"))
+    for arch in TRAIN_FAMILIES:
+        cfg = train_family_cfg(arch)
+        full = family_cfg(arch).n_layers
+        name = f"train {arch}"
+        state, snap = {}, {"at": FAMILY_BITWISE_STEPS}
+        losses, runs[name] = counted(
+            torch, name, train_issues(cfg, TRAIN_SEQ,
+                                      TRAIN_STEPS * TRAIN_ACCUM),
+            lambda: train_straight(torch, cfg, TRAIN_STEPS, keep=state,
+                                   snap=snap))
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"phase 3 [{name}]: losses {losses}")
+        runs[name]["losses"] = losses
+        log(f"phase 3 [{name}]: {cfg.name} {cfg.n_layers} of {full} "
+            f"layers, bf16, seq {TRAIN_SEQ} x batch {TRAIN_BATCH} (accum "
+            f"{TRAIN_ACCUM}), {TRAIN_STEPS} steps through make_train_step in "
+            f"{runs[name]['wall']:.2f} s wall (init included): losses "
+            f"{losses}, peak {runs[name]['peak_gb']:.2f} GB, launches "
+            f"{runs[name]['launches']} (= what the code issues), backward "
+            f"kernels {runs[name]['bwd_kernels']}, matmul routes "
+            f"{runs[name]['routes']}")
+        runs[name]["step"] = train_step_logged(torch, f"{name} step", cfg,
+                                               state)
+        gc.collect()
+        torch.cuda.empty_cache()
+        again = {}
+        bit, runs[f"{name} bitwise"] = counted(
+            torch, f"{name} bitwise", train_issues(
+                cfg, TRAIN_SEQ, FAMILY_BITWISE_STEPS * TRAIN_ACCUM),
+            lambda: train_straight(torch, cfg, FAMILY_BITWISE_STEPS,
+                                   keep=again))
+        differ = [k for k, v in leaves_with_paths(again["params"])
+                  if not torch.equal(v, snap["params"][k].to(v.device))]
+        again.clear()
+        snap.clear()
+        if bit != losses[:FAMILY_BITWISE_STEPS] or differ:
+            fail(f"phase 3 [{name}]: two runs of {FAMILY_BITWISE_STEPS} "
+                 f"steps from one seed differ: losses {bit} against "
+                 f"{losses[:FAMILY_BITWISE_STEPS]}, parameters {differ}")
+        runs[f"{name} bitwise"]["losses"] = bit
+        log(f"phase 3 [{name}]: a second run of {FAMILY_BITWISE_STEPS} "
+            f"steps from the same seed equals the first bit for bit (losses "
+            f"{bit}, every parameter)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in TRAIN_FAMILY_CLI:
+            runs.update(train_cli_resume(
+                torch, arch, TRAIN_FAMILIES[arch], FAMILY_CLI_STEPS,
+                FAMILY_CLI_RESUME, tmp / arch, name))
+            gc.collect()
+            torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+def phase_train_families(torch) -> dict:
+    """``--only train_families``: the sixteenth slice's phase 1, 2 and 3
+    checks."""
+    stats = phase_train_family_kernels(torch)
+    phase_train_family_card_vs_cpu(torch)
+    runs = phase_train_family_run(torch)
+    return dict(stats, runs={k: {kk: vv for kk, vv in v.items()
+                                 if kk in ("launches", "wall", "losses",
+                                           "step", "peak_gb")}
+                             for k, v in runs.items()})
+
+
 # --only NAME: the sources to build and the phase-1 function to run
 ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
             torch, cfg, sweep=True)),
@@ -4855,7 +5324,10 @@ ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
         "encdec": (["matmul", "flash_attention", "paged_attention",
                     "flash_decode"], lambda torch, cfg: phase_encdec(torch)),
         "train": (["matmul", "flash_attention", "flash_attention_bwd"],
-                  lambda torch, cfg: phase_train(torch))}
+                  lambda torch, cfg: phase_train(torch)),
+        "train_families": (["matmul", "flash_attention",
+                            "flash_attention_bwd"],
+                           lambda torch, cfg: phase_train_families(torch))}
 
 
 def serving_wrappers():
@@ -4967,12 +5439,14 @@ def main() -> None:
     ssm_stats = phase_ssm_kernels(torch)
     encdec_stats = phase_encdec_kernels(torch)
     train_stats = phase_train_kernels(torch, cfg)
+    family_train_stats = phase_train_family_kernels(torch)
     phase_card_vs_cpu(torch, cfg)
     phase_family_card_vs_cpu(torch)
     phase_ssm_card_vs_cpu(torch)
     phase_encdec_card_vs_cpu(torch)
     phase_graph(torch, cfg)
     phase_train_card_vs_cpu(torch, cfg)
+    phase_train_family_card_vs_cpu(torch)
     gc.collect()
     torch.cuda.empty_cache()
     cnn_params, conv_shapes = phase_cnn_card_vs_cpu(torch)
@@ -4995,6 +5469,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_train_run(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(phase_train_family_run(torch))
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_cluster(torch, cfg))
@@ -5025,6 +5502,12 @@ def main() -> None:
         train_stats["flash_attention_backward"],
         kernels=list(fa_ops.BWD_KERNELS))
     stats["matmul"]["train"] = train_stats["matmul_train"]
+    # the sixteenth slice's (phase 1 [train families])
+    stats["flash_attention_backward"]["families"] = dict(
+        family_train_stats["attention"],
+        worst=family_train_stats["attention_worst"],
+        shapes=family_train_stats["attention_shapes"])
+    stats["matmul"]["train_families"] = family_train_stats["matmul"]
     bwd = train_stats["flash_attention_backward"]
     stats["flash_attention"]["train"] = dict(
         shape=bwd["shape"], forward_lse_ms=bwd["forward_lse_ms"],
@@ -5070,7 +5553,8 @@ def main() -> None:
                             "bf16_route_ms", "bf16_route_bound_ms", "modes",
                             "bidirectional", "train", "kernels", "errs",
                             "worst", "shapes", "forward_lse_ms",
-                            "forward_lse_bound_ms", "kernel_ms", "whisper")
+                            "forward_lse_bound_ms", "kernel_ms", "whisper",
+                            "families", "train_families")
                            if key in s},
                         **({"routes_by_run": {
                             run: r["routes"] for run, r in runs.items()

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone, and its kernel wrappers never fall back.
 
-* No module of ``src/repro_torch/``, not ``chip_smoke.py`` and not
-  ``tools/torch_trace_export.py`` imports ``jax``, ``ml_dtypes`` (which
-  ships with jax; the card's machine has neither) or anything of the JAX
+* No module of ``src/repro_torch/``, not ``chip_smoke.py`` and no
+  ``tools/torch_*.py`` or ``examples/torch_*.py`` imports ``jax``,
+  ``ml_dtypes`` (which ships with jax; the card's machine has neither)
+  or anything of the JAX
   package ``repro`` (the port keeps its own copies of the host modules it
   needs).
 * Each kernel wrapper (``ops.py``) sends a CPU tensor to its plain
@@ -31,7 +32,8 @@ from repro_torch.kernels.paged_attention import ref as pa_ref
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_export.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py")) + \
+    sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _forbidden(name: str) -> bool:
@@ -52,7 +54,10 @@ def _imports(path: Path):
 def test_port_has_files():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "engine.py", "ops.py", "serve.py",
-            "torch_trace_export.py", "cluster.py", "protocol.py"} <= names
+            "torch_trace_export.py", "cluster.py", "protocol.py",
+            "torch_make_reference_profile.py", "torch_quickstart.py",
+            "torch_partitioned_training.py",
+            "torch_traffic_shaping_demo.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
