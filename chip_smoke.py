@@ -51,8 +51,9 @@ Phases (each raises on failure; nothing is caught):
    int8/fp8 pages at 5e-2, the reference's quantization budget (QTOL).
    The matmul is also held over its tensor-core tiles' edges (MM_EDGE_MS x
    MM_EDGE_KN), at forced split counts on each route, with bf16 operands
-   off a 16-byte boundary (which must take the CUDA cores) and by two
-   launches of each bf16 route on the same inputs (bit for bit); it is
+   whose rows are not 16-byte aligned (which must take the tensor cores,
+   staged: the MM_STAGED_* grid) and by two launches of
+   each bf16 route on the same inputs (bit for bit); it is
    timed over a decode step's 197 calls and a prefill wave's 196, each
    shape on its own weight buffers past the L2 (``prefill_ms`` and its
    peers in the JSON), and at the CNNs' fp32 fc.
@@ -82,14 +83,14 @@ Phases (each raises on failure; nothing is caught):
    The matmul and flash attention are also held at the shapes of the
    eleventh slice's configs (FAMILY_RUNS), bf16 and fp32: every
    projection at M = SLOTS and at a prefill wave's rows, each LM head at
-   M = SLOTS (internvl2's 92,553 columns take the CUDA cores), and each
+   M = SLOTS (internvl2's 92,553 columns staged), and each
    config's prefill wave (G = 1 with 20 heads; internvl2's 288 rows, 256
    of them the image prefix).  And at the twelfth slice's shapes
    (``phase_ssm_kernels``), bf16 and fp32, each timed in bf16 beside its
    plain version and bound: the matmul at every (M, K, N) of mamba2-130m
    and hymba-1.5b at M = SLOTS and at a wave's rows (hymba's 128 meta rows
    included) and each LM head, with its route (hymba's in_proj, N = 3257,
-   and head, 32,001 columns, are not 16-byte rows: the CUDA cores); flash
+   and head, 32,001 columns, are not 16-byte rows: staged); flash
    attention at hymba's (Hq 25, Hkv 5, D 64), 4 x 160 rows and a 1,280-row
    prompt, windows 0 and 1024 (which bites there); ``paged_decode`` and
    ``flash_decode`` at (25, 5, 64), contexts 163-174 and ~1,290, windows 0
@@ -102,8 +103,8 @@ Phases (each raises on failure; nothing is caught):
    80), bf16 and fp32, timed at the encoder beside SDPA; flash decode at G
    = 1 over the 1500-row cross K/V at a device scalar position and over the
    self slab, at forced splits, timed beside SDPA; the matmul at an encoder
-   wave's M = 6000 and a decode step's M = 4 (the 51,865-column head on
-   ``mm_skinny``), with routes and times beside ``torch.matmul``.  And at
+   wave's M = 6000 and a decode step's M = 4 (the 51,865-column head
+   staged), with routes and times beside ``torch.matmul``.  And at
    the fourteenth slice's (``phase_train_kernels``): flash attention's
    forward with its log-sum-exp and the three backward kernels (Delta, dK
    / dV, dQ) at qwen2-7b's training shape (q (1, 4096, 28, 128), bf16,
@@ -126,9 +127,10 @@ Phases (each raises on failure; nothing is caught):
    timings at each family's training shapes (qwen3-moe's and internvl2's
    GQA, hymba's G = 5 at D = 64 with and without its 1024-key window,
    whisper's decoder self attention and its cross attention of 4096
-   queries over 1500 frames), and every training product that takes the
-   CUDA cores (hymba's in_proj, the heads of 32,001, 92,553 and 51,865
-   columns): forward, dA and dB, bit for bit on a second launch.
+   queries over 1500 frames), and every training product whose rows are
+   not 16 bytes (hymba's in_proj, the heads of 32,001, 92,553 and 51,865
+   columns): forward, dA and dB on the tensor cores, staged, bit for bit
+   on a second launch, timed in turns against the parent's ``mm_tiled``.
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
    weights on both; ragged prefill and 4 decode steps on a float pool
    (logits within 1e-3: f32 on both sides, summed in different orders
@@ -238,8 +240,8 @@ Phases (each raises on failure; nothing is caught):
    layer after layer at the step's buffer on the engine's weights, beside
    their bytes bound.  Then mamba2-130m (24 layers) and hymba-1.5b (32)
    at full width and depth, bf16, phase 3's load, and hymba again on the
-   dense slab, the same gates (``phase_ssm_serve``); hymba's in_proj and
-   head must take the CUDA cores and mamba2's matmuls the tensor cores;
+   dense slab, the same gates (``phase_ssm_serve``); every matmul must
+   take the tensor cores, hymba's in_proj and head staged;
    each logs its replayed step beside a bound of its weights (mamba2's
    tied embedding included) and its slots' SSM state read and written,
    and its SSM path's device ms alone (every layer's ``ssm_decode``
@@ -346,6 +348,15 @@ FA_LONG = 2048               # a long prompt: operations-bound
 MM_EDGE_MS = (1, 4, 15, 16, 17, 63, 64, 65, 127, 128, 129, 200)
 MM_EDGE_KN = ((1000, 520), (72, 8))
 MM_SWEEP = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 20, 28)
+# the staged grid: operands whose rows are not 16-byte aligned on the
+# tensor cores; (K, N) cover every K mod 8 and N mod 8, the K step's and
+# the 128-column tile's edges; (A, B) bytes off a 16-byte boundary
+MM_STAGED_MS = (1, 4, 16, 17, 64, 65, 128, 129, 300)
+MM_STAGED_KN = ((7, 1), (63, 7), (65, 9), (1000, 127), (3583, 129),
+                (1000, 521), (3583, 3257), (130, 130), (1003, 515), (68, 4),
+                (125, 517), (1006, 262), (1000, 520))
+MM_STAGED_OFFS = ((0, 0), (2, 6), (6, 14), (14, 2))
+MM_STAGED_SPLITS = (1, 2, 3, 7, 10_000)
 
 # the decode template's split walk: contexts 1, 31, 32, 33 around the first
 # 32-row tile edge, and contexts of about DECODE_LONG (bytes-bound), each
@@ -525,18 +536,167 @@ def rows_read(torch, cur, bs, T, Hkv, keep=None):
 # ---------------------------------------------------------------------------
 
 
+def staged_view(torch, rnd, shape, off):
+    """A contiguous bf16 matrix ``off`` bytes past a 16-byte boundary."""
+    n = shape[0] * shape[1]
+    flat = rnd((n + 8,), torch.bfloat16)
+    return flat[off // 2:off // 2 + n].view(shape)
+
+
+def staged_grid(torch, rnd) -> int:
+    """The tensor-core route on operands whose rows are not 16-byte
+    aligned, against ``ref.matmul`` at 3e-2: every M of MM_STAGED_MS at
+    every (K, N) of MM_STAGED_KN with A and B off by MM_STAGED_OFFS; the
+    forced splits of MM_STAGED_SPLITS at M = 65; each staged combination
+    (A only, B only, both) launched twice on the same inputs bit for bit,
+    and a staged launch on views off 16 bytes bit for bit against an
+    aligned launch on copies of them (one tile layout, one product loop).
+    Returns the launches held to the plain version."""
+    from repro_torch.kernels.matmul import matmul as mm_k
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import ref as mm_ref
+
+    t0 = time.perf_counter()
+    tol, n = TOL["bfloat16"], 0
+    before = (mm_ops.matmul.staged, dict(mm_ops.matmul.routes))
+    for K, N in MM_STAGED_KN:
+        for a_off, b_off in MM_STAGED_OFFS:
+            b = staged_view(torch, rnd, (K, N), b_off).mul_(1 / math.sqrt(K))
+            for M in MM_STAGED_MS:
+                a = staged_view(torch, rnd, (M, K), a_off)
+                want = mm_ref.matmul(a, b)
+                got = mm_ops.matmul(a, b)
+                staged = (K % 8 != 0 or a_off != 0, N % 8 != 0 or b_off != 0)
+                p = mm_k.plan_for(a, b)
+                if p.route != "mma" or p.staged != staged:
+                    fail(f"matmul staged {M}x{K}x{N} (A +{a_off} B +{b_off} "
+                         f"bytes): plan {p}, want mma with staged {staged}")
+                check_close(torch, f"matmul staged {M}x{K}x{N} A +{a_off} "
+                            f"B +{b_off} ({p})", got, want, tol)
+                n += 1
+                if any(staged) and not torch.equal(got, mm_k.launch(a, b, p)):
+                    fail(f"matmul staged {M}x{K}x{N} A +{a_off} B +{b_off} "
+                         f"({p}): two launches on the same inputs differ")
+                if any(staged) and K % 8 == 0 and N % 8 == 0 and M in (
+                        4, 65, 300) and not torch.equal(
+                            got, mm_k.matmul_cuda(a.clone(), b.clone())):
+                    fail(f"matmul staged {M}x{K}x{N} A +{a_off} B +{b_off}: "
+                         "differs from the aligned launch on copies")
+            # forced splits, more than the K steps last
+            M = 65
+            a = staged_view(torch, rnd, (M, K), a_off)
+            want = mm_ref.matmul(a, b)
+            for splits in MM_STAGED_SPLITS:
+                q = mm_k.plan_for(a, b, splits=splits)
+                check_close(torch, f"matmul staged {M}x{K}x{N} A +{a_off} "
+                            f"B +{b_off} ({q})", mm_k.launch(a, b, q), want,
+                            tol)
+                n += 1
+    launched = mm_ops.matmul.staged - before[0]
+    want_staged = sum(
+        len(MM_STAGED_MS) for K, N in MM_STAGED_KN
+        for a_off, b_off in MM_STAGED_OFFS
+        if K % 8 or a_off or N % 8 or b_off)
+    if launched != want_staged or any(
+            mm_ops.matmul.routes[r] != before[1][r]
+            for r in ("skinny", "tiled")):
+        fail(f"matmul staged grid: the wrapper counted {launched} staged "
+             f"launches (want {want_staged}) and routes {mm_ops.matmul.routes}"
+             f" (from {before[1]})")
+    log(f"phase 1: matmul staged grid: {n} launches on the tensor cores "
+        f"within {tol} of ref.matmul (M {MM_STAGED_MS}, (K, N) "
+        f"{MM_STAGED_KN}, A / B off {MM_STAGED_OFFS} bytes, splits "
+        f"{MM_STAGED_SPLITS} at M = 65), each staged combination bit for "
+        f"bit twice, aligned copies bit for bit; {launched} staged launches "
+        "counted "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return n
+
+
+def staged_products():
+    """(tag, M, K, N) of the products whose operands are not 16-byte rows:
+    hymba's in_proj and the heads of 32,001 / 92,553 / 51,865 columns, at a
+    decode step's M = SLOTS, hymba's in_proj at a wave's 4 x 160 rows, the
+    training forward's M (``train_family_products``) and M = 64 (the
+    64-row tile; "train" and "64" are timed with their backward
+    products)."""
+    out = []
+    for tag, M, K, N, _, _ in train_family_products():
+        out.append((f"{tag} decode", SLOTS, K, N))
+        if "hymba-1.5b block" in tag:
+            out.append((f"{tag} wave", SLOTS * 160, K, N))
+        out += [(f"{tag} train", M, K, N), (f"{tag} 64", 64, K, N)]
+    return out
+
+
+def staged_ab(torch) -> dict:
+    """The staged route's A/B (``--only matmul``): each product of
+    ``staged_products`` (training ones as forward, dA = dC B^T and dB =
+    A^T dC), timed in turns on the plan's staged launch, the parent's
+    CUDA-core route (``skinny`` at M <= 16, else ``tiled``) and
+    ``torch.matmul``, the weight buffers past the L2; and the plan's
+    launch at the shape cut to whole 16-byte rows (K and N rounded down to
+    multiples of 8: no operand staged), for what the staging costs."""
+    from repro_torch.kernels.matmul import matmul as mm_k
+    from repro_torch.kernels.matmul import plan as mm_plan
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
+
+    out = {}
+    for tag, M, K, N in staged_products():
+        calls = {"forward": (M, K, N)}
+        if tag.endswith(("train", "64")):
+            calls.update({"dA": (M, N, K), "dB": (K, M, N)})
+        for kind, (Mx, Kx, Nx) in calls.items():
+            n_buf = max(1, min(16, int(256e6 // (Kx * Nx * 2)) + 1))
+            a = rnd((Mx, Kx))
+            bs = [rnd((Kx, Nx), 1 / math.sqrt(Kx)) for _ in range(n_buf)]
+            old = "skinny" if Mx <= mm_plan.SK_MAXM else "tiled"
+            fns = {"staged": lambda i: mm_k.matmul_cuda(a, bs[i])}
+            fns[old] = lambda i: mm_k.matmul_cuda(a, bs[i], route=old)
+            fns["torch"] = lambda i: torch.matmul(a, bs[i])
+            ka, na = Kx - Kx % 8, Nx - Nx % 8
+            a8 = rnd((Mx, ka))
+            b8 = [rnd((ka, na), 1 / math.sqrt(ka)) for _ in range(n_buf)]
+            fns["aligned"] = lambda i: mm_k.matmul_cuda(a8, b8[i])
+            order = list(fns) + list(fns)[::-1]
+            iters = 3 if Mx * Kx * Nx > 2e10 else 10
+            times = {k: [] for k in fns}
+            for k in order:
+                times[k].append(time_ms(torch, fns[k], n_buf, iters))
+            ms = {k: sum(v) / len(v) for k, v in times.items()}
+            b_ms, by = bound(2 * (Mx * Kx + Kx * Nx + Mx * Nx),
+                             2 * Mx * Kx * Nx, H100_BF16)
+            p = mm_k.plan_for(a, bs[0])
+            name = f"{tag} {kind} ({Mx},{Kx},{Nx})"
+            out[name] = dict(ms, bound_ms=b_ms, bound_by=by, plan=str(p))
+            log(f"  matmul staged A/B {name} [{p.route} bm {p.bm} splits "
+                f"{p.splits} staged {p.staged}]: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                + f" ms; bound {b_ms:.4f} ({by})")
+            del a, bs, a8, b8
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_matmul(torch, cfg, sweep=False):
     """The matmul kernels against ``ref.matmul`` on the card: the main
     path's shapes (M = slots at decode, slots x prompt in a prefill wave) in
     bf16 and fp32; the edges of the tensor-core tiles (every M of MM_EDGE_MS
     at K and N that are not whole K steps or column tiles, and K shorter
-    than the ring); forced split counts on every route; bf16 operands off a
-    16-byte boundary, which must take the CUDA cores; every bf16 route
-    twice on the same inputs, bit for bit.  Then the decode step's 197
-    calls and the prefill wave's 196, each shape timed on its own weight
-    buffers past the L2, beside ``torch.matmul`` and the bytes bound; at
-    M = 4 the two bf16 routes side by side; the CNNs' fp32 fc at M = 64.
-    ``sweep`` also times the tensor-core route at forced split counts."""
+    than the ring); forced split counts on every route; bf16 operands whose
+    rows are not 16-byte aligned, which must take the tensor cores, staged
+    (``staged_grid``); every bf16 route twice on the same inputs, bit for
+    bit.  Then the decode step's 197 calls and the prefill wave's 196, each
+    shape timed on its own weight buffers past the L2, beside
+    ``torch.matmul`` and the bytes bound; at M = 4 the two bf16 routes side
+    by side; the CNNs' fp32 fc at M = 64.  ``sweep`` also times the
+    tensor-core route at forced split counts and the staged route's A/B
+    (``staged_ab``)."""
     from repro_torch.kernels.matmul import matmul as mm_k
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import plan as mm_plan
@@ -598,6 +758,7 @@ def phase_matmul(torch, cfg, sweep=False):
     n_forced = 0
     for route, M, K, N in (("mma", 4, d, Hkv * hd), ("mma", 64, 1000, 520),
                            ("mma", 128, d, d), ("mma", 200, 1000, 520),
+                           ("mma", 200, 1003, 517), ("mma", 4, 1000, 521),
                            ("skinny", 4, 1000, 520),
                            ("tiled", 128, 1000, 520)):
         for dt in ((bf,) if route == "mma" else (bf, torch.float32)):
@@ -609,23 +770,13 @@ def phase_matmul(torch, cfg, sweep=False):
                             f"{p.splits}", mm_k.launch(a, b, p), want,
                             tol(dt))
                 n_forced += 1
-    # bf16 off a 16-byte boundary: the plan must send it to the CUDA cores
-    for M in (SLOTS, SLOTS * PROMPT):
-        K, N = d, Hkv * hd
-        flat = rnd((M * K + 1,), bf)
-        a, b = flat[1:].view(M, K), rnd((K, N), bf, 1 / math.sqrt(K))
-        before = dict(mm_ops.matmul.routes)
-        got = mm_ops.matmul(a, b)
-        took = [r for r in mm_plan.ROUTES
-                if mm_ops.matmul.routes[r] != before[r]]
-        if took != (["skinny"] if M <= mm_plan.SK_MAXM else ["tiled"]):
-            fail(f"matmul misaligned bf16 {M}x{K}x{N}: took route {took}")
-        check_close(torch, f"matmul misaligned bf16 {M}x{K}x{N}", got,
-                    mm_ref.matmul(a, b), tol(bf))
+    # every bf16 operand takes the tensor cores: the staged grid
+    n_staged = staged_grid(torch, rnd)
     # every bf16 route twice on the same inputs: bit for bit
     for route, M, K, N in (("mma", SLOTS, d, d), ("mma", 64, d, d),
                            ("mma", SLOTS * PROMPT, d, d),
                            ("mma", SLOTS * PROMPT, d, Hkv * hd),
+                           ("mma", 200, 1003, 517), ("mma", 4, 1000, 521),
                            ("skinny", SLOTS, d, d),
                            ("tiled", SLOTS * PROMPT, d, d)):
         a, b = operands(M, K, N, bf)
@@ -636,9 +787,9 @@ def phase_matmul(torch, cfg, sweep=False):
     log(f"phase 1: matmul matches its plain version at {2 * len(proj)} "
         f"main-path shapes x 2 dtypes (bf16 max abs err {worst:.3g}), 3 "
         f"ragged ones, {len(MM_EDGE_MS) * len(MM_EDGE_KN)} tile-edge shapes "
-        f"x 2 dtypes (bf16 {edge_worst:.3g}), {n_forced} forced splits, 2 "
-        "misaligned bf16 operands on the CUDA cores; each bf16 route is "
-        "bitwise repeatable")
+        f"x 2 dtypes (bf16 {edge_worst:.3g}), {n_forced} forced splits, "
+        f"{n_staged} staged launches on the tensor cores; each bf16 route "
+        "is bitwise repeatable")
 
     def b_buffers(K, N, dt):
         """Distinct weight buffers, together past the 50 MB L2."""
@@ -718,6 +869,7 @@ def phase_matmul(torch, cfg, sweep=False):
                 log(f"  matmul sweep mma {M}x{K}x{N} (plan splits "
                     f"{plan.splits}): ms by splits " + ", ".join(row))
                 del a, bs
+        out["matmul_staged_ab"] = staged_ab(torch)
     out["matmul"] = dict(
         shape=f"one decode step: {n_step} calls at M={SLOTS} (28 x q,k,v,o,"
               f"w1,w3,w2 + LM head), bf16; prefill: one wave's {n_wave} "
@@ -2245,6 +2397,7 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     for w in wrappers.values():
         w.launches = 0
     mm_ops.matmul.routes.update(dict.fromkeys(mm_ops.matmul.routes, 0))
+    mm_ops.matmul.staged = 0
     for w in (pa_ops.paged_decode_sparse, pa_ops.paged_decode_quant):
         w.dropped_blocks.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -2256,6 +2409,7 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     routes = dict(mm_ops.matmul.routes)
+    staged = mm_ops.matmul.staged
     dropped = {k: w.dropped_blocks.value for k, w in
                (("paged_decode_sparse", pa_ops.paged_decode_sparse),
                 ("paged_decode_quant", pa_ops.paged_decode_quant))}
@@ -2293,7 +2447,8 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
         f"tokens in {wall:.2f} s wall ({tokens / wall:.2f} generated tokens "
         f"per wall second), max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
-        f"{launches}, matmul launches by route {routes}, dropped blocks "
+        f"{launches}, matmul launches by route {routes} ({staged} staged), "
+        "dropped blocks "
         f"{dropped}; decode steps {graphs['eager']} eager, "
         f"{graphs['replays']} replayed, {graphs['captures']} captures in "
         f"{graphs['capture_s']:.3f} s; prefills ({prefills['shapes']} "
@@ -2302,8 +2457,9 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
         f"{sum(e.n_refills for e in engines)} of them refills")
     if after is not None:
         after(engines)
-    return dict(launches=launches, routes=routes, dropped=dropped, wall=wall,
-                tokens=tokens, graphs=graphs, prefills=prefills)
+    return dict(launches=launches, routes=routes, staged=staged,
+                dropped=dropped, wall=wall, tokens=tokens, graphs=graphs,
+                prefills=prefills)
 
 
 # the kernels each phase-3 run must launch (launch count above 0); the
@@ -3041,10 +3197,10 @@ def phase_ssm_kernels(torch):
         sets = [(rnd((M, K), bf), rnd((K, N), bf, 1 / math.sqrt(K)))
                 for _ in range(n_sets)]
         plans = [plan_for(a, b) for a, b in sets]
-        route = plans[0].route
-        if any(p.route != route for p in plans):
-            fail(f"matmul {M}x{K}x{N}: one shape took routes "
-                 f"{sorted({p.route for p in plans})}")
+        route = plans[0].route + (" staged" if any(plans[0].staged) else "")
+        if any((p.route, p.staged) != (plans[0].route, plans[0].staged)
+               for p in plans):
+            fail(f"matmul {M}x{K}x{N}: one shape took plans {plans}")
         t_k = time_ms(torch, lambda i: launch(*sets[i], plans[i]), n_sets)
         t_p = time_ms(torch, lambda i: mm_ref.matmul(*sets[i]), n_sets, 5)
         t_l = time_ms(torch, lambda i: torch.matmul(*sets[i]), n_sets)
@@ -3066,13 +3222,13 @@ def phase_ssm_kernels(torch):
         + ", ".join(f"{a} {s['ms']:.3f} ms (torch.matmul {s['library_ms']:.3f}"
                     f", bound {s['bound_ms']:.3f})" for a, s in steps.items()))
     cfg = family_cfg("hymba-1.5b")
-    for name, M, K, N, want in (("in_proj", SLOTS, 1600, 3257, "skinny"),
-                                ("in_proj", SLOTS * 160, 1600, 3257, "tiled"),
-                                ("head", SLOTS, 1600, cfg.vocab, "skinny")):
-        if times[(M, K, N)]["route"] != want:
+    for name, M, K, N in (("in_proj", SLOTS, 1600, 3257),
+                          ("in_proj", SLOTS * 160, 1600, 3257),
+                          ("head", SLOTS, 1600, cfg.vocab)):
+        if times[(M, K, N)]["route"] != "mma staged":
             fail(f"matmul hymba {name} {M}x{K}x{N}: route "
-                 f"{times[(M, K, N)]['route']}, want {want} (its rows are "
-                 "not 16 bytes)")
+                 f"{times[(M, K, N)]['route']}, want mma staged (its rows "
+                 "are not 16 bytes)")
 
     # -- flash attention at hymba's heads, windows 0 and 1024
     hq, hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_window
@@ -3285,8 +3441,8 @@ def phase_ssm_serve(torch, wrappers):
     slots, stagger demand), then hymba on the dense slab (``--dense``),
     with ``serve_run``'s gates; each must launch the matmul (hymba also
     flash attention and ``paged_decode``, or ``flash_decode`` on the
-    slab), and hymba's misaligned in_proj and head must take the CUDA
-    cores.  Each
+    slab), and every matmul must take the tensor cores, hymba's in_proj and
+    head staged (their rows are not 16 bytes).  Each
     logs the replayed decode step's device ms, wall ms, idle share and
     bytes bound (``step_measure``: the weights, mamba2's tied embedding
     included, and every slot's SSM state read and written)."""
@@ -3311,10 +3467,12 @@ def phase_ssm_serve(torch, wrappers):
         for k in carries:
             if runs[name]["launches"][k] == 0:
                 fail(f"serve {name}: kernel {k} was never launched")
-        routes = runs[name]["routes"]
-        if (cfg.family == "ssm") != (routes["skinny"] + routes["tiled"] == 0):
-            fail(f"serve {name}: matmul routes {routes} (hymba's in_proj and "
-                 "head take the CUDA cores, mamba2's every matmul mm_mma)")
+        routes, staged = runs[name]["routes"], runs[name]["staged"]
+        if routes["skinny"] + routes["tiled"] or \
+                (cfg.family == "ssm") != (staged == 0):
+            fail(f"serve {name}: matmul routes {routes}, {staged} staged "
+                 "(every matmul on mm_mma, hymba's in_proj and head staged, "
+                 "none of mamba2's)")
         m = measured
         log(f"phase 3 [{name}]: {cfg.name} d={cfg.d_model} "
             f"layers={cfg.n_layers}: replayed decode step "
@@ -3389,8 +3547,8 @@ def phase_encdec_kernels(torch):
     and over the self slab at a position vector, through the wrapper and at
     forced splits, timed beside SDPA (every key valid, no mask: the same
     function); the matmul at every (M, K, N) of an encoder wave (M = SLOTS
-    x 1500) and a decode step (M = SLOTS, the 51,865-column head on the
-    CUDA cores), with its route, on weight buffers past the L2.  Returns
+    x 1500) and a decode step (M = SLOTS, the 51,865-column head staged),
+    with its route, on weight buffers past the L2.  Returns
     the timings by kernel."""
     from repro_torch.kernels import decode_split
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -3514,8 +3672,9 @@ def phase_encdec_kernels(torch):
         n_sets = max(1, min(64, math.ceil(120e6 / (2 * K * N))))
         sets = [(rnd((M, K), bf), rnd((K, N), bf, 1 / math.sqrt(K)))
                 for _ in range(n_sets)]
-        route = plan_for(*sets[0]).route
-        want = "skinny" if N == cfg.vocab else "mma"
+        p0 = plan_for(*sets[0])
+        route = p0.route + (" staged" if any(p0.staged) else "")
+        want = "mma staged" if N == cfg.vocab else "mma"
         if route != want:
             fail(f"matmul whisper {M}x{K}x{N}: route {route}, want {want}")
         plans = [plan_for(a, b) for a, b in sets]
@@ -3751,8 +3910,8 @@ def phase_encdec_serve(torch, wrappers):
     partitions x 4 slots, stagger demand) with ``serve_run``'s gates (each
     engine's wave through the fleet's one prefill key: eager, then
     captured); it must launch the matmul, flash attention and flash decode
-    and no paged kernel, with every matmul on the tensor cores but the 4
-    issued LM heads (51,865 columns: ``mm_skinny``).  Logs the replayed
+    and no paged kernel, with every matmul on the tensor cores, the 4
+    issued LM heads (51,865 columns) staged.  Logs the replayed
     step and the encoder wave beside their bounds, the idle share and the
     peak memory (``encdec_measure``); then the graph lockstep at full
     width and depth in bf16."""
@@ -3771,9 +3930,10 @@ def phase_encdec_serve(torch, wrappers):
         if (n == 0) == (k in ("matmul", "flash_attention", "flash_decode")):
             fail(f"serve {ENCDEC_ARCH}: kernel {k} launched {n} times")
     routes = run["routes"]
-    if routes["tiled"] or routes["skinny"] != 4 or not routes["mma"]:
-        fail(f"serve {ENCDEC_ARCH}: matmul routes {routes} (want mm_mma but "
-             "the 4 issued heads on mm_skinny)")
+    if routes["tiled"] or routes["skinny"] or run["staged"] != 4:
+        fail(f"serve {ENCDEC_ARCH}: matmul routes {routes}, {run['staged']} "
+             "staged (want every matmul on mm_mma, the 4 issued heads "
+             "staged)")
     m = measured
     log(f"phase 3 [{ENCDEC_ARCH}]: {cfg.name} d={cfg.d_model} "
         f"layers={cfg.enc_layers}+{cfg.n_layers}: replayed decode step "
@@ -4178,6 +4338,7 @@ def zero_counts(torch):
     for w in train_wrappers().values():
         w.launches = 0
     mm_ops.matmul.routes.update(dict.fromkeys(mm_ops.matmul.routes, 0))
+    mm_ops.matmul.staged = 0
     kernels = fa_ops.flash_attention_backward.kernels
     kernels.update(dict.fromkeys(kernels, 0))
 
@@ -4189,6 +4350,7 @@ def read_counts():
     return dict(launches={k: w.launches for k, w in
                           train_wrappers().items()},
                 routes=dict(mm_ops.matmul.routes),
+                staged=mm_ops.matmul.staged,
                 bwd_kernels=dict(fa_ops.flash_attention_backward.kernels))
 
 
@@ -5096,8 +5258,9 @@ def train_family_attention():
 
 def train_family_products():
     """(tag, M, K, N, forward calls a step, backward calls a step) of each
-    training product whose forward or backward cannot take the tensor
-    cores (a dimension off 8 elements, a row off 16 bytes: ``mm_tiled``):
+    training product whose forward or backward has an operand whose rows
+    are not 16 bytes (a dimension off 8 elements: staged on the tensor
+    cores):
     a block's over TRAIN_SEQ rows, forward twice under remat; a loss
     chunk's head over the chunk, forward twice (its recompute); whisper's
     head over the whole sequence, once."""
@@ -5130,9 +5293,12 @@ def phase_train_family_kernels(torch):
     backward at each family's training shapes (``train_family_attention``)
     in bf16 and fp32 against the f32 plain backward, bit for bit on a
     second launch, and each timed in bf16 beside SDPA and its bound; then
-    the products on the CUDA cores (``train_family_products``): forward,
-    dA and dB against ``ref.matmul`` within tol x (rms + |want|), bit for
-    bit on a second launch, timed beside ``torch.matmul`` and the bound."""
+    the products whose rows are not 16 bytes (``train_family_products``):
+    forward, dA and dB against ``ref.matmul`` within tol x (rms + |want|),
+    on the tensor cores with the misaligned operand staged, bit for bit on
+    a second launch, timed in turns with the parent's route (``mm_tiled``,
+    forced) beside ``torch.matmul`` and the bound."""
+    from repro_torch.kernels.matmul import matmul as mm_k
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
 
@@ -5169,8 +5335,17 @@ def phase_train_family_kernels(torch):
                 torch, name, got, mm_ref.matmul(x, y), TOL["bfloat16"]))
             if not torch.equal(got, mm_ops.matmul(x, y)):
                 fail(f"{name}: two launches on the same inputs differ")
+            p = mm_ops.plan_for(x, y)
+            if p.route != "mma" or not any(p.staged):
+                fail(f"{name}: plan {p}, want mma with a staged operand")
             del got
-            t_k = time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10)
+            turns = [time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10),
+                     time_ms(torch, lambda i: mm_k.matmul_cuda(
+                         x, y, route="tiled"), 1, 3)]
+            turns += [time_ms(torch, lambda i: mm_k.matmul_cuda(
+                x, y, route="tiled"), 1, 3),
+                time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10)]
+            t_k, t_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             t_p = time_ms(torch, lambda i: mm_ref.matmul(x, y), 1, 3)
             t_l = time_ms(torch, lambda i: torch.matmul(x, y), 1, 10)
             Mx, Kx = x.shape
@@ -5180,18 +5355,19 @@ def phase_train_family_kernels(torch):
             n = n_fwd if kind == "forward" else n_bwd
             rows[f"{tag} {kind} ({Mx},{Kx},{Nx})"] = dict(
                 ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                bound_by=by, calls_per_step=n,
-                route=mm_ops.plan_for(x, y).route,
+                bound_by=by, calls_per_step=n, tiled_ms=t_old,
+                route=f"{p.route} staged {p.staged}",
                 tflops=2 * Mx * Kx * Nx / t_k / 1e9)
         del a, b, dc, bt, at
         torch.cuda.empty_cache()
     for shape, r in rows.items():
         log(f"  matmul train {shape} [{r['route']}]: kernel_ms "
-            f"{r['ms']:.4f} ({r['tflops']:.1f} TFLOP/s) plain_ms "
+            f"{r['ms']:.4f} ({r['tflops']:.1f} TFLOP/s) mm_tiled_ms "
+            f"{r['tiled_ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
             f"(torch.matmul) bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); "
             f"{r['calls_per_step']} a step")
-    log(f"phase 1 [train families]: the products on the CUDA cores match "
+    log(f"phase 1 [train families]: the staged products match "
         f"ref.matmul (max abs err {mm_worst:.3g}), bit for bit on a second "
         f"launch ({time.perf_counter() - t0:.1f} s for phase 1 [train "
         f"families])")
@@ -5223,7 +5399,9 @@ def phase_train_family_run(torch):
     TRAIN_ACCUM microbatches, through ``make_train_step`` (what the CLI
     runs): TRAIN_STEPS steps, then one measured (``train_measure``); a
     second run of FAMILY_BITWISE_STEPS steps from the same seed must give
-    the first run's losses and parameters at that step bit for bit.  For
+    the first run's losses and parameters at that step bit for bit; the
+    families of ``train_family_products`` must stage some matmul operands,
+    the others none.  For
     TRAIN_FAMILY_CLI, the CLI's steps and resume against a straight run
     (``train_cli_resume``).  Every run's launches must equal what the code
     issues, and every loss be finite."""
@@ -5235,6 +5413,8 @@ def phase_train_family_run(torch):
 
     runs = {}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_families_"))
+    # the families whose products stage an operand (rows not 16 bytes)
+    staged_archs = {tag.split()[0] for tag, *_ in train_family_products()}
     for arch in TRAIN_FAMILIES:
         cfg = train_family_cfg(arch)
         full = family_cfg(arch).n_layers
@@ -5247,6 +5427,9 @@ def phase_train_family_run(torch):
                                    snap=snap))
         if not all(math.isfinite(x) for x in losses):
             fail(f"phase 3 [{name}]: losses {losses}")
+        if (runs[name]["staged"] > 0) != (arch in staged_archs):
+            fail(f"phase 3 [{name}]: {runs[name]['staged']} staged matmul "
+                 f"launches (staged families: {sorted(staged_archs)})")
         runs[name]["losses"] = losses
         log(f"phase 3 [{name}]: {cfg.name} {cfg.n_layers} of {full} "
             f"layers, bf16, seq {TRAIN_SEQ} x batch {TRAIN_BATCH} (accum "
@@ -5255,7 +5438,7 @@ def phase_train_family_run(torch):
             f"{losses}, peak {runs[name]['peak_gb']:.2f} GB, launches "
             f"{runs[name]['launches']} (= what the code issues), backward "
             f"kernels {runs[name]['bwd_kernels']}, matmul routes "
-            f"{runs[name]['routes']}")
+            f"{runs[name]['routes']} ({runs[name]['staged']} staged)")
         runs[name]["step"] = train_step_logged(torch, f"{name} step", cfg,
                                                state)
         gc.collect()

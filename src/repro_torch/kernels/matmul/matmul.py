@@ -1,8 +1,10 @@
 """Launch of the CUDA matmul kernels (``kernels/csrc/matmul.cu``).
 
 Replaces ``repro/kernels/matmul/matmul.py::matmul_pallas``.  Unlike the
-Pallas kernel it takes any M, K, N: ragged edges are masked in the kernel.
-The route (tensor cores or CUDA cores), row tile and K split come from
+Pallas kernel it takes any M, K, N and any bf16 addresses: ragged edges
+are masked in the kernel, and an operand whose rows are not 16-byte
+aligned is staged through its windows.  The route (tensor cores for bf16,
+CUDA cores for f32), row tile, K split and staging come from
 ``plan.plan``, a function of the shapes, dtype and alignment alone; where
 the plan splits K, the f32 workspace of (splits, M, N) is allocated here.
 """

@@ -1,8 +1,10 @@
 """The matmul wrapper the model calls for every projection and the LM head.
 
 A CPU tensor goes to the plain version (``ref.matmul``); a CUDA tensor
-launches the CUDA kernel its plan picks, adds one to ``matmul.launches``
-and one to that route's count in ``matmul.routes``.  Where grad is enabled
+launches the CUDA kernel its plan picks, adds one to ``matmul.launches``,
+one to that route's count in ``matmul.routes`` and, where the plan stages
+an operand through its windows (rows not 16-byte aligned), one to
+``matmul.staged``.  Where grad is enabled
 and an operand requires it (training), the call goes through ``MatMul``,
 an autograd Function whose forward is the same launch and whose backward
 is two more products through this wrapper, dA = dC B^T and dB = A^T dC
@@ -30,11 +32,13 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = launch(a, b, p)
     matmul.launches += 1
     matmul.routes[p.route] += 1
+    matmul.staged += any(p.staged)
     return out
 
 
 matmul.launches = 0
 matmul.routes = dict.fromkeys(ROUTES, 0)   # launches by route
+matmul.staged = 0    # mma launches with an operand staged through windows
 
 
 class MatMul(torch.autograd.Function):

@@ -2,26 +2,29 @@
 
 ``csrc/matmul.cu`` holds three kernels for ``C = A @ B``:
 
-* ``mma``: ``mm_mma<BM>``, bf16 on the tensor cores (``mma.sync``
-  m16n8k16), A and B staged by 16-byte ``cp.async`` in a ring of shared
-  memory.  It needs 16-byte rows and operands: N and K multiples of 8, A
-  and B at 16-byte aligned addresses.  BM (16, 64 or 128 rows a CTA) is
-  the least of them that covers M, and 128 past it.
+* ``mma``: ``mm_mma<BM, A_VEC, B_VEC>``, bf16 on the tensor cores
+  (``mma.sync`` m16n8k16), every bf16 product whatever its shape and
+  addresses.  An operand whose rows start on 16-byte boundaries (A: K % 8
+  == 0 and A 16-byte aligned; B: N % 8 == 0 and B so) is staged by 16-byte
+  ``cp.async``; any other is *staged* through registers from the aligned
+  16-byte windows that cover its rows (``Plan.staged``, per operand).  BM
+  (16, 64 or 128 rows a CTA) is the least of them that covers M, and 128
+  past it.
 * ``skinny``: ``mm_skinny``, M <= 16 on the CUDA cores, B streamed through
-  registers.  The f32 route at decode, and bf16's where the operands do not
-  meet ``mma``'s alignment (at M = 4, bf16, ``mma`` streams B faster at
-  every qwen2-7b shape).
-* ``tiled``: ``mm_tiled``, any M on the CUDA cores in f32.  The f32 route
-  past M = 16 (the CNNs' fc layers), and bf16's where ``mma`` cannot go.
+  registers: the f32 route at decode; bf16 only when forced.
+* ``tiled``: ``mm_tiled``, any M on the CUDA cores in f32: the f32 route
+  past M = 16 (the CNNs' fc layers); bf16 only when forced.  f32 stays
+  off the tensor cores: TF32 would break the reference's 2e-4.
 
 ``plan`` picks the route and the K split from the launch's shapes, dtype
-and alignment alone, so every call of one shape takes one route: no
-runtime trial, no fallback.  Split K cuts the K rows into ``splits``
-contiguous ranges of ``rows`` rows each (the last may be shorter, none is
-empty), one CTA per (tile, range); the ranges' f32 partial sums go to a
-``(splits, M, N)`` workspace that a second kernel adds in split order, so
-the result does not depend on which CTA ends first.  ``csrc/matmul.cu``
-repeats the tile constants below and refuses a plan that breaks them.
+and alignment alone, so every call of one shape and alignment takes one
+route: no runtime trial, no fallback.  Split K cuts the K rows into
+``splits`` contiguous ranges of ``rows`` rows each (the last may be
+shorter, none is empty), one CTA per (tile, range); the ranges' f32
+partial sums go to a ``(splits, M, N)`` workspace that a second kernel
+adds in split order, so the result does not depend on which CTA ends
+first.  ``csrc/matmul.cu`` repeats the tile constants below and refuses a
+plan that breaks them.
 """
 from __future__ import annotations
 
@@ -50,6 +53,9 @@ class Plan:
     bm: int         # rows of A a CTA covers (skinny: M itself)
     splits: int     # K ranges, one CTA each per output tile
     rows: int       # K rows a range owns; the last may own fewer
+    # mma: whether (A, B) go through their windows (rows not 16-byte
+    # aligned)
+    staged: Tuple[bool, bool] = (False, False)
 
     def ranges(self, K: int):
         """The K rows ``[lo, hi)`` of each split, in order."""
@@ -57,19 +63,20 @@ class Plan:
                 for z in range(self.splits)]
 
 
-def aligned(N: int, K: int, a_ptr: int, b_ptr: int) -> bool:
-    """Whether bf16 operands can be staged in 16-byte chunks: every row of
-    A (K long) and of B (N long) starts on a 16-byte boundary."""
-    return (N % 8 == 0 and K % 8 == 0 and a_ptr % ALIGN == 0
-            and b_ptr % ALIGN == 0)
+def aligned(N: int, K: int, a_ptr: int, b_ptr: int) -> Tuple[bool, bool]:
+    """Whether each bf16 operand, (A, B), can be staged by 16-byte
+    ``cp.async``: every row of A (K long) and of B (N long) starts on a
+    16-byte boundary."""
+    return (K % 8 == 0 and a_ptr % ALIGN == 0,
+            N % 8 == 0 and b_ptr % ALIGN == 0)
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _route(M: int, bf16: bool, is_aligned: bool) -> str:
-    if bf16 and is_aligned:
+def _route(M: int, bf16: bool) -> str:
+    if bf16:
         return "mma"
     return "skinny" if M <= SK_MAXM else "tiled"
 
@@ -97,28 +104,33 @@ def _cuda_core_splits(M: int, N: int, K: int, n_sm: int) -> int:
     return max(1, min(_ceil(CTAS_PER_SM * n_sm, tiles), K // min_rows))
 
 
-def plan(M: int, N: int, K: int, *, bf16: bool, is_aligned: bool, n_sm: int,
-         route: Optional[str] = None, splits: Optional[int] = None) -> Plan:
-    """The launch of ``(M, K) @ (K, N)``: the route for this dtype and
-    alignment, its row tile and its K split on a card with ``n_sm`` SMs.
-    ``route`` and ``splits`` force a choice (the card's checks use them);
-    a forced route the operands cannot take raises, and forced splits are
-    rounded to whole K steps, so the plan may hold fewer."""
+def plan(M: int, N: int, K: int, *, bf16: bool,
+         is_aligned: Tuple[bool, bool], n_sm: int,
+         route: Optional[str] = None,
+         splits: Optional[int] = None) -> Plan:
+    """The launch of ``(M, K) @ (K, N)``: the route for this dtype, its row
+    tile, its K split on a card with ``n_sm`` SMs and, on the tensor cores,
+    which operands are staged through their windows (``is_aligned``: A's
+    and B's, from ``aligned``).  ``route`` and ``splits`` force a choice
+    (the card's checks and A/Bs use them); a forced route the operands
+    cannot take raises, and forced splits are rounded to whole K steps, so
+    the plan may hold fewer."""
     if min(M, N, K) < 1:
         raise ValueError(f"matmul plan: empty shape {(M, N, K)}")
     if route is None:
-        route = _route(M, bf16, is_aligned)
+        route = _route(M, bf16)
     elif route not in ROUTES:
         raise ValueError(f"matmul plan: unknown route {route!r}")
-    elif route == "mma" and not (bf16 and is_aligned):
-        raise ValueError("matmul plan: the mma route takes bf16 operands "
-                         "with N % 8 == K % 8 == 0 at 16-byte addresses")
+    elif route == "mma" and not bf16:
+        raise ValueError("matmul plan: the mma route takes bf16 operands")
     elif route == "skinny" and M > SK_MAXM:
         raise ValueError(f"matmul plan: the skinny route takes M <= "
                          f"{SK_MAXM}, got {M}")
+    staged = (False, False)
     if route == "mma":
         bm, step = mma_bm(M), MMA_BK[mma_bm(M)]
         want = _mma_splits(M, N, K, bm, n_sm) if splits is None else splits
+        staged = (not is_aligned[0], not is_aligned[1])
     else:
         bm, step = (M, 1) if route == "skinny" else (T_TM, 1)
         want = (_cuda_core_splits(M, N, K, n_sm) if splits is None
@@ -126,7 +138,7 @@ def plan(M: int, N: int, K: int, *, bf16: bool, is_aligned: bool, n_sm: int,
     if want < 1:
         raise ValueError(f"matmul plan: splits must be >= 1, got {want}")
     rows = _ceil(_ceil(K, want), step) * step
-    return Plan(route, bm, _ceil(K, rows), rows)
+    return Plan(route, bm, _ceil(K, rows), rows, staged)
 
 
 def workspace_shape(p: Plan, M: int, N: int) -> Tuple[int, ...]:

@@ -15,14 +15,20 @@ them, else the earlier ``mm_splits`` (OTHER's own split) and
 At qwen2-7b's widths, bf16: the five shapes of a decode step (M = 4 slots:
 wq / wo, wk / wv, w1 / w3, w2, the LM head) and the four of a prefill wave
 (M = 128, 4 slots x 32 prompt tokens), then the CNNs' fp32 fc at the
-paper's batch (64 x 2048 x 1000, ResNet-50's).  Each shape's timed
-launches cycle over distinct weight buffers, together past the 50 MB L2,
-as on the serving path where each layer's weights are read once a step.
-Both versions are held against the plain version (3e-2 bf16, 2e-4 fp32)
-and timed with CUDA events in the order other, this, this, other.  Prints
-one line per shape, the decode step's 197-call and the prefill wave's
-196-call totals, and one JSON line.  A card is required; without one it
-raises.
+paper's batch (64 x 2048 x 1000, ResNet-50's), then the bf16 products
+whose rows are not 16 bytes (``STAGED``): hymba-1.5b's SSM in_proj (N =
+3257) at a decode step's M = 4, a 4 x 160-row wave's 640 and a training
+microbatch's 4096, and the LM heads of hymba (32,001 columns), internvl2
+(92,553) and whisper-base (51,865) at M = 4 and at their training M (a
+loss chunk's 248 / 256 rows, whisper's 4096 decoder rows).  Each shape's
+timed launches cycle over distinct weight buffers, together past the 50
+MB L2, as on the serving path where each layer's weights are read once a
+step.  Both versions are held against the plain version (3e-2 bf16, 2e-4
+fp32), compared with each other bit for bit (``bitwise``; expected where
+both run the same kernel, not across a route change) and timed with CUDA
+events in the order other, this, this, other.  Prints one line per shape,
+the decode step's 197-call and the prefill wave's 196-call totals, and
+one JSON line.  A card is required; without one it raises.
 """
 from __future__ import annotations
 
@@ -43,6 +49,11 @@ from repro_torch.kernels.matmul import matmul as mm_k
 from repro_torch.kernels.matmul import ref as mm_ref
 
 SLOTS, PROMPT, CNN_BATCH = 4, 32, 64
+# (arch, what, K or None for d_model, N or None for the vocabulary, Ms)
+STAGED = (("hymba-1.5b", "in_proj", None, 3257, (SLOTS, SLOTS * 160, 4096)),
+          ("hymba-1.5b", "head", None, None, (SLOTS, 248)),
+          ("internvl2-26b", "head", None, None, (SLOTS, 256)),
+          ("whisper-base", "head", None, None, (SLOTS, 4096)))
 ITERS = 20
 L2_SPAN = 256e6              # bytes of weight buffers a shape cycles over
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -60,6 +71,10 @@ def _shapes():
     out += [("prefill", SLOTS * PROMPT, K, N, torch.bfloat16, c)
             for K, N, c in proj[:-1]]
     out.append(("cnn fc", CNN_BATCH, 2048, 1000, torch.float32, 0))
+    for arch, what, K, N, ms in STAGED:
+        c = get_config(arch)
+        out += [(f"staged {arch} {what}", M, K or c.d_model, N or c.vocab,
+                 torch.bfloat16, 0) for M in ms]
     return out
 
 
@@ -157,11 +172,12 @@ def main(argv=None) -> None:
                / math.sqrt(K)).to(dt) for _ in range(n_buf)]
         tol = 3e-2 if dt == torch.bfloat16 else 2e-4
         want = mm_ref.matmul(a, bs[0]).float()
-        errs = {}
+        errs, outs = {}, {}
         for who, fn in (("other", lambda b: _run_other(lib, other_plan, a,
                                                        b)),
                         ("this", lambda b: mm_k.matmul_cuda(a, b))):
-            got = fn(bs[0]).float()
+            outs[who] = fn(bs[0])
+            got = outs[who].float()
             torch.cuda.synchronize()
             errs[who] = float((got - want).abs().max())
             if not torch.isfinite(got).all() or bool(
@@ -183,6 +199,7 @@ def main(argv=None) -> None:
         r = {who: [t for k, t in turns if k == who] for who in ("other",
                                                               "this")}
         r.update(max_abs_err=errs, calls=calls,
+                 bitwise=torch.equal(outs["other"], outs["this"]),
                  plan=str(mm_k.plan_for(a, bs[0])))
         name = f"{tag} {M}x{K}x{N} {str(dt).split('.')[1]}"
         results[name] = r
@@ -191,7 +208,8 @@ def main(argv=None) -> None:
             totals[key] = totals.get(key, 0.0) + calls * sum(r[who]) / 2
         print(f"{name} ({r['plan']}): other ms {r['other'][0]:.4f} / "
               f"{r['other'][1]:.4f}, this ms {r['this'][0]:.4f} / "
-              f"{r['this'][1]:.4f}", flush=True)
+              f"{r['this'][1]:.4f}; outputs bit for bit: {r['bitwise']}",
+              flush=True)
         del a, bs
     for tag in ("decode", "prefill"):
         n = sum(c for t, *_, c in _shapes() if t == tag)
@@ -203,7 +221,8 @@ def main(argv=None) -> None:
                       "other_has_mm_run": other_plan is not None,
                       "cases": results,
                       "totals": {f"{t} {w}": v for (t, w), v in
-                                 totals.items() if t != "cnn fc"}}),
+                                 totals.items()
+                                 if t in ("decode", "prefill")}}),
           flush=True)
 
 

@@ -141,11 +141,11 @@ def test_prefill_and_decode_match_reference(arch, paged):
 
 
 # the matmuls whose bf16 operands are not 16-byte rows (N or K not a
-# multiple of 8): the plan sends them to the CUDA cores, mm_skinny at a
-# decode step's M and mm_tiled at a prefill wave's
-CUDA_CORE_MATMULS = {"internvl2_26b": {"head"},
-                     "hymba_1p5b": {"ssm in_proj", "head"},
-                     "whisper_base": {"head"}}
+# multiple of 8): the plan sends them to the tensor cores like the rest,
+# with B (N odd) staged through its windows
+STAGED_MATMULS = {"internvl2_26b": {"head"},
+                  "hymba_1p5b": {"ssm in_proj", "head"},
+                  "whisper_base": {"head"}}
 
 
 def _matmuls(cfg):
@@ -168,21 +168,20 @@ def _matmuls(cfg):
 @pytest.mark.parametrize("arch", PORTED_ARCH_IDS)
 def test_published_shapes_pass_the_kernel_plans(arch):
     cfg = get_config(arch)
-    slow = CUDA_CORE_MATMULS.get(arch, set())
+    staged = STAGED_MATMULS.get(arch, set())
     prompt = 32 + (cfg.n_img_tokens or 0) + (cfg.n_meta_tokens or 0)
     # an enc-dec wave runs the encoder and the cross K/V on its frames
     for M in (4, 4 * prompt) + ((4 * cfg.enc_seq,) if cfg.enc_seq else ()):
         for name, K, N in _matmuls(cfg):
             p = mm_plan.plan(M, N, K, bf16=True, n_sm=132,
                              is_aligned=mm_plan.aligned(N, K, 0, 0))
-            want = "mma" if name not in slow else \
-                "skinny" if M <= mm_plan.SK_MAXM else "tiled"
-            assert p.route == want, (name, M, K, N)
+            assert p.route == "mma", (name, M, K, N)
+            assert p.staged == (False, name in staged), (name, M, K, N)
             assert 1 <= p.splits and (p.splits - 1) * p.rows < K
     head = mm_plan.plan(4, cfg.vocab, cfg.d_model, bf16=True, n_sm=132,
                         is_aligned=mm_plan.aligned(cfg.vocab, cfg.d_model,
                                                    0, 0))
-    assert head.route == ("skinny" if "head" in slow else "mma")
+    assert (head.route, head.staged) == ("mma", (False, "head" in staged))
     if cfg.family == "ssm":
         return
     hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads

@@ -4,13 +4,15 @@ The kernels (``kernels/csrc/matmul.cu``) run only on a card; the plan that
 picks their route, row tile and K split is a function of shapes, dtype and
 operand addresses alone, and is held here:
 
-* every qwen2-7b and CNN shape takes its route: bf16 with 16-byte rows on
-  the tensor cores (``mma``) with the least row tile that covers M, f32 on
-  the CUDA cores (``skinny`` for M <= 16, ``tiled`` past it), and any bf16
-  operand that ``cp.async`` cannot stage in 16-byte chunks (N or K not a
-  multiple of 8, an address off a 16-byte boundary) on the CUDA cores too;
+* every qwen2-7b and CNN shape takes its route: bf16 on the tensor cores
+  (``mma``) with the least row tile that covers M, f32 on the CUDA cores
+  (``skinny`` for M <= 16, ``tiled`` past it); a bf16 operand that
+  ``cp.async`` cannot stage in 16-byte chunks (N or K not a multiple of
+  8, an address off a 16-byte boundary) takes the tensor cores too,
+  staged through its windows (``Plan.staged``, per operand);
 * the K ranges of a split cover every K row exactly once, none is empty,
-  and on the tensor-core route each starts on a whole K step;
+  and on the tensor-core route, staged or not, each starts on a whole K
+  step;
 * the workspace is (splits, M, N) f32 when the plan splits, else nothing;
 * the algebra of a split launch: f32 partial sums of the ranges, added in
   split order and rounded once, against the port's plain version and the
@@ -101,11 +103,24 @@ def test_cnn_fc_shapes_take_their_route(name, M):
     (70, 100, 0, 0),         # 100 % 8 == 4
 ])
 def test_unaligned_bf16_takes_the_cuda_cores(M, N, K, a_off, b_off):
-    assert not P.aligned(N, K, 4096 + a_off, 8192 + b_off)
+    """(The name is the test's first: such operands took the CUDA cores
+    until the tensor-core route staged them.)  bf16 operands whose rows
+    are not 16-byte aligned take ``mma``, the misaligned ones staged: A
+    when K is odd or A is off, B when N is or B is; a forced ``mma``
+    agrees, and the CUDA-core routes stay reachable when forced; f32 still
+    refuses ``mma``."""
+    staged = (K % 8 != 0 or a_off % 16 != 0, N % 8 != 0 or b_off % 16 != 0)
+    assert P.aligned(N, K, 4096 + a_off, 8192 + b_off) == (
+        not staged[0], not staged[1])
+    assert any(staged)
     p = _plan(M, N, K, a_off=a_off, b_off=b_off)
-    assert p.route == ("skinny" if M <= P.SK_MAXM else "tiled")
+    assert (p.route, p.bm, p.staged) == ("mma", _expected_bm(M), staged)
+    assert _plan(M, N, K, a_off=a_off, b_off=b_off, route="mma") == p
+    old = _plan(M, N, K, a_off=a_off, b_off=b_off,
+                route="skinny" if M <= P.SK_MAXM else "tiled")
+    assert old.staged == (False, False)
     with pytest.raises(ValueError, match="mma route"):
-        _plan(M, N, K, a_off=a_off, b_off=b_off, route="mma")
+        _plan(M, N, K, bf16=False, a_off=a_off, b_off=b_off, route="mma")
 
 
 @pytest.mark.parametrize("M", DECODE_MS + PREFILL_MS)
@@ -143,8 +158,6 @@ SPLIT_SHAPES = [(M, N, K) for M in (1, 4, 16, 64, 128, 200)
 @pytest.mark.parametrize("route", ("mma", "skinny", "tiled"))
 @pytest.mark.parametrize("M,N,K", SPLIT_SHAPES)
 def test_splits_cover_every_k_row_once(M, N, K, route):
-    if route == "mma" and not P.aligned(N, K, 0, 0):
-        route = "tiled"
     if route == "skinny" and M > P.SK_MAXM:
         route = "tiled"
     for splits in (None, 1, 2, 3, 7, 64, 10_000):
@@ -159,7 +172,10 @@ def test_splits_cover_every_k_row_once(M, N, K, route):
         if splits is not None:
             assert p.splits <= splits
         if p.route == "mma" and p.splits > 1:       # whole K steps a range
-            assert p.rows % P.MMA_BK[p.bm] == 0
+            assert p.rows % P.MMA_BK[p.bm] == 0     # staged or not
+            assert all(lo % P.MMA_BK[p.bm] == 0 for lo, _ in ranges)
+        assert p.staged == ((K % 8 != 0, N % 8 != 0) if p.route == "mma"
+                            else (False, False))
         # what csrc/matmul.cu's mm_run checks before it launches
         assert p.rows * p.splits >= K > p.rows * (p.splits - 1)
 
