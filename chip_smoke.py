@@ -37,6 +37,9 @@ slice's checks of phases 1-3 (training qwen2-7b at full width) alone,
 without the result line.  ``--only train_families`` builds the same three
 and runs the sixteenth slice's checks of phases 1-3 (training the MoE,
 VLM, SSM, hybrid and enc-dec families) alone, without the result line.
+``--only spmd`` builds the same three and runs the eighteenth slice's
+phase 3 [spmd] (the partitioned step, a one-rank device mesh, the dry
+run) alone, without the result line.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -53,7 +56,8 @@ Phases (each raises on failure; nothing is caught):
    MM_EDGE_KN), at forced split counts on each route, with bf16 operands
    whose rows are not 16-byte aligned (which must take the tensor cores,
    staged: the MM_STAGED_* grid) and by two launches of
-   each bf16 route on the same inputs (bit for bit); it is
+   each route on the same inputs (bf16 on the tensor cores, f32 on the
+   CUDA cores: bit for bit); it is
    timed over a decode step's 197 calls and a prefill wave's 196, each
    shape on its own weight buffers past the L2 (``prefill_ms`` and its
    peers in the JSON), and at the CNNs' fp32 fc.
@@ -130,7 +134,7 @@ Phases (each raises on failure; nothing is caught):
    queries over 1500 frames), and every training product whose rows are
    not 16 bytes (hymba's in_proj, the heads of 32,001, 92,553 and 51,865
    columns): forward, dA and dB on the tensor cores, staged, bit for bit
-   on a second launch, timed in turns against the parent's ``mm_tiled``.
+   on a second launch, timed beside ``torch.matmul``.
 2. Card against CPU: a 2-layer qwen2-7b at full width in fp32, the same
    weights on both; ragged prefill and 4 decode steps on a float pool
    (logits within 1e-3: f32 on both sides, summed in different orders
@@ -271,7 +275,17 @@ Phases (each raises on failure; nothing is caught):
    measured as above (its bound from ``profiling/train_counts``), and two
    runs of 2 steps from one seed equal bit for bit; whisper's and
    mamba2's CLI for 2 steps and ``--resume`` for 1 against a straight run
-   of 3.  The CNN slice: ``repro_torch.models.cnn
+   of 3.  Then the SPMD tooling (``phase_spmd``): qwen2-7b at full width,
+   SPMD_LAYERS layer, SPMD_PARTS partitions of 1 x TRAIN_SEQ tokens
+   through ``make_partitioned_train_step`` for SPMD_STEPS steps (each
+   step's device ms by CUDA events, wall ms, peak memory), its launches
+   what the code issues, bit for bit against each partition alone through
+   ``make_train_step`` and ``sync_params`` the f32 mean; a one-rank NCCL
+   process group's (1, 1) ``DeviceMesh``, the params placed on it by
+   ``param_shardings`` whole and bit for bit, a SPMD_CKPT_ARCH checkpoint
+   restored onto it by ``restore(shardings=)``; and ``python -m
+   repro_torch.launch.dryrun --all --mesh both`` on the host, every cell
+   OK.  The CNN slice: ``repro_torch.models.cnn
    .apply_cnn`` runs each of ResNet-50, GoogLeNet and VGG-16 at 224, batch
    64, fp32 on the card: one forward holds every conv2d and matmul call
    against its plain version on the call's own inputs (2e-4 of the
@@ -449,6 +463,13 @@ LEVER_RUNS = {    # "paged": the float pool at the same load, for comparison
                       "--prefix-cache"],
     "dense": ["--dense"],
 }
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
 
 
 def log(msg: str) -> None:
@@ -632,13 +653,13 @@ def staged_products():
 def staged_ab(torch) -> dict:
     """The staged route's A/B (``--only matmul``): each product of
     ``staged_products`` (training ones as forward, dA = dC B^T and dB =
-    A^T dC), timed in turns on the plan's staged launch, the parent's
-    CUDA-core route (``skinny`` at M <= 16, else ``tiled``) and
+    A^T dC), timed in turns on the plan's staged launch and
     ``torch.matmul``, the weight buffers past the L2; and the plan's
     launch at the shape cut to whole 16-byte rows (K and N rounded down to
-    multiples of 8: no operand staged), for what the staging costs."""
+    multiples of 8: no operand staged), for what the staging costs.  The
+    parent's route is timed against another checkout by
+    ``profiling/matmul_ab``, not here."""
     from repro_torch.kernels.matmul import matmul as mm_k
-    from repro_torch.kernels.matmul import plan as mm_plan
 
     g = torch.Generator(device="cuda").manual_seed(5)
     bf = torch.bfloat16
@@ -655,9 +676,7 @@ def staged_ab(torch) -> dict:
             n_buf = max(1, min(16, int(256e6 // (Kx * Nx * 2)) + 1))
             a = rnd((Mx, Kx))
             bs = [rnd((Kx, Nx), 1 / math.sqrt(Kx)) for _ in range(n_buf)]
-            old = "skinny" if Mx <= mm_plan.SK_MAXM else "tiled"
             fns = {"staged": lambda i: mm_k.matmul_cuda(a, bs[i])}
-            fns[old] = lambda i: mm_k.matmul_cuda(a, bs[i], route=old)
             fns["torch"] = lambda i: torch.matmul(a, bs[i])
             ka, na = Kx - Kx % 8, Nx - Nx % 8
             a8 = rnd((Mx, ka))
@@ -690,16 +709,15 @@ def phase_matmul(torch, cfg, sweep=False):
     at K and N that are not whole K steps or column tiles, and K shorter
     than the ring); forced split counts on every route; bf16 operands whose
     rows are not 16-byte aligned, which must take the tensor cores, staged
-    (``staged_grid``); every bf16 route twice on the same inputs, bit for
-    bit.  Then the decode step's 197 calls and the prefill wave's 196, each
-    shape timed on its own weight buffers past the L2, beside
-    ``torch.matmul`` and the bytes bound; at M = 4 the two bf16 routes side
-    by side; the CNNs' fp32 fc at M = 64.  ``sweep`` also times the
-    tensor-core route at forced split counts and the staged route's A/B
-    (``staged_ab``)."""
+    (``staged_grid``); every route twice on the same inputs (bf16 on the
+    tensor cores, f32 on the CUDA cores), bit for bit.  Then the decode
+    step's 197 calls and the prefill wave's 196, each shape timed on its
+    own weight buffers past the L2, beside
+    ``torch.matmul`` and the bytes bound; the CNNs' fp32 fc at M = 64.
+    ``sweep`` also times the tensor-core route at forced split counts and
+    the staged route's A/B (``staged_ab``)."""
     from repro_torch.kernels.matmul import matmul as mm_k
     from repro_torch.kernels.matmul import ops as mm_ops
-    from repro_torch.kernels.matmul import plan as mm_plan
     from repro_torch.kernels.matmul import ref as mm_ref
 
     dev = "cuda"
@@ -761,7 +779,7 @@ def phase_matmul(torch, cfg, sweep=False):
                            ("mma", 200, 1003, 517), ("mma", 4, 1000, 521),
                            ("skinny", 4, 1000, 520),
                            ("tiled", 128, 1000, 520)):
-        for dt in ((bf,) if route == "mma" else (bf, torch.float32)):
+        for dt in ((bf,) if route == "mma" else (torch.float32,)):
             a, b = operands(M, K, N, dt)
             want = mm_ref.matmul(a, b)
             for splits in (1, 2, 3, 7, 10_000):
@@ -772,23 +790,26 @@ def phase_matmul(torch, cfg, sweep=False):
                 n_forced += 1
     # every bf16 operand takes the tensor cores: the staged grid
     n_staged = staged_grid(torch, rnd)
-    # every bf16 route twice on the same inputs: bit for bit
-    for route, M, K, N in (("mma", SLOTS, d, d), ("mma", 64, d, d),
-                           ("mma", SLOTS * PROMPT, d, d),
-                           ("mma", SLOTS * PROMPT, d, Hkv * hd),
-                           ("mma", 200, 1003, 517), ("mma", 4, 1000, 521),
-                           ("skinny", SLOTS, d, d),
-                           ("tiled", SLOTS * PROMPT, d, d)):
-        a, b = operands(M, K, N, bf)
+    # every route twice on the same inputs (bf16 on the tensor cores, f32
+    # on the CUDA cores): bit for bit
+    for route, M, K, N, dt in (("mma", SLOTS, d, d, bf), ("mma", 64, d, d, bf),
+                               ("mma", SLOTS * PROMPT, d, d, bf),
+                               ("mma", SLOTS * PROMPT, d, Hkv * hd, bf),
+                               ("mma", 200, 1003, 517, bf),
+                               ("mma", 4, 1000, 521, bf),
+                               ("skinny", SLOTS, d, d, torch.float32),
+                               ("tiled", SLOTS * PROMPT, d, d,
+                                torch.float32)):
+        a, b = operands(M, K, N, dt)
         p = mm_k.plan_for(a, b, route=route)
         if not torch.equal(mm_k.launch(a, b, p), mm_k.launch(a, b, p)):
-            fail(f"matmul {route} {M}x{K}x{N} bf16 ({p}): two launches on "
+            fail(f"matmul {route} {M}x{K}x{N} {dt} ({p}): two launches on "
                  "the same inputs differ")
     log(f"phase 1: matmul matches its plain version at {2 * len(proj)} "
         f"main-path shapes x 2 dtypes (bf16 max abs err {worst:.3g}), 3 "
         f"ragged ones, {len(MM_EDGE_MS) * len(MM_EDGE_KN)} tile-edge shapes "
         f"x 2 dtypes (bf16 {edge_worst:.3g}), {n_forced} forced splits, "
-        f"{n_staged} staged launches on the tensor cores; each bf16 route "
+        f"{n_staged} staged launches on the tensor cores; each route "
         "is bitwise repeatable")
 
     def b_buffers(K, N, dt):
@@ -796,38 +817,33 @@ def phase_matmul(torch, cfg, sweep=False):
         n_buf = max(1, min(16, int(256e6 // (K * N * 2)) + 1))
         return [rnd((K, N), dt, 1 / math.sqrt(K)) for _ in range(n_buf)]
 
-    def timed(M, K, N, dt=bf, routes=()):
+    def timed(M, K, N, dt=bf):
         a, bs = rnd((M, K), dt), b_buffers(K, N, dt)
         n = len(bs)
         t_k = time_ms(torch, lambda i: mm_ops.matmul(a, bs[i]), n)
         t_p = time_ms(torch, lambda i: mm_ref.matmul(a, bs[i]), n, 5)
         t_l = time_ms(torch, lambda i: torch.matmul(a, bs[i]), n)
-        alt = {r: time_ms(torch, lambda i: mm_k.matmul_cuda(
-            a, bs[i], route=r), n) for r in routes}
         peak = H100_BF16 if dt == bf else H100_FP32
         b_ms, by = bound(a.element_size() * (M * K + K * N + M * N),
                          2 * M * K * N, peak)
         p = mm_k.plan_for(a, bs[0])
         del a, bs
         return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                    bound_by=by, plan=p, alt=alt)
+                    bound_by=by, plan=p)
 
     def add(total, r, calls):
         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
             total[k] = total.get(k, 0.0) + calls * r[k]
 
-    # -- one decode step: 197 calls at M = slots; both bf16 routes
+    # -- one decode step: 197 calls at M = slots
     step = {}
     for K, N, calls in proj:
-        r = timed(SLOTS, K, N, routes=("mma", "skinny"))
+        r = timed(SLOTS, K, N)
         add(step, r, calls)
-        for k, v in r["alt"].items():
-            step[f"{k}_ms"] = step.get(f"{k}_ms", 0.0) + calls * v
         log(f"  matmul bf16 {SLOTS}x{K}x{N} (x{calls}/step, {r['plan']}): "
             f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
             f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f}"
-            f" ({r['bound_by']}); mma_ms {r['alt']['mma']:.4f} skinny_ms "
-            f"{r['alt']['skinny']:.4f}")
+            f" ({r['bound_by']})")
     # -- one prefill wave: 196 calls at M = slots x prompt
     wave = {}
     for K, N, calls in proj[:-1]:
@@ -841,8 +857,7 @@ def phase_matmul(torch, cfg, sweep=False):
     n_wave = sum(c for _, _, c in proj[:-1])
     log(f"  matmul decode step ({n_step} calls at M={SLOTS}): kernel_ms "
         f"{step['ms']:.3f} plain_ms {step['plain_ms']:.3f} library_ms "
-        f"{step['library_ms']:.3f} bound_ms {step['bound_ms']:.3f}; by "
-        f"route: mma {step['mma_ms']:.3f} skinny {step['skinny_ms']:.3f}")
+        f"{step['library_ms']:.3f} bound_ms {step['bound_ms']:.3f}")
     log(f"  matmul prefill wave ({n_wave} calls at M={SLOTS * PROMPT}): "
         f"kernel_ms {wave['ms']:.3f} plain_ms {wave['plain_ms']:.3f} "
         f"library_ms {wave['library_ms']:.3f} bound_ms "
@@ -5296,9 +5311,8 @@ def phase_train_family_kernels(torch):
     the products whose rows are not 16 bytes (``train_family_products``):
     forward, dA and dB against ``ref.matmul`` within tol x (rms + |want|),
     on the tensor cores with the misaligned operand staged, bit for bit on
-    a second launch, timed in turns with the parent's route (``mm_tiled``,
-    forced) beside ``torch.matmul`` and the bound."""
-    from repro_torch.kernels.matmul import matmul as mm_k
+    a second launch, timed beside ``torch.matmul`` and the bound (the
+    parent's route against another checkout: ``profiling/matmul_ab``)."""
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
 
@@ -5339,13 +5353,7 @@ def phase_train_family_kernels(torch):
             if p.route != "mma" or not any(p.staged):
                 fail(f"{name}: plan {p}, want mma with a staged operand")
             del got
-            turns = [time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10),
-                     time_ms(torch, lambda i: mm_k.matmul_cuda(
-                         x, y, route="tiled"), 1, 3)]
-            turns += [time_ms(torch, lambda i: mm_k.matmul_cuda(
-                x, y, route="tiled"), 1, 3),
-                time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10)]
-            t_k, t_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            t_k = time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10)
             t_p = time_ms(torch, lambda i: mm_ref.matmul(x, y), 1, 3)
             t_l = time_ms(torch, lambda i: torch.matmul(x, y), 1, 10)
             Mx, Kx = x.shape
@@ -5355,15 +5363,14 @@ def phase_train_family_kernels(torch):
             n = n_fwd if kind == "forward" else n_bwd
             rows[f"{tag} {kind} ({Mx},{Kx},{Nx})"] = dict(
                 ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                bound_by=by, calls_per_step=n, tiled_ms=t_old,
+                bound_by=by, calls_per_step=n,
                 route=f"{p.route} staged {p.staged}",
                 tflops=2 * Mx * Kx * Nx / t_k / 1e9)
         del a, b, dc, bt, at
         torch.cuda.empty_cache()
     for shape, r in rows.items():
         log(f"  matmul train {shape} [{r['route']}]: kernel_ms "
-            f"{r['ms']:.4f} ({r['tflops']:.1f} TFLOP/s) mm_tiled_ms "
-            f"{r['tiled_ms']:.4f} plain_ms "
+            f"{r['ms']:.4f} ({r['tflops']:.1f} TFLOP/s) plain_ms "
             f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
             f"(torch.matmul) bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); "
             f"{r['calls_per_step']} a step")
@@ -5485,6 +5492,250 @@ def phase_train_families(torch) -> dict:
                              for k, v in runs.items()})
 
 
+# ---------------------------------------------------------------------------
+# the eighteenth slice: the SPMD tooling
+# ---------------------------------------------------------------------------
+
+SPMD_LAYERS = 1              # of qwen2-7b's 28: P copies of params, grads,
+SPMD_PARTS = 2               # m and v (~13.2 GB a partition) and one more
+SPMD_STEPS = 2               # copy for the separate steps: ~45 GB
+SPMD_CKPT_ARCH = "mamba2-130m"   # the restore's checkpoint: 0.5 GB of f32
+
+
+def spmd_partitioned_step(torch) -> dict:
+    """Phase 3 [spmd]: ``make_partitioned_train_step`` at qwen2-7b's full
+    width, SPMD_LAYERS layer, SPMD_PARTS partitions of 1 x TRAIN_SEQ
+    tokens, bf16, ``warmup=1``, SPMD_STEPS steps, partition i's params
+    drawn from seed i and stacked.  Counted: the launches must equal what
+    ``train_issues`` says the code issues for P x steps microbatches, all
+    products on ``mm_mma``.  Then each partition again through
+    ``make_train_step`` alone, from its seed, on its half of each batch:
+    losses, metrics, params, m and v bit for bit against the stacked
+    run's slice; and ``sync_params`` against the f32 mean of the
+    partitions.  Logs each step's device ms (CUDA events), wall ms and
+    the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import synth_lm_batch
+    from repro_torch.models import api as mapi
+    from repro_torch.optim import AdamWState, adamw_init
+    from repro_torch.profiling.train_counts import train_issues
+    from repro_torch.runtime import steps as RS
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    full = get_config(TRAIN_ARCH).n_layers
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=SPMD_LAYERS)
+    api = mapi.build(cfg, "cuda")
+    kw = dict(peak_lr=3e-4, warmup=1, total=100)
+    shape = ShapeCell("train", TRAIN_SEQ, SPMD_PARTS, "train")
+    batches = []
+    for step in range(SPMD_STEPS):
+        b = synth_lm_batch(cfg, shape, step)
+        batches.append({k: torch.from_numpy(v).reshape(
+            (SPMD_PARTS, 1) + v.shape[1:]).cuda() for k, v in b.items()})
+
+    def init(i):
+        return api.init(torch.Generator(device="cuda").manual_seed(i))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = [init(i) for i in range(SPMD_PARTS)]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *parts)
+    del parts
+    opt = adamw_init(stacked)
+    opt = AdamWState(torch.zeros((SPMD_PARTS,), dtype=torch.int32,
+                                 device="cuda"), opt.m, opt.v)
+    step_fn = RS.make_partitioned_train_step(api, stack_axis="part", **kw)
+    want = train_issues(cfg, TRAIN_SEQ, SPMD_PARTS * SPMD_STEPS)
+    torch.cuda.synchronize()
+    zero_counts(torch)
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses, metrics = [], [], []
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        stacked, opt, m = step_fn(stacked, opt, b)
+        ev[1].record()
+        torch.cuda.synchronize()
+        steps.append(dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                          device_ms=ev[0].elapsed_time(ev[1])))
+        losses.append([float(x) for x in m["loss"]])
+        metrics.append(m)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bwd = counts["bwd_kernels"]
+    if counts["launches"] != want or \
+            set(bwd.values()) != {want["flash_attention_backward"]} or \
+            counts["routes"]["mma"] != want["matmul"]:
+        fail(f"phase 3 [spmd]: launches {counts['launches']} (backward "
+             f"kernels {bwd}, matmul routes {counts['routes']}), the code "
+             f"issues {want}")
+    if not all(math.isfinite(x) for row in losses for x in row):
+        fail(f"phase 3 [spmd]: losses {losses}")
+    smi = card_line()
+    for i, st in enumerate(steps):
+        log(f"phase 3 [spmd]: partitioned step {i} ({SPMD_PARTS} partitions "
+            f"x 1 x {TRAIN_SEQ} tokens, {cfg.name} {SPMD_LAYERS} of {full} "
+            f"layers at full width, bf16): device {st['device_ms']:.1f} ms "
+            f"(CUDA events), wall {st['wall_ms']:.1f} ms, losses "
+            f"{losses[i]} [{smi}]")
+    log(f"phase 3 [spmd]: peak {peak:.2f} GB; launches {counts['launches']}"
+        f" (= what the code issues for {SPMD_PARTS} x {SPMD_STEPS} "
+        f"microbatches), backward kernels {bwd}, matmul routes "
+        f"{counts['routes']} [{smi}]")
+
+    # each partition alone, from its seed: bit for bit
+    stacked_l = dict(leaves_with_paths(stacked))
+    m_l, v_l = dict(leaves_with_paths(opt.m)), dict(leaves_with_paths(opt.v))
+    base = RS.make_train_step(api, **kw)
+    for i in range(SPMD_PARTS):
+        p_i = init(i)
+        o_i = adamw_init(p_i)
+        for s_, b in enumerate(batches):
+            p_i, o_i, m_i = base(p_i, o_i, {k: v[i] for k, v in b.items()})
+            for k, v in m_i.items():
+                if not torch.equal(torch.as_tensor(v), metrics[s_][k][i]):
+                    fail(f"phase 3 [spmd]: partition {i} step {s_} metric "
+                         f"{k}: {float(v)} alone, "
+                         f"{float(metrics[s_][k][i])} partitioned")
+        bad = [path for path, x in leaves_with_paths(p_i)
+               if not torch.equal(x, stacked_l[path][i])]
+        bad += [f"m/{path}" for path, x in leaves_with_paths(o_i.m)
+                if not torch.equal(x, m_l[path][i])]
+        bad += [f"v/{path}" for path, x in leaves_with_paths(o_i.v)
+                if not torch.equal(x, v_l[path][i])]
+        if bad or int(o_i.step) != int(opt.step[i]):
+            fail(f"phase 3 [spmd]: partition {i} alone differs from the "
+                 f"partitioned run at {bad[:8]} (step {int(o_i.step)} / "
+                 f"{int(opt.step[i])})")
+        del p_i, o_i
+        torch.cuda.empty_cache()
+    log(f"phase 3 [spmd]: each of the {SPMD_PARTS} partitions alone "
+        "(make_train_step from its seed) equals the partitioned run bit for "
+        "bit: losses, metrics, params, m, v and the step count")
+    avg = RS.sync_params(stacked)
+    avg_l = dict(leaves_with_paths(avg))
+    for path, x in stacked_l.items():
+        mean = x.float().mean(0).to(x.dtype)
+        if not all(torch.equal(avg_l[path][i], mean)
+                   for i in range(SPMD_PARTS)):
+            fail(f"phase 3 [spmd]: sync_params at {path} is not the f32 mean")
+    log("phase 3 [spmd]: sync_params gives every partition the f32 mean of "
+        "the partitions' params")
+    p0 = tree_map(lambda x: x[0].clone(), stacked)
+    del avg, avg_l, stacked, stacked_l, opt, m_l, v_l, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"spmd partitioned": dict(counts, steps=steps, losses=losses,
+                                     peak_gb=peak, card=smi)}, cfg, p0
+
+
+def spmd_one_rank_mesh(torch, cfg, params) -> dict:
+    """Phase 3 [spmd]: a one-rank NCCL process group and its (1, 1)
+    ``DeviceMesh`` (``launch.mesh.device_mesh``): ``params`` placed by
+    ``param_shardings`` have local shards bit for bit the whole tensors
+    and the specs' placements; a checkpoint of SPMD_CKPT_ARCH at full
+    width lands on the mesh through ``restore(shardings=)``, bit for
+    bit."""
+    import os
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import api as mapi
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_spmd_"))
+    try:
+        plan = M.make_host_mesh(1, 1)
+        dm = M.device_mesh(plan, "cuda")
+
+        def held(placed, whole, specs, what):
+            want = dict(leaves_with_paths(whole))
+            n = 0
+            for path, x in leaves_with_paths(placed):
+                if list(x.placements) != SH.to_placements(specs[path], plan):
+                    fail(f"phase 3 [spmd]: {what} {path}: placements "
+                         f"{x.placements}, spec {specs[path]}")
+                if not torch.equal(x.to_local(), want[path]):
+                    fail(f"phase 3 [spmd]: {what} {path}: the local shard "
+                         "is not the whole tensor")
+                n += 1
+            return n
+
+        n_p = held(SH.distribute(params, SH.param_shardings(params, cfg, dm)),
+                   params, SH.param_pspecs(params, cfg, plan), "qwen2-7b")
+        ccfg = get_config(SPMD_CKPT_ARCH)
+        cparams = mapi.build(ccfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        mgr = CheckpointManager(tmp)
+        mgr.save(1, {"params": cparams})
+        template = {"params": tree_map(lambda t: t.to("meta"), cparams)}
+        restored, _ = mgr.restore(template, shardings=SH.param_shardings(
+            template, ccfg, dm))
+        n_c = held(restored, {"params": cparams}, SH.param_pspecs(
+            template, ccfg, plan), "restore")
+    finally:
+        dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 3 [spmd]: a one-rank NCCL mesh {plan.shape}: {n_p} qwen2-7b "
+        f"params placed by param_shardings, each local shard bit for bit "
+        f"the whole tensor; a {SPMD_CKPT_ARCH} checkpoint restored onto it "
+        f"by restore(shardings=), {n_c} leaves bit for bit ({wall:.1f} s)")
+    return {"mesh_s": wall}
+
+
+def spmd_dryrun() -> dict:
+    """Phase 3 [spmd]: ``python -m repro_torch.launch.dryrun --all --mesh
+    both`` on the host (meta tensors, no device); every cell must be OK."""
+    import os
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--all", "--mesh", "both"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    m = re.search(r"dryrun: (\d+)/(\d+) cells OK in ([\d.]+) s", out.stdout)
+    if out.returncode or not m or m.group(1) != m.group(2):
+        fail(f"phase 3 [spmd]: the dry run failed (exit {out.returncode}): "
+             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    log(f"phase 3 [spmd]: dry run {m.group(1)}/{m.group(2)} cells OK, "
+        f"{m.group(3)} s inside, {wall:.2f} s with the interpreter "
+        f"(host only)")
+    return {"dryrun_cells": int(m.group(1)), "dryrun_s": wall}
+
+
+def phase_spmd(torch) -> dict:
+    """``--only spmd`` and the full run's phase 3 [spmd]: the partitioned
+    step, the one-rank mesh and the dry run.  Returns the run record."""
+    t0 = time.perf_counter()
+    runs, cfg, p0 = spmd_partitioned_step(torch)
+    runs["spmd partitioned"].update(spmd_one_rank_mesh(torch, cfg, p0))
+    del p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["spmd partitioned"].update(spmd_dryrun())
+    log(f"phase 3 [spmd]: {time.perf_counter() - t0:.1f} s [{card_line()}]")
+    return runs
+
+
 # --only NAME: the sources to build and the phase-1 function to run
 ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
             torch, cfg, sweep=True)),
@@ -5510,7 +5761,9 @@ ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
                   lambda torch, cfg: phase_train(torch)),
         "train_families": (["matmul", "flash_attention",
                             "flash_attention_bwd"],
-                           lambda torch, cfg: phase_train_families(torch))}
+                           lambda torch, cfg: phase_train_families(torch)),
+        "spmd": (["matmul", "flash_attention", "flash_attention_bwd"],
+                 lambda torch, cfg: phase_spmd(torch))}
 
 
 def serving_wrappers():
@@ -5583,9 +5836,7 @@ def main() -> None:
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card_line()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
@@ -5655,6 +5906,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_train_family_run(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(phase_spmd(torch))
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_cluster(torch, cfg))

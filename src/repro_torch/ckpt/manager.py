@@ -10,7 +10,10 @@ restore.  The data cursor is the step number (the pipeline is a function
 of (seed, step)), so a resume is exact.  Unlike the reference's, a
 restore writes into the template's own tensors (in place, one leaf at a
 time): a second copy of a full-width model's weights and moments does
-not fit one card beside the first.
+not fit one card beside the first.  ``restore(..., shardings=)`` is the
+elastic path: each leaf is built anew and placed on a (possibly
+different) device mesh by its (device mesh, placements) pair, so the
+template may be a tree of meta tensors.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_paths
+from repro_torch.tree import leaves_with_paths, unflatten
 
 
 def _flatten(tree) -> dict:
@@ -43,6 +46,24 @@ def _restore_into(template, flat: dict):
         leaf.copy_(torch.from_numpy(np.asarray(flat[key])).reshape(
             leaf.shape))
     return template
+
+
+@torch.no_grad()
+def _restore_placed(template, flat: dict, shardings: dict):
+    """Each array as a tensor of its leaf's dtype, placed by its pair."""
+    from torch.distributed.tensor import distribute_tensor
+
+    out = []
+    for key, leaf in leaves_with_paths(template):
+        pair = shardings[key]
+        if pair is None:
+            _restore_into(leaf, {"": flat[key]})
+            out.append(leaf)
+            continue
+        t = torch.from_numpy(np.asarray(flat[key])).reshape(
+            leaf.shape).to(leaf.dtype)
+        out.append(distribute_tensor(t, *pair))
+    return unflatten(template, out)
 
 
 class CheckpointManager:
@@ -89,16 +110,23 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, template, step: int | None = None):
+    def restore(self, template, step: int | None = None, shardings=None):
         """Restore into ``template``'s tensors (in place: each array cast
-        to its leaf's dtype on its leaf's device); returns (template,
-        meta)."""
+        to its leaf's dtype on its leaf's device); returns (state, meta).
+        ``shardings`` ({leaf path: (device mesh, placements) or None}, as
+        ``launch.sharding.param_shardings`` gives it): each array, cast to
+        its leaf's dtype, is placed by ``distribute_tensor`` on its mesh
+        instead, and the state is a new tree of DTensors; a leaf whose
+        pair is None is restored into the template in place."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = self.dir / f"step_{step}"
         with np.load(d / "arrays.npz") as z:
             flat = {k: z[k] for k in z.files}
-        state = _restore_into(template, flat)
+        if shardings is None:
+            state = _restore_into(template, flat)
+        else:
+            state = _restore_placed(template, flat, shardings)
         meta = json.loads((d / "meta.json").read_text())
         return state, meta

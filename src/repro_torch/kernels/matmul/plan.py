@@ -11,10 +11,14 @@
   (16, 64 or 128 rows a CTA) is the least of them that covers M, and 128
   past it.
 * ``skinny``: ``mm_skinny``, M <= 16 on the CUDA cores, B streamed through
-  registers: the f32 route at decode; bf16 only when forced.
+  registers: the f32 route at decode.
 * ``tiled``: ``mm_tiled``, any M on the CUDA cores in f32: the f32 route
-  past M = 16 (the CNNs' fc layers); bf16 only when forced.  f32 stays
-  off the tensor cores: TF32 would break the reference's 2e-4.
+  past M = 16 (the CNNs' fc layers).  f32 stays off the tensor cores:
+  TF32 would break the reference's 2e-4.
+
+The two CUDA-core routes take f32 only: a forced bf16 ``skinny`` or
+``tiled`` raises (``csrc/matmul.cu`` still holds their bf16 instances,
+off every path).
 
 ``plan`` picks the route and the K split from the launch's shapes, dtype
 and alignment alone, so every call of one shape and alignment takes one
@@ -113,7 +117,8 @@ def plan(M: int, N: int, K: int, *, bf16: bool,
     which operands are staged through their windows (``is_aligned``: A's
     and B's, from ``aligned``).  ``route`` and ``splits`` force a choice
     (the card's checks and A/Bs use them); a forced route the operands
-    cannot take raises, and forced splits are rounded to whole K steps, so
+    cannot take raises (``mma`` takes bf16 only, ``skinny`` and ``tiled``
+    f32 only), and forced splits are rounded to whole K steps, so
     the plan may hold fewer."""
     if min(M, N, K) < 1:
         raise ValueError(f"matmul plan: empty shape {(M, N, K)}")
@@ -123,6 +128,9 @@ def plan(M: int, N: int, K: int, *, bf16: bool,
         raise ValueError(f"matmul plan: unknown route {route!r}")
     elif route == "mma" and not bf16:
         raise ValueError("matmul plan: the mma route takes bf16 operands")
+    elif route != "mma" and bf16:
+        raise ValueError(f"matmul plan: the {route} route takes f32 "
+                         "operands; bf16 takes the tensor cores (mma)")
     elif route == "skinny" and M > SK_MAXM:
         raise ValueError(f"matmul plan: the skinny route takes M <= "
                          f"{SK_MAXM}, got {M}")

@@ -22,9 +22,20 @@ returns ``(None, cache)`` (the encoder and each layer's cross K/V), ``decode_pag
 and ``init_cache`` returns None (the cache is built from the frames), as
 in the reference.  ``loss`` and ``forward`` take a training batch of
 tensors (``tokens``, ``labels``, a VLM's ``img_embeds``, an enc-dec's
-``enc_embeds``).  The shape-spec helpers (``input_specs``,
-``cache_specs``) are ``jax.ShapeDtypeStruct`` tooling and wait for their
-slice (ROADMAP.md, Queue 1 item 14).
+``enc_embeds``).
+
+  input_specs(shape)                     -> {name: meta tensor} of a
+                                            shape cell's batch
+  cache_specs(shape)                     -> the cell's decode cache as
+                                            meta tensors
+
+The shape helpers return tensors on ``"meta"`` (shape and dtype, no
+storage) with the reference's shapes and dtypes
+(``repro/models/api.py:90-111, 145-170``), whatever device the api is
+bound to; ``build(cfg, "meta")`` gives an api whose ``init`` draws
+nothing, for the dry run and the sharding rules at full width.  A cell's
+``seq_len`` is the TOTAL context: a VLM's image rows and a hybrid's meta
+tokens come out of it, as in the reference.
 """
 from __future__ import annotations
 
@@ -52,12 +63,32 @@ class ModelAPI:
     decode: Callable
     decode_paged: Callable
     init_cache: Callable
+    input_specs: Callable
+    cache_specs: Callable
 
 
 def build(cfg: ModelConfig, device=DEFAULT_DEVICE) -> ModelAPI:
+    """The api of ``cfg`` on ``device`` (``"meta"`` when named: shapes
+    only)."""
     if cfg.family == "encdec":
-        return _build_encdec(cfg, resolve(device))
-    return _build_lm(cfg, resolve(device))
+        return _build_encdec(cfg, resolve(device, shapes=True))
+    return _build_lm(cfg, resolve(device, shapes=True))
+
+
+META = torch.device("meta")
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    s = seq_len
+    if cfg.n_img_tokens:
+        s -= cfg.n_img_tokens
+    if cfg.n_meta_tokens:
+        s -= cfg.n_meta_tokens
+    return max(s, 1)
 
 
 def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
@@ -96,8 +127,26 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def init_cache(batch, max_len):
         return TF.init_cache(cfg, batch, max_len, device=device)
 
+    def input_specs(shape):
+        B = shape.global_batch
+        if shape.kind == "decode":
+            return {"token": _spec((B, 1), torch.int32)}
+        S = _text_len(cfg, shape.seq_len)
+        specs = {"tokens": _spec((B, S), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = _spec((B, S), torch.int32)
+        if cfg.n_img_tokens:
+            specs["img_embeds"] = _spec((B, cfg.n_img_tokens, cfg.d_model),
+                                        getattr(torch, cfg.dtype))
+        return specs
+
+    def cache_specs(shape):
+        return TF.init_cache(cfg, shape.global_batch, shape.seq_len,
+                             device=META)
+
     return ModelAPI(cfg, device, init, loss, forward, prefill_batch,
-                    prefill, decode, decode_paged, init_cache)
+                    prefill, decode, decode_paged, init_cache, input_specs,
+                    cache_specs)
 
 
 def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
@@ -131,5 +180,26 @@ def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     def init_cache(batch, max_len):
         return None     # an enc-dec cache is built from the frames: prefill
 
+    def input_specs(shape):
+        B = shape.global_batch
+        if shape.kind == "decode":
+            return {"token": _spec((B, 1), torch.int32)}
+        S = shape.seq_len
+        specs = {"enc_embeds": _spec((B, cfg.enc_seq, cfg.d_model), dt),
+                 "tokens": _spec((B, S), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = _spec((B, S), torch.int32)
+        return specs
+
+    def cache_specs(shape):
+        """The self and cross K/V of every decoder layer and the position,
+        as the reference declares them."""
+        B, hd, Lc = shape.global_batch, cfg.head_dim, cfg.n_layers
+        self_kv = (Lc, B, shape.seq_len, cfg.n_kv_heads, hd)
+        cross_kv = (Lc, B, cfg.enc_seq, cfg.n_kv_heads, hd)
+        return {"k": _spec(self_kv, dt), "v": _spec(self_kv, dt),
+                "xk": _spec(cross_kv, dt), "xv": _spec(cross_kv, dt),
+                "len": _spec((), torch.int32)}
+
     return ModelAPI(cfg, device, init, loss, forward, prefill_batch, prefill,
-                    decode, None, init_cache)
+                    decode, None, init_cache, input_specs, cache_specs)

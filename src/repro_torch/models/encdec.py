@@ -81,7 +81,7 @@ def init_encdec(cfg, generator: torch.Generator, device=DEFAULT_DEVICE,
     0.01-scaled decoder positions, zero qkv biases, unit LayerNorms with
     zero bias) with ``generator``, which must live on ``device``.
     ``pos_dec`` has ``max_dec_len`` rows (default ``cfg.max_seq``)."""
-    dev = resolve(device)
+    dev = resolve(device, shapes=True)
     dt = _dtype(cfg)
     d, ne, nd = cfg.d_model, cfg.enc_layers, cfg.n_layers
     max_dec = max_dec_len or cfg.max_seq

@@ -51,6 +51,8 @@ def dense_init(generator, shape, dtype, device, scale: float | None = None):
     d_in = shape[-2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:     # shapes only: no per-matrix draws (qwen3-moe has
+        return out      # 18,432 expert matrices)
     for mat in out.view(-1, *shape[-2:]):
         mat.copy_(torch.randn(shape[-2:], generator=generator,
                               dtype=torch.float32, device=device) * scale)

@@ -104,7 +104,7 @@ def init_lm(cfg, generator: torch.Generator, device=DEFAULT_DEVICE):
     zero qkv biases, unit norms; the SSM's in ``models/ssm.py``) with
     ``generator``, which must live on ``device``."""
     _check_family(cfg)
-    dev = resolve(device)
+    dev = resolve(device, shapes=True)
     dt = _dtype(cfg)
     d, n = cfg.d_model, cfg.n_layers
     blocks = {"ln1": torch.ones((n, d), dtype=dt, device=dev)}
@@ -296,7 +296,7 @@ def init_cache(cfg, batch, max_len, dtype=None, *, device=DEFAULT_DEVICE):
     ``ssm_state`` (L, B, H, P, N) and ``ssm_conv`` (L, B, ssm_conv - 1,
     conv_dim); ``max_len`` counts any prefix positions."""
     _check_family(cfg)
-    dev = resolve(device)
+    dev = resolve(device, shapes=True)
     dt = dtype or _dtype(cfg)
     c = {"len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if has_attn(cfg):

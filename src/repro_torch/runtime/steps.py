@@ -6,16 +6,21 @@ tensors; moved to the api's device) and returns (params, state, metrics).
 Gradients come from ``torch.autograd.grad`` through the model's kernel
 wrappers; the optimizer updates the parameters and moments IN PLACE, so
 the returned trees hold the caller's tensors (the reference's jitted step
-is called with its buffers donated).  The reference's
-``make_partitioned_train_step`` (a ``jax.vmap`` over partition-stacked
-params for the dry-run) waits for the port's multi-card slice.
+is called with its buffers donated).
+
+``make_partitioned_train_step`` is the reference's ``jax.vmap`` of the
+step over partition-stacked (P, ...) params, optimizer state and batch.
+``torch.func.vmap`` cannot carry the kernels' ctypes launches or the
+in-place AdamW, so a loop over the leading axis computes the vmap's
+function: partition i's step runs on views of slice i, which it updates
+in place.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.optim import adamw_update, cosine_lr
+from repro_torch.optim import AdamWState, adamw_update, cosine_lr
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -91,6 +96,39 @@ def make_decode_step(api):
 # ---------------------------------------------------------------------------
 # partitioned (statistical traffic shaping) helpers
 # ---------------------------------------------------------------------------
+
+
+def make_partitioned_train_step(api, stack_axis: str = "part", **kw):
+    """The per-partition step over stacked (P, ...) params, ``AdamWState``
+    (its ``step`` of shape (P,)) and batch (each leaf (P, B/P, ...)):
+    ``make_train_step(api, **kw)`` on partition i's slice of each, for i
+    in order.  Params and moments are updated in place (views of the
+    stacked tensors); returns (params, state with the stacked new steps,
+    metrics stacked along a leading P axis), what the reference's vmap
+    returns.  ``stack_axis`` names the mesh axis the stacked dim lies on
+    (the reference's ``spmd_axis_name``); one process holds every
+    partition here, so it changes nothing."""
+    del stack_axis
+    base = make_train_step(api, **kw)
+
+    def partitioned_step(params, opt_state, batch):
+        batch = to_device(batch, api.device)
+        n = opt_state.step.shape[0]
+        steps, metrics = [], []
+        for i in range(n):
+            _, st, m = base(tree_map(lambda x: x[i], params),
+                            AdamWState(opt_state.step[i],
+                                       tree_map(lambda x: x[i], opt_state.m),
+                                       tree_map(lambda x: x[i], opt_state.v)),
+                            {k: v[i] for k, v in batch.items()})
+            steps.append(st.step)
+            metrics.append(m)
+        out = {k: torch.stack([torch.as_tensor(m[k]) for m in metrics])
+               for k in metrics[0]}
+        return params, AdamWState(torch.stack(steps), opt_state.m,
+                                  opt_state.v), out
+
+    return partitioned_step
 
 
 def _mean0(x):

@@ -69,7 +69,7 @@ def make_worker_specs(arch: str, n_workers: int, *, smoke: bool = True,
                        peak_flops=peak_flops_total / n_workers,
                        engine=engine, wave_only=wave_only,
                        block_size=block_size, paged=paged,
-                       seed=seed,
+                       partitions=n_workers, seed=seed,
                        cost_model=cost_model, profile=profile,
                        prefix_cache=prefix_cache, kv_dtype=kv_dtype,
                        sparse_threshold=sparse_threshold, device=device)

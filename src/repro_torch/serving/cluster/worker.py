@@ -13,7 +13,11 @@ real engine runs on the device its spec names: ``"cuda"`` (the default)
 pins worker ``wid`` to card ``wid % torch.cuda.device_count()``, so the
 workers of one host spread over its cards (and share the one card of a
 one-card host); ``"cpu"`` only when named, as the tests do; ``"cuda"``
-without a card raises.  The reference pins a JAX submesh instead.
+without a card raises.  The reference's worker also pins a JAX submesh
+(``_partition_mesh``): a ``"cuda"`` worker asks ``runtime.elastic.
+submesh_plan`` for the same grid; None (every host with fewer cards than
+one model group, a one-card host included) keeps the placement above,
+and a grid raises, since one process group a partition is not ported.
 """
 from __future__ import annotations
 
@@ -170,6 +174,7 @@ class WorkerSpec:
     wave_only: bool = False
     block_size: int = 16
     paged: Optional[bool] = None
+    partitions: int = 1          # the fleet's width (the submesh plan)
     seed: int = 0
     cost_model: str = "analytic"  # phase pricing: "analytic" | "measured"
     profile: Optional[str] = None  # saved calibration profile (replay)
@@ -189,9 +194,30 @@ def worker_device(spec: WorkerSpec):
     from repro_torch.device import resolve
 
     dev = resolve(spec.device)
+    if dev.type == "cuda":
+        partition_submesh(spec, torch.cuda.device_count())
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", spec.wid % torch.cuda.device_count())
     return dev
+
+
+def partition_submesh(spec: WorkerSpec, n_local_devices: int) -> None:
+    """The counterpart of the reference's ``_partition_mesh``: the
+    (data, model) grid ``submesh_plan`` picks for a worker of
+    ``spec.partitions`` on a host of ``n_local_devices`` cards.  None (a
+    host smaller than one model group) keeps the one-card placement; a
+    grid raises ``NotImplementedError`` naming it: pinning one would take
+    one process group a partition, the multi-card item of ROADMAP.md."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.runtime.elastic import submesh_plan
+
+    plan = submesh_plan(n_local_devices, spec.partitions,
+                        data_axis=M.DATA_AXIS, model_axis=M.MODEL_AXIS)
+    if plan is not None:
+        raise NotImplementedError(
+            f"worker {spec.wid}: submesh_plan gives a (data, model) = {plan} "
+            f"grid for {spec.partitions} partitions on {n_local_devices} "
+            "cards; one process group a partition is not ported")
 
 
 def build_engine(spec: WorkerSpec) -> EngineBase:

@@ -107,8 +107,8 @@ def test_unaligned_bf16_takes_the_cuda_cores(M, N, K, a_off, b_off):
     until the tensor-core route staged them.)  bf16 operands whose rows
     are not 16-byte aligned take ``mma``, the misaligned ones staged: A
     when K is odd or A is off, B when N is or B is; a forced ``mma``
-    agrees, and the CUDA-core routes stay reachable when forced; f32 still
-    refuses ``mma``."""
+    agrees, and a forced CUDA-core route refuses them (those routes take
+    f32 only); f32 still refuses ``mma``."""
     staged = (K % 8 != 0 or a_off % 16 != 0, N % 8 != 0 or b_off % 16 != 0)
     assert P.aligned(N, K, 4096 + a_off, 8192 + b_off) == (
         not staged[0], not staged[1])
@@ -116,7 +116,10 @@ def test_unaligned_bf16_takes_the_cuda_cores(M, N, K, a_off, b_off):
     p = _plan(M, N, K, a_off=a_off, b_off=b_off)
     assert (p.route, p.bm, p.staged) == ("mma", _expected_bm(M), staged)
     assert _plan(M, N, K, a_off=a_off, b_off=b_off, route="mma") == p
-    old = _plan(M, N, K, a_off=a_off, b_off=b_off,
+    with pytest.raises(ValueError, match="takes f32"):
+        _plan(M, N, K, a_off=a_off, b_off=b_off,
+              route="skinny" if M <= P.SK_MAXM else "tiled")
+    old = _plan(M, N, K, bf16=False, a_off=a_off, b_off=b_off,
                 route="skinny" if M <= P.SK_MAXM else "tiled")
     assert old.staged == (False, False)
     with pytest.raises(ValueError, match="mma route"):
@@ -132,11 +135,16 @@ def test_f32_never_takes_the_tensor_cores(M):
 
 
 def test_forced_routes_and_bad_requests():
-    assert _plan(4, 3584, 3584, route="skinny").route == "skinny"
-    assert _plan(128, 3584, 3584, route="tiled").route == "tiled"
-    assert _plan(4, 3584, 3584, route="tiled").route == "tiled"
+    f32 = dict(bf16=False)
+    assert _plan(4, 3584, 3584, route="skinny", **f32).route == "skinny"
+    assert _plan(128, 3584, 3584, route="tiled", **f32).route == "tiled"
+    assert _plan(4, 3584, 3584, route="tiled", **f32).route == "tiled"
+    # bf16 takes the tensor cores only: a forced CUDA-core route raises
+    for M, route in ((4, "skinny"), (128, "tiled"), (4, "tiled")):
+        with pytest.raises(ValueError, match=f"the {route} route takes f32"):
+            _plan(M, 3584, 3584, route=route)
     with pytest.raises(ValueError, match="skinny route"):
-        _plan(17, 3584, 3584, route="skinny")
+        _plan(17, 3584, 3584, route="skinny", **f32)
     with pytest.raises(ValueError, match="unknown route"):
         _plan(4, 3584, 3584, route="wgmma")
     with pytest.raises(ValueError, match="splits"):
