@@ -39,7 +39,9 @@ and runs the sixteenth slice's checks of phases 1-3 (training the MoE,
 VLM, SSM, hybrid and enc-dec families) alone, without the result line.
 ``--only spmd`` builds the same three and runs the eighteenth slice's
 phase 3 [spmd] (the partitioned step, a one-rank device mesh, the dry
-run) alone, without the result line.
+run) alone, without the result line.  The phase 3 runs of these three
+step through the train step's CUDA graph (``runtime/train_graph.py``, the
+nineteenth slice) and hold it bit for bit against the unwrapped step.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -260,27 +262,36 @@ Phases (each raises on failure; nothing is caught):
    ``repro_torch.launch.train.main`` trains qwen2-7b at full width in bf16
    at 8 of 28 layers (the weights, grads, f32 moments and f32 accumulator
    of all 28 exceed one card), seq 4096, batch 2 in 2 microbatches, 4
-   steps to a checkpoint, then ``--resume`` for 2; a straight run of 6
-   from the same seed must give the same losses bit for bit, and every
-   run's launches must equal what the code issues (remat runs each
-   forward kernel twice); one step is measured (wall, device ms and idle
-   share under the profiler, the forward / backward / optimizer split by
-   CUDA events, tokens per second, peak memory, beside its 6 N D bound).
-   Then ``--partitions 2 --sync-every 2 --fail-at 3:1 --ckpt-every 2`` at
-   2 layers, 4 steps: the live replicas equal bit for bit after each
-   sync, partition 1 gone from step 3, one checkpoint at the second
-   sync.  Then the other families (``phase_train_family_run``) in bf16 at
-   full width through ``make_train_step``, qwen3-moe at 4 of 48 layers,
-   internvl2 at 6 of 48, mamba2, hymba and whisper whole: 4 steps, one
-   measured as above (its bound from ``profiling/train_counts``), and two
-   runs of 2 steps from one seed equal bit for bit; whisper's and
-   mamba2's CLI for 2 steps and ``--resume`` for 1 against a straight run
-   of 3.  Then the SPMD tooling (``phase_spmd``): qwen2-7b at full width,
-   SPMD_LAYERS layer, SPMD_PARTS partitions of 1 x TRAIN_SEQ tokens
-   through ``make_partitioned_train_step`` for SPMD_STEPS steps (each
-   step's device ms by CUDA events, wall ms, peak memory), its launches
-   what the code issues, bit for bit against each partition alone through
-   ``make_train_step`` and ``sync_params`` the f32 mean; a one-rank NCCL
+   steps to a checkpoint, then ``--resume`` for 2, each run's step a
+   ``TrainGraph`` (``runtime/train_graph.py``: the first step eager, the
+   second captured as a CUDA graph, the rest replayed); an eager straight
+   run of 6 from the same seed (the unwrapped step) must give the same
+   losses bit for bit, and every run's launches must equal what the code
+   issues (remat runs each forward kernel twice; a replay issues nothing
+   through the wrappers, ``train_counts.issued_steps``).  At 8 layers, 4
+   graphed steps; the graphed and the eager step are measured in turns
+   in one process (wall, device ms and idle share under the profiler,
+   tokens per second, peak memory and the graph's pool; the forward /
+   backward / optimizer split of an eager step by CUDA events, beside its
+   6 N D bound); an eager run of 3 steps from the same seed equals the
+   graphed one bit for bit in losses and every parameter (its third step
+   a pure replay).  Then ``--partitions 2 --sync-every 2 --fail-at 3:1
+   --ckpt-every 2`` at 2 layers, 4 steps: the live replicas equal bit for
+   bit after each sync, partition 1 gone from step 3, one graph a
+   replica.  Then the other families (``phase_train_family_run``) in bf16
+   at full width through the graphed ``make_train_step``, qwen3-moe at 4
+   of 48 layers, internvl2 at 6 of 48, mamba2, hymba and whisper whole: 4
+   steps, the graphed and the eager step measured as above (the bound
+   from ``profiling/train_counts``), and an eager run of 3 steps from one
+   seed equal to the graphed run bit for bit; whisper's and mamba2's CLI
+   (graphed) for 2 steps and ``--resume`` for 1 against an eager straight
+   run of 3.  Then the SPMD tooling (``phase_spmd``): qwen2-7b at full
+   width, SPMD_LAYERS layer, SPMD_PARTS partitions of 1 x TRAIN_SEQ tokens
+   through ``make_partitioned_train_step`` in a ``TrainGraph`` for
+   SPMD_STEPS steps (each step's device ms by CUDA events, wall ms, peak
+   memory), its launches what the code issues, bit for bit against each
+   partition alone through the unwrapped ``make_train_step`` and
+   ``sync_params`` the f32 mean; a one-rank NCCL
    process group's (1, 1) ``DeviceMesh``, the params placed on it by
    ``param_shardings`` whole and bit for bit, a SPMD_CKPT_ARCH checkpoint
    restored onto it by ``restore(shardings=)``; and ``python -m
@@ -4285,6 +4296,10 @@ TRAIN_ACCUM = 2             # two microbatches of 1 x 4096 a step
 TRAIN_LAYERS = 8            # of 28: full depth is 91 GB of weights, grads
 TRAIN_STEPS = 4             # and moments, more than one 80 GB card
 TRAIN_RESUME = 2
+# a graphed run's first step runs eagerly, its second is captured and
+# replayed, its third only replayed: an eager run of 3 steps from the same
+# seed must equal it bit for bit there
+BITWISE_STEPS = 3
 # The card's machine takes at most 45 GiB of disk writes a call, and a
 # checkpoint at 8 layers is 35 GB (f32 params, m and v: 12 bytes a
 # parameter), so the CLI's runs, which save at their end, run at
@@ -4868,12 +4883,33 @@ def train_card_vs_cpu(torch, cfg2, seq, tag, tables=False):
     return worst
 
 
-def train_measure(torch, cfg, api, params, opt, step_fn, batch):
-    """Steps of bf16 training at full width, measured: one step's wall ms
-    (host clock to a synchronize) and peak memory; one step under the
-    profiler (device ms = the kernels', copies' and memsets' time; idle =
-    1 - device / that step's wall; the port's kernels by name); then one
-    step split into each microbatch's forward and backward, the f32
+def pool_gb(torch, graph):
+    """GB the memory pool of ``graph``'s captures holds on the card (its
+    segments in ``torch.cuda.memory_snapshot``); None where the snapshot
+    names no pools."""
+    segs = torch.cuda.memory_snapshot()
+    if graph.pool is None or not any("segment_pool_id" in x for x in segs):
+        return None
+    return sum(x["total_size"] for x in segs
+               if tuple(x.get("segment_pool_id", ())) == tuple(graph.pool)) \
+        / 1e9
+
+
+def train_measure(torch, cfg, state, batch):
+    """Steps of bf16 training at full width, measured in one process, the
+    graphed arm before and after the eager one, on ``state`` (api, params,
+    opt and step_fn, a ``TrainGraph`` whose replica ``params`` already
+    replays; all taken out of the dict, so that the graph's last reference
+    is the one here): replays of the graph, then the graph released with its
+    memory pool (at 4-6 of 48 layers the pool, one step's intermediates,
+    and an eager step's do not fit one card together), eager steps of the
+    unwrapped function, then a new graph on the same state (its eager step
+    and capture) and replays again.  Each arm: a step's wall ms (host clock
+    to a synchronize) and peak memory, then a step under the profiler
+    (device ms = the kernels', copies' and memsets' time; idle = 1 -
+    device / that step's wall; the port's kernels by name); the graphed
+    arm's memory held = a replay's peak allocated + its pool.  Then one
+    eager step split into each microbatch's forward and backward, the f32
     accumulation and the optimizer by CUDA events.  The step's bound: the
     products' forward and backward FLOPs at the tensor cores' rate, an MoE
     router's and the SSD's at the CUDA cores' (``train_flops``)."""
@@ -4881,30 +4917,62 @@ def train_measure(torch, cfg, api, params, opt, step_fn, batch):
     from repro_torch.profiling.decode_profile import PORT_KERNEL, _device_us
     from repro_torch.profiling.train_counts import train_flops
     from repro_torch.runtime import steps as RS
+    from repro_torch.runtime.train_graph import TrainGraph, addresses
     from repro_torch.tree import leaves, tree_map, unflatten
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params, opt, _ = step_fn(params, opt, batch)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    prof = torch.profiler
-    with prof.profile(activities=[prof.ProfilerActivity.CPU,
-                                  prof.ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        params, opt, _ = step_fn(params, opt, batch)
+    def wall_of(fn):
         torch.cuda.synchronize()
-        traced_wall = (time.perf_counter() - t0) * 1e3
-    rows = p.key_averages()
-    device = sum(_device_us(e) for e in rows) / 1e3
-    by_kernel = {}
-    for e in rows:
-        m = PORT_KERNEL.search(e.key)
-        if m and _device_us(e):
-            by_kernel[m.group(1)] = by_kernel.get(m.group(1), 0.0) \
-                + _device_us(e) / 1e3
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    def profiled(fn):
+        prof = torch.profiler
+        with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                      prof.ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_wall = (time.perf_counter() - t0) * 1e3
+        rows = p.key_averages()
+        device = sum(_device_us(e) for e in rows) / 1e3
+        by_kernel = {}
+        for e in rows:
+            m = PORT_KERNEL.search(e.key)
+            if m and _device_us(e):
+                by_kernel[m.group(1)] = by_kernel.get(m.group(1), 0.0) \
+                    + _device_us(e) / 1e3
+        return dict(traced_wall_ms=traced_wall, device_ms=device,
+                    idle=1 - device / traced_wall, kernels_ms=by_kernel)
+
+    def replays(g):
+        run = lambda: g(params, opt, batch)     # noqa: E731
+        wall, peak = wall_of(run)
+        return dict(profiled(run), wall_ms=wall, peak_gb=peak,
+                    pool_gb=pool_gb(torch, g))
+
+    def eager():
+        _, st, _ = step(params, opt, batch)
+        opt.step.copy_(st.step)       # the counter a graph reads
+
+    api, params, opt, graph = (state.pop(k) for k in (
+        "api", "params", "opt", "step_fn"))
+    step = graph.step
+    op = graph.ops[addresses(params, opt)]
+    lifecycle = [dict(eager=op.n_eager, replays=op.n_replays,
+                      capture_s=op.capture_s)]
+    arms = [replays(graph)]
+    del op
+    graph = None                      # the pool goes with the last graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    released = torch.cuda.memory_reserved() / 1e9
+    wall, peak = wall_of(eager)
+    out = dict(profiled(eager), wall_ms=wall, peak_gb=peak,
+               reserved_gb=released)
     # the parts of one step, as make_train_step runs them
     tb = RS.to_device(batch, api.device)
     micro = {k: v.reshape((TRAIN_ACCUM, v.shape[0] // TRAIN_ACCUM)
@@ -4934,36 +5002,61 @@ def train_measure(torch, cfg, api, params, opt, step_fn, batch):
                                zip(leaves(gacc), leaves(params))])
     del gacc
     lr = cosine_lr(opt.step, peak=3e-4, warmup=100, total=100)
-    params, opt, _ = adamw_update(grads, opt, params, lr=lr)
+    _, st, _ = adamw_update(grads, opt, params, lr=lr)
+    opt.step.copy_(st.step)
     ev[5].record()
     torch.cuda.synchronize()
     parts["optimizer"] = ev[4].elapsed_time(ev[5])
-    del grads
+    del grads, tb, micro
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a new graph on the same state: its eager step and capture, then
+    # replays again
+    graph = TrainGraph(step, api.device)
+    for _ in range(2):
+        graph(params, opt, batch)
+    (op,) = graph.ops.values()
+    lifecycle.append(dict(eager=op.n_eager, replays=op.n_replays,
+                          capture_s=op.capture_s))
+    arms.append(replays(graph))
+    del op, graph
+    gc.collect()
+    torch.cuda.empty_cache()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = train_flops(cfg, TRAIN_SEQ, TRAIN_BATCH)
-    return dict(wall_ms=wall, traced_wall_ms=traced_wall, device_ms=device,
-                idle=1 - device / traced_wall, parts_ms=parts,
-                kernels_ms=by_kernel, tokens_per_s=tokens / (wall / 1e3),
-                peak_gb=peak, flops=flops, bound_ms=flops.pop("bound_ms"))
+    g = {k: [a[k] for a in arms] for k in arms[0]}
+    g_wall = sum(g["wall_ms"]) / len(arms)
+    held = [None if a["pool_gb"] is None else a["peak_gb"] + a["pool_gb"]
+            for a in arms]
+    out["tokens_per_s"] = tokens / (out["wall_ms"] / 1e3)
+    return dict(out, graph=dict(g, mean_wall_ms=g_wall, held_gb=held,
+                                tokens_per_s=tokens / (g_wall / 1e3),
+                                lifecycle=lifecycle),
+                parts_ms=parts, flops=flops, bound_ms=flops.pop("bound_ms"))
 
 
-def train_straight(torch, cfg, n_steps, keep=None, snap=None):
+def train_straight(torch, cfg, n_steps, keep=None, snap=None, graphed=True):
     """``n_steps`` of what ``train.main`` runs without partitions, from its
-    seed, on its batches (its total as it sets it), without checkpoints;
-    returns the losses.  ``keep`` (a dict) receives the api, step function,
-    params and optimizer state at the end; ``snap`` (a dict with key
-    "at") receives a host copy of the params after that many steps."""
+    seed, on its batches (its total as it sets it), without checkpoints:
+    through a ``TrainGraph`` as the CLI steps, or with ``graphed=False``
+    the unwrapped step; returns the losses.  ``keep`` (a dict) receives
+    the api, step function, params and optimizer state at the end;
+    ``snap`` (a dict with key "at") receives a host copy of the params
+    after that many steps."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data.pipeline import synth_lm_batch
     from repro_torch.models import api as mapi
     from repro_torch.optim import adamw_init
     from repro_torch.runtime import steps as RS
+    from repro_torch.runtime.train_graph import TrainGraph
     from repro_torch.tree import leaves_with_paths
 
     shape = ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     api = mapi.build(cfg, "cuda")
     step_fn = RS.make_train_step(api, peak_lr=3e-4, accum=TRAIN_ACCUM,
                                  total=max(TRAIN_STEPS + TRAIN_RESUME, 100))
+    if graphed:
+        step_fn = TrainGraph(step_fn, api.device)
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
     opt = adamw_init(params)
     out = []
@@ -4979,28 +5072,81 @@ def train_straight(torch, cfg, n_steps, keep=None, snap=None):
 
 
 def train_step_logged(torch, name, cfg, state):
-    """``train_measure`` on the trained state ``state`` (api, step_fn,
-    params, opt; cleared after), logged; returns the record."""
+    """``train_measure`` on the trained state ``state`` (api, step_fn: the
+    graph, params, opt; emptied, so that the measurement holds the last
+    reference to the graph), logged; returns the record."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data.pipeline import synth_lm_batch
 
     shape = ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train")
-    meas = train_measure(torch, cfg, state["api"], state["params"],
-                         state["opt"], state["step_fn"],
+    meas = train_measure(torch, cfg, state,
                          synth_lm_batch(cfg, shape, TRAIN_STEPS))
-    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     flops = ", ".join(f"{k} {v / 1e12:.3f}" for k, v in meas["flops"].items())
+    g = meas["graph"]
+
+    def two(xs, fmt=".1f"):
+        return " / ".join("not measured" if x is None else f"{x:{fmt}}"
+                          for x in xs)
     log(f"phase 3 [{name}]: {cfg.name} {cfg.n_layers} layers at full width, "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_ACCUM} microbatches: "
-        f"wall {meas['wall_ms']:.1f} ms ({meas['tokens_per_s']:.0f} tokens "
-        f"per s); under the profiler wall {meas['traced_wall_ms']:.1f} ms, "
-        f"device {meas['device_ms']:.1f} ms, idle share {meas['idle']:.3f}; "
-        f"parts (ms) { {k: round(v, 2) for k, v in meas['parts_ms'].items()} }"
-        f"; the port's kernels (device ms) "
-        f"{ {k: round(v, 2) for k, v in meas['kernels_ms'].items()} }; peak "
-        f"{meas['peak_gb']:.2f} GB; bound {meas['bound_ms']:.1f} ms (TFLOP "
-        f"{flops}: products at 989 TFLOP/s, router and SSD at 67)")
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_ACCUM} microbatches; "
+        f"graphed (before / after the eager arm) | eager: wall "
+        f"{two(g['wall_ms'])} | {meas['wall_ms']:.1f} ms ("
+        f"{g['tokens_per_s']:.0f} | {meas['tokens_per_s']:.0f} tokens per "
+        f"s); under the profiler wall {two(g['traced_wall_ms'])} | "
+        f"{meas['traced_wall_ms']:.1f} ms, device {two(g['device_ms'])} | "
+        f"{meas['device_ms']:.1f} ms, idle share {two(g['idle'], '.3f')} | "
+        f"{meas['idle']:.3f}; peak GB allocated {two(g['peak_gb'], '.2f')} "
+        f"(a replay) + pool {two(g['pool_gb'], '.2f')} = held "
+        f"{two(g['held_gb'], '.2f')} | {meas['peak_gb']:.2f} (an eager "
+        f"step; {meas['reserved_gb']:.2f} reserved with the graph "
+        f"released); the graphs' lifecycles {g['lifecycle']}; parts of an "
+        f"eager step (ms) { {k: round(v, 2) for k, v in meas['parts_ms'].items()} }"
+        f"; the port's kernels (device ms) graphed "
+        f"{ {k: round(v, 2) for k, v in g['kernels_ms'][0].items()} } | "
+        f"eager { {k: round(v, 2) for k, v in meas['kernels_ms'].items()} };"
+        f" bound {meas['bound_ms']:.1f} ms (TFLOP {flops}: products at 989 "
+        f"TFLOP/s, router and SSD at 67) [{card_line()}]")
     return meas
+
+
+def bitwise_rerun(torch, name, cfg, losses, snap):
+    """A second run of BITWISE_STEPS steps from the same seed through the
+    unwrapped step (``train_straight(graphed=False)``), counted: its
+    losses and every parameter must equal the graphed run's ``losses``
+    and its params at that step (``snap``, cleared after) bit for bit; the
+    graphed run replayed its last step there.  Returns the record."""
+    from repro_torch.profiling.train_counts import issued_steps, train_issues
+    from repro_torch.tree import leaves_with_paths
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = {}
+    bit, rec = counted(
+        torch, f"{name} bitwise", train_issues(
+            cfg, TRAIN_SEQ, issued_steps(BITWISE_STEPS, graphed=False)
+            * TRAIN_ACCUM),
+        lambda: train_straight(torch, cfg, BITWISE_STEPS, keep=again,
+                               graphed=False))
+    differ = [k for k, v in leaves_with_paths(again["params"])
+              if not torch.equal(v, snap["params"][k].to(v.device))]
+    n_params = len(snap["params"])
+    again.clear()
+    snap.clear()
+    if bit != losses[:BITWISE_STEPS] or differ:
+        fail(f"phase 3 [{name}]: the graphed run and an eager run of "
+             f"{BITWISE_STEPS} steps from one seed differ: losses {bit} "
+             f"against {losses[:BITWISE_STEPS]}, parameters {differ}")
+    rec["losses"] = bit
+    log(f"phase 3 [{name}]: an eager run of {BITWISE_STEPS} steps from the "
+        f"same seed (the unwrapped step) equals the graphed run bit for bit "
+        f"(losses {bit}, all {n_params} parameters; the graphed run's steps "
+        f"eager, captured, replayed), launches {rec['launches']} (= what the "
+        f"code issues)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def counted(torch, name, want, fn):
@@ -5031,14 +5177,16 @@ def train_cli_resume(torch, arch, n_layers, n_steps, n_resume, ckpt_dir,
     """The train CLI (``launch/train.main``) on ``arch`` at ``n_layers``
     layers (None: its full depth), bf16, seq TRAIN_SEQ x batch TRAIN_BATCH
     in TRAIN_ACCUM microbatches: ``n_steps`` steps to a checkpoint in
-    ``ckpt_dir``, then ``--resume`` for ``n_resume``; their losses must
-    equal a straight run's (``train_straight``) bit for bit, and each run's
+    ``ckpt_dir``, then ``--resume`` for ``n_resume``, each through the
+    CLI's graph (its first step eager, its second captured, the rest
+    replayed); their losses must equal an eager straight run's
+    (``train_straight(graphed=False)``) bit for bit, and each run's
     launches what the code issues.  Returns the three runs' records, named
     "<tag> cli", "<tag> resume" and "<tag> straight"."""
     import shutil
 
     from repro_torch.launch import train
-    from repro_torch.profiling.train_counts import train_issues
+    from repro_torch.profiling.train_counts import issued_steps, train_issues
 
     real, cut = depth_of(train, n_layers)
     full_layers = real(arch).n_layers
@@ -5054,7 +5202,8 @@ def train_cli_resume(torch, arch, n_layers, n_steps, n_resume, ckpt_dir,
                  n_resume)):
             argv = sync_args + extra + ["--ckpt-dir", str(ckpt_dir)]
             losses[name], runs[name] = counted(
-                torch, name, train_issues(cfg, TRAIN_SEQ, n * TRAIN_ACCUM),
+                torch, name, train_issues(
+                    cfg, TRAIN_SEQ, issued_steps(n) * TRAIN_ACCUM),
                 lambda: train.main(argv))
             if not all(math.isfinite(x) for x in losses[name]):
                 fail(f"phase 3 [{name}]: losses {losses[name]}")
@@ -5074,15 +5223,15 @@ def train_cli_resume(torch, arch, n_layers, n_steps, n_resume, ckpt_dir,
     name = f"{tag} straight"
     losses[name], runs[name] = counted(
         torch, name, train_issues(cfg, TRAIN_SEQ, n_all * TRAIN_ACCUM),
-        lambda: train_straight(torch, cfg, n_all))
+        lambda: train_straight(torch, cfg, n_all, graphed=False))
     runs[name]["losses"] = losses[name]
     if losses[f"{tag} cli"] + losses[f"{tag} resume"] != losses[name]:
         fail(f"phase 3 [{tag}]: {n_steps} steps + resume "
              f"{losses[f'{tag} cli']} + {losses[f'{tag} resume']} differ "
              f"from the straight run {losses[name]}")
-    log(f"phase 3 [{tag}]: the CLI's {n_steps} steps and its resumed "
-        f"{n_resume} equal a straight run's losses bit for bit "
-        f"({losses[name]})")
+    log(f"phase 3 [{tag}]: the CLI's {n_steps} graphed steps and its "
+        f"resumed {n_resume} equal an eager straight run's losses bit for "
+        f"bit ({losses[name]})")
     return runs
 
 
@@ -5093,17 +5242,21 @@ def phase_train_run(torch):
     checkpoint, then --resume for TRAIN_RESUME more; a straight run of both
     through ``make_train_step`` (what the CLI runs, from its seed, on its
     batches, without its checkpoints) must give the same losses bit for
-    bit.  Then TRAIN_LAYERS layers through ``make_train_step``:
-    TRAIN_STEPS steps, then steps measured (``train_measure``).  Then the
+    bit.  Then TRAIN_LAYERS layers through ``make_train_step`` in a
+    ``TrainGraph``, as the CLI runs it: TRAIN_STEPS steps, then the
+    graphed and the eager step measured (``train_measure``), then an eager
+    run of BITWISE_STEPS steps from the same seed equal to the graphed one
+    bit for bit (``bitwise_rerun``).  Then the
     CLI's partitioned path at PART_LAYERS layers: 2 partitions syncing
     every 2 steps, partition 1 failing at step 3, every sync leaving the
-    live replicas equal bit for bit.  Every run's launch counts must equal
-    what the code issues, and its losses be finite."""
+    live replicas equal bit for bit, each replica's step graphed.  Every
+    run's launch counts must equal what the code issues, and its losses be
+    finite."""
     import shutil
     import tempfile
 
     from repro_torch.launch import train
-    from repro_torch.profiling.train_counts import train_issues
+    from repro_torch.profiling.train_counts import issued_steps, train_issues
     from repro_torch.runtime import partition_runtime as PR
     from repro_torch.tree import leaves
 
@@ -5121,24 +5274,27 @@ def phase_train_run(torch):
 
     # TRAIN_LAYERS layers through make_train_step, then measured
     cfg = cut(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
-    state = {}
+    state, snap = {}, {"at": BITWISE_STEPS}
     losses["train"], runs["train"] = counted(
-        torch, "train", train_issues(cfg, TRAIN_SEQ,
-                                     TRAIN_STEPS * TRAIN_ACCUM),
-        lambda: train_straight(torch, cfg, TRAIN_STEPS, keep=state))
+        torch, "train", train_issues(cfg, TRAIN_SEQ, issued_steps(
+            TRAIN_STEPS) * TRAIN_ACCUM),
+        lambda: train_straight(torch, cfg, TRAIN_STEPS, keep=state,
+                               snap=snap))
     if not all(math.isfinite(x) for x in losses["train"]):
         fail(f"phase 3 [train]: losses {losses['train']}")
     runs["train"]["losses"] = losses["train"]
     log(f"phase 3 [train]: {cfg.name} {cfg.n_layers} of {full_layers} "
         f"layers, bf16, seq {TRAIN_SEQ} x batch {TRAIN_BATCH} (accum "
-        f"{TRAIN_ACCUM}), {TRAIN_STEPS} steps through make_train_step in "
-        f"{runs['train']['wall']:.2f} s wall (init included): losses "
-        f"{losses['train']}, peak {runs['train']['peak_gb']:.2f} GB, "
+        f"{TRAIN_ACCUM}), {TRAIN_STEPS} steps through make_train_step in a "
+        f"TrainGraph in {runs['train']['wall']:.2f} s wall (init included): "
+        f"losses {losses['train']}, peak {runs['train']['peak_gb']:.2f} GB, "
         f"launches {runs['train']['launches']} (= what the code issues), "
         f"backward kernels {runs['train']['bwd_kernels']}, matmul routes "
         f"{runs['train']['routes']}")
     runs["train"]["step"] = train_step_logged(torch, "train step", cfg,
                                               state)
+    runs["train bitwise"] = bitwise_rerun(torch, "train", cfg,
+                                          losses["train"], snap)
 
     # the partitioned path: every sync leaves the live replicas equal
     real, cut = depth_of(train, PART_LAYERS)
@@ -5157,6 +5313,8 @@ def phase_train_run(torch):
     fail_step = int(PART_ARGS[PART_ARGS.index("--fail-at") + 1]
                     .split(":")[0])
     part_steps = 2 * fail_step + (PART_STEPS - fail_step)
+    # replica 0 steps PART_STEPS times, replica 1 fail_step times
+    issued = issued_steps(PART_STEPS) + issued_steps(fail_step)
     argv = base + ["--steps", str(PART_STEPS), "--ckpt-dir",
                    str(tmp / "p")] + PART_ARGS
     train.get_config = cut
@@ -5164,7 +5322,7 @@ def phase_train_run(torch):
     try:
         part_losses, rec = counted(
             torch, "train partitioned", train_issues(cfg_p, TRAIN_SEQ,
-                                                     part_steps),
+                                                     issued),
             lambda: train.main(argv))
     finally:
         train.get_config = real
@@ -5183,7 +5341,9 @@ def phase_train_run(torch):
         f" {PART_STEPS} steps ({part_steps} partition steps) in "
         f"{rec['wall']:.2f} s wall: losses {part_losses}; syncs (live "
         f"replicas, equal bit for bit) {syncs}; peak {rec['peak_gb']:.2f} "
-        f"GB; launches {rec['launches']} (= what the code issues)")
+        f"GB; launches {rec['launches']} (= what the code issues: {issued} "
+        f"of the {part_steps} partition steps eager or captured, one graph a "
+        f"replica)")
     shutil.rmtree(tmp, ignore_errors=True)
     return runs
 
@@ -5221,7 +5381,6 @@ TRAIN_FAMILIES = {"qwen3-moe-30b-a3b": 4, "internvl2-26b": 6,
 # already write ~32 GB of a call's 45 GiB
 TRAIN_FAMILY_CLI = ("whisper-base", "mamba2-130m")
 FAMILY_CLI_STEPS, FAMILY_CLI_RESUME = 2, 1
-FAMILY_BITWISE_STEPS = 2    # two runs from one seed, equal bit for bit
 # phase 2: fp32 at 2 layers on batches of 2 x (prefix + text): hymba at 3
 # layers and 1152 text rows, since its global layers (0, 15, 31) taken
 # modulo 2 layers leave no windowed layer, and 128 meta rows + 1152 make
@@ -5403,20 +5562,21 @@ def phase_train_family_card_vs_cpu(torch):
 def phase_train_family_run(torch):
     """Phase 3 [train families]: each family in bf16 at full width and the
     depth of TRAIN_FAMILIES, seq TRAIN_SEQ x batch TRAIN_BATCH in
-    TRAIN_ACCUM microbatches, through ``make_train_step`` (what the CLI
-    runs): TRAIN_STEPS steps, then one measured (``train_measure``); a
-    second run of FAMILY_BITWISE_STEPS steps from the same seed must give
-    the first run's losses and parameters at that step bit for bit; the
+    TRAIN_ACCUM microbatches, through ``make_train_step`` in a
+    ``TrainGraph`` (what the CLI runs): TRAIN_STEPS steps, then the
+    graphed and the eager step measured in turns (``train_measure``); an
+    eager run of BITWISE_STEPS steps from the same seed must give the
+    graphed run's losses and parameters at that step bit for bit
+    (``bitwise_rerun``: the graphed run's third step a pure replay); the
     families of ``train_family_products`` must stage some matmul operands,
-    the others none.  For
-    TRAIN_FAMILY_CLI, the CLI's steps and resume against a straight run
-    (``train_cli_resume``).  Every run's launches must equal what the code
-    issues, and every loss be finite."""
+    the others none.  For TRAIN_FAMILY_CLI, the CLI's graphed steps and
+    resume against an eager straight run (``train_cli_resume``).  Every
+    run's launches must equal what the code issues, and every loss be
+    finite."""
     import shutil
     import tempfile
 
-    from repro_torch.profiling.train_counts import train_issues
-    from repro_torch.tree import leaves_with_paths
+    from repro_torch.profiling.train_counts import issued_steps, train_issues
 
     runs = {}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_families_"))
@@ -5426,10 +5586,10 @@ def phase_train_family_run(torch):
         cfg = train_family_cfg(arch)
         full = family_cfg(arch).n_layers
         name = f"train {arch}"
-        state, snap = {}, {"at": FAMILY_BITWISE_STEPS}
+        state, snap = {}, {"at": BITWISE_STEPS}
         losses, runs[name] = counted(
-            torch, name, train_issues(cfg, TRAIN_SEQ,
-                                      TRAIN_STEPS * TRAIN_ACCUM),
+            torch, name, train_issues(cfg, TRAIN_SEQ, issued_steps(
+                TRAIN_STEPS) * TRAIN_ACCUM),
             lambda: train_straight(torch, cfg, TRAIN_STEPS, keep=state,
                                    snap=snap))
         if not all(math.isfinite(x) for x in losses):
@@ -5441,35 +5601,16 @@ def phase_train_family_run(torch):
         log(f"phase 3 [{name}]: {cfg.name} {cfg.n_layers} of {full} "
             f"layers, bf16, seq {TRAIN_SEQ} x batch {TRAIN_BATCH} (accum "
             f"{TRAIN_ACCUM}), {TRAIN_STEPS} steps through make_train_step in "
-            f"{runs[name]['wall']:.2f} s wall (init included): losses "
+            f"a TrainGraph in {runs[name]['wall']:.2f} s wall (init "
+            f"included): losses "
             f"{losses}, peak {runs[name]['peak_gb']:.2f} GB, launches "
             f"{runs[name]['launches']} (= what the code issues), backward "
             f"kernels {runs[name]['bwd_kernels']}, matmul routes "
             f"{runs[name]['routes']} ({runs[name]['staged']} staged)")
         runs[name]["step"] = train_step_logged(torch, f"{name} step", cfg,
                                                state)
-        gc.collect()
-        torch.cuda.empty_cache()
-        again = {}
-        bit, runs[f"{name} bitwise"] = counted(
-            torch, f"{name} bitwise", train_issues(
-                cfg, TRAIN_SEQ, FAMILY_BITWISE_STEPS * TRAIN_ACCUM),
-            lambda: train_straight(torch, cfg, FAMILY_BITWISE_STEPS,
-                                   keep=again))
-        differ = [k for k, v in leaves_with_paths(again["params"])
-                  if not torch.equal(v, snap["params"][k].to(v.device))]
-        again.clear()
-        snap.clear()
-        if bit != losses[:FAMILY_BITWISE_STEPS] or differ:
-            fail(f"phase 3 [{name}]: two runs of {FAMILY_BITWISE_STEPS} "
-                 f"steps from one seed differ: losses {bit} against "
-                 f"{losses[:FAMILY_BITWISE_STEPS]}, parameters {differ}")
-        runs[f"{name} bitwise"]["losses"] = bit
-        log(f"phase 3 [{name}]: a second run of {FAMILY_BITWISE_STEPS} "
-            f"steps from the same seed equals the first bit for bit (losses "
-            f"{bit}, every parameter)")
-        gc.collect()
-        torch.cuda.empty_cache()
+        runs[f"{name} bitwise"] = bitwise_rerun(torch, name, cfg, losses,
+                                                snap)
         if arch in TRAIN_FAMILY_CLI:
             runs.update(train_cli_resume(
                 torch, arch, TRAIN_FAMILIES[arch], FAMILY_CLI_STEPS,
@@ -5498,17 +5639,19 @@ def phase_train_families(torch) -> dict:
 
 SPMD_LAYERS = 1              # of qwen2-7b's 28: P copies of params, grads,
 SPMD_PARTS = 2               # m and v (~13.2 GB a partition) and one more
-SPMD_STEPS = 2               # copy for the separate steps: ~45 GB
+SPMD_STEPS = 3               # copy for the separate steps: ~45 GB; the
+                             # graph's steps eager, captured, replayed
 SPMD_CKPT_ARCH = "mamba2-130m"   # the restore's checkpoint: 0.5 GB of f32
 
 
 def spmd_partitioned_step(torch) -> dict:
-    """Phase 3 [spmd]: ``make_partitioned_train_step`` at qwen2-7b's full
-    width, SPMD_LAYERS layer, SPMD_PARTS partitions of 1 x TRAIN_SEQ
-    tokens, bf16, ``warmup=1``, SPMD_STEPS steps, partition i's params
-    drawn from seed i and stacked.  Counted: the launches must equal what
-    ``train_issues`` says the code issues for P x steps microbatches, all
-    products on ``mm_mma``.  Then each partition again through
+    """Phase 3 [spmd]: ``make_partitioned_train_step`` in a ``TrainGraph``
+    at qwen2-7b's full width, SPMD_LAYERS layer, SPMD_PARTS partitions of
+    1 x TRAIN_SEQ tokens, bf16, ``warmup=1``, SPMD_STEPS steps (eager,
+    captured, replayed), partition i's params drawn from seed i and
+    stacked.  Counted: the launches must equal what ``train_issues`` says
+    the code issues for P x ``issued_steps`` microbatches, all products on
+    ``mm_mma``.  Then each partition again through the unwrapped
     ``make_train_step`` alone, from its seed, on its half of each batch:
     losses, metrics, params, m and v bit for bit against the stacked
     run's slice; and ``sync_params`` against the f32 mean of the
@@ -5519,8 +5662,9 @@ def spmd_partitioned_step(torch) -> dict:
     from repro_torch.data.pipeline import synth_lm_batch
     from repro_torch.models import api as mapi
     from repro_torch.optim import AdamWState, adamw_init
-    from repro_torch.profiling.train_counts import train_issues
+    from repro_torch.profiling.train_counts import issued_steps, train_issues
     from repro_torch.runtime import steps as RS
+    from repro_torch.runtime.train_graph import TrainGraph
     from repro_torch.tree import leaves_with_paths, tree_map
 
     full = get_config(TRAIN_ARCH).n_layers
@@ -5531,8 +5675,8 @@ def spmd_partitioned_step(torch) -> dict:
     batches = []
     for step in range(SPMD_STEPS):
         b = synth_lm_batch(cfg, shape, step)
-        batches.append({k: torch.from_numpy(v).reshape(
-            (SPMD_PARTS, 1) + v.shape[1:]).cuda() for k, v in b.items()})
+        batches.append({k: v.reshape((SPMD_PARTS, 1) + v.shape[1:])
+                        for k, v in b.items()})
 
     def init(i):
         return api.init(torch.Generator(device="cuda").manual_seed(i))
@@ -5545,8 +5689,10 @@ def spmd_partitioned_step(torch) -> dict:
     opt = adamw_init(stacked)
     opt = AdamWState(torch.zeros((SPMD_PARTS,), dtype=torch.int32,
                                  device="cuda"), opt.m, opt.v)
-    step_fn = RS.make_partitioned_train_step(api, stack_axis="part", **kw)
-    want = train_issues(cfg, TRAIN_SEQ, SPMD_PARTS * SPMD_STEPS)
+    step_fn = TrainGraph(RS.make_partitioned_train_step(
+        api, stack_axis="part", **kw), api.device)
+    want = train_issues(cfg, TRAIN_SEQ,
+                        SPMD_PARTS * issued_steps(SPMD_STEPS))
     torch.cuda.synchronize()
     zero_counts(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -5558,8 +5704,9 @@ def spmd_partitioned_step(torch) -> dict:
         stacked, opt, m = step_fn(stacked, opt, b)
         ev[1].record()
         torch.cuda.synchronize()
+        (op,) = step_fn.ops.values()
         steps.append(dict(wall_ms=(time.perf_counter() - t0) * 1e3,
-                          device_ms=ev[0].elapsed_time(ev[1])))
+                          device_ms=ev[0].elapsed_time(ev[1]), kind=op.last))
         losses.append([float(x) for x in m["loss"]])
         metrics.append(m)
     counts = read_counts()
@@ -5575,15 +5722,20 @@ def spmd_partitioned_step(torch) -> dict:
         fail(f"phase 3 [spmd]: losses {losses}")
     smi = card_line()
     for i, st in enumerate(steps):
-        log(f"phase 3 [spmd]: partitioned step {i} ({SPMD_PARTS} partitions "
-            f"x 1 x {TRAIN_SEQ} tokens, {cfg.name} {SPMD_LAYERS} of {full} "
-            f"layers at full width, bf16): device {st['device_ms']:.1f} ms "
+        log(f"phase 3 [spmd]: partitioned step {i}, {st['kind']} "
+            f"({SPMD_PARTS} partitions x 1 x {TRAIN_SEQ} tokens, {cfg.name} "
+            f"{SPMD_LAYERS} of {full} layers at full width, bf16, in a "
+            f"TrainGraph): device {st['device_ms']:.1f} ms "
             f"(CUDA events), wall {st['wall_ms']:.1f} ms, losses "
             f"{losses[i]} [{smi}]")
     log(f"phase 3 [spmd]: peak {peak:.2f} GB; launches {counts['launches']}"
-        f" (= what the code issues for {SPMD_PARTS} x {SPMD_STEPS} "
-        f"microbatches), backward kernels {bwd}, matmul routes "
-        f"{counts['routes']} [{smi}]")
+        f" (= what the code issues for {SPMD_PARTS} x "
+        f"{issued_steps(SPMD_STEPS)} microbatches: the eager step and the "
+        f"capture), backward kernels {bwd}, matmul routes "
+        f"{counts['routes']}; the graph {step_fn.stats()} [{smi}]")
+    del step_fn           # its pool, before the partitions run alone
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # each partition alone, from its seed: bit for bit
     stacked_l = dict(leaves_with_paths(stacked))
@@ -5612,8 +5764,9 @@ def spmd_partitioned_step(torch) -> dict:
         del p_i, o_i
         torch.cuda.empty_cache()
     log(f"phase 3 [spmd]: each of the {SPMD_PARTS} partitions alone "
-        "(make_train_step from its seed) equals the partitioned run bit for "
-        "bit: losses, metrics, params, m, v and the step count")
+        "(the unwrapped make_train_step from its seed) equals the graphed "
+        "partitioned run bit for bit: losses, metrics, params, m, v and the "
+        "step count")
     avg = RS.sync_params(stacked)
     avg_l = dict(leaves_with_paths(avg))
     for path, x in stacked_l.items():

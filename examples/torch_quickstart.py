@@ -24,6 +24,7 @@ from repro_torch.device import resolve
 from repro_torch.models import api as mapi
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.runtime import steps as RS
+from repro_torch.runtime.train_graph import TrainGraph
 
 
 def main(argv=None):
@@ -39,7 +40,9 @@ def main(argv=None):
 
     params = api.init(torch.Generator(device=dev).manual_seed(0))
     opt = adamw_init(params)
-    step = RS.make_train_step(api, peak_lr=5e-3, warmup=2, total=40)
+    # captured once as a CUDA graph on the card (the reference jits it)
+    step = TrainGraph(RS.make_train_step(api, peak_lr=5e-3, warmup=2,
+                                         total=40), dev)
     ckpt = CheckpointManager(args.ckpt_dir)
 
     for s in range(20):

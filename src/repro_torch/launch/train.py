@@ -6,7 +6,9 @@ checkpoints and resume, and the paper's partition runtime when
 ``--partitions`` > 1 (P replicas stepped round-robin, averaged every
 ``--sync-every`` steps; ``--fail-at s:p`` drops partition p at step s).
 On the card the model's products, attention and attention backward run
-through the port's CUDA kernels.
+through the port's CUDA kernels, and the step is captured once as a CUDA
+graph and replayed (``runtime/train_graph.TrainGraph``, where the
+reference jits it); the run ends with the graph's counts.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --smoke --device cpu --steps 4 --partitions 2    # plain PyTorch path
@@ -38,6 +40,13 @@ from repro_torch.models import api as mapi
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.runtime import steps as RS
 from repro_torch.runtime.partition_runtime import PartitionRuntime
+from repro_torch.runtime.train_graph import TrainGraph
+
+
+def graph_line(graph: TrainGraph) -> str:
+    s = graph.stats()
+    return (f"train graph: {s['replicas']} replicas, {s['eager']} eager "
+            f"steps, {s['replays']} replays, capture {s['capture_s']:.2f} s")
 
 
 def main(argv=None):
@@ -105,6 +114,7 @@ def main(argv=None):
         last = np.mean(list(losses[-1].values()))
         print(f"P={pc.partitions}: loss {first:.4f} -> {last:.4f} "
               f"({args.steps} steps, {dt:.1f}s, {rt.sync_count} syncs)")
+        print(graph_line(rt.train_step))
         return losses
 
     # single-partition (synchronous) path with resume
@@ -119,11 +129,12 @@ def main(argv=None):
         start = int(meta["step"])
         print(f"resumed from step {start}")
 
+    gstep = TrainGraph(step_fn, dev)
     t0 = time.time()
     losses = []
     for step in range(start, start + args.steps):
         batch = synth_lm_batch(cfg, shape, step)
-        params, opt, m = step_fn(params, opt, batch)
+        params, opt, m = gstep(params, opt, batch)
         losses.append(float(m["loss"]))
         if (step + 1) % 10 == 0:
             ckpt.save(step + 1, {"params": params, "opt": opt._asdict()})
@@ -131,6 +142,7 @@ def main(argv=None):
                   f"({(time.time()-t0)/(step-start+1):.2f}s/step)")
     ckpt.save(start + args.steps, {"params": params, "opt": opt._asdict()})
     print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(graph_line(gstep))
     return losses
 
 

@@ -17,8 +17,10 @@ and ``loss_fn``, ``encdec.forward_encdec`` and ``loss_encdec``):
 * whisper's encoder runs without checkpoints, its decoder blocks under
   them, and its head is one unchunked product.
 
-``train_issues`` gives the launches, ``train_flops`` the operations of one
-step (the least work: a forward and a backward, no recompute), by part.
+``train_issues`` gives the launches, ``issued_steps`` how many of a run's
+steps issue them (a graphed step's replays issue none), ``train_flops``
+the operations of one step (the least work: a forward and a backward, no
+recompute), by part.
 A CPU test holds ``train_issues`` against counting stand-ins of the
 wrappers' plain versions over one step of each family.
 """
@@ -92,6 +94,15 @@ def train_issues(cfg, seq: int, micro_steps: int, loss_chunk: int = 256):
         bwd = cfg.n_layers * attn
     return {"matmul": micro_steps * mm, "flash_attention": micro_steps * fa,
             "flash_attention_backward": micro_steps * bwd}
+
+
+def issued_steps(n_steps: int, graphed: bool = True) -> int:
+    """How many of one replica's ``n_steps`` steps issue their launches
+    through the wrappers: every step of the unwrapped step function; of a
+    ``TrainGraph`` (``runtime/train_graph.py``) on the card the first, run
+    eagerly, and the second, the capture's pass, while the replays run the
+    captured kernels without the wrappers."""
+    return min(n_steps, 2) if graphed else n_steps
 
 
 def _ssd_flops(cfg, S: int) -> int:

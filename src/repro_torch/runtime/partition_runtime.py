@@ -12,6 +12,10 @@ partition costs at most ``sync_every`` steps of its own work);
 ``drop_partition`` removes a failed partition and raises the gradient
 accumulation so the global batch survives (``elastic.accum_for_batch``);
 ``add_partition`` clones a live replica into a fresh one.
+
+The step is wrapped where the reference jits it: a ``TrainGraph``
+(``runtime/train_graph.py``) captures each replica's step once on the card
+and replays it; a clone gets a graph of its own.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from repro_torch.core.partitioning import PartitionConfig
 from repro_torch.optim import adamw_init
 from repro_torch.runtime import elastic
+from repro_torch.runtime.train_graph import TrainGraph
 from repro_torch.tree import leaves, tree_map
 
 
@@ -47,7 +52,7 @@ class PartitionRuntime:
                  max_stale: int | None = None, accum: int = 1,
                  global_batch: int = 0, params=None):
         self.api = api
-        self.train_step = train_step
+        self.train_step = TrainGraph(train_step, api.device)
         self.pc = pc
         self.max_stale = max_stale or 4 * pc.sync_every
         # grad-accumulation factor callers microbatch by; rescaled on every

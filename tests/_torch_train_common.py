@@ -32,7 +32,8 @@ from repro_torch.tree import leaves_with_paths
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 
 
-def close(got, want, tol, what=""):
+def close(got, want, tol, what="", mask=None):
+    """Element by element; with ``mask``, only the entries it marks."""
     got = np.asarray(got.detach().float().numpy(), np.float64)
     want = np.asarray(np.asarray(want, np.float32), np.float64)
     rms = np.sqrt(np.mean(want ** 2))
@@ -40,6 +41,8 @@ def close(got, want, tol, what=""):
     lim = tol * (rms + np.abs(want))
     assert got.shape == want.shape, what
     assert np.isfinite(got).all(), what
+    if mask is not None:
+        err, lim = err[mask], lim[mask]
     assert (err <= lim).all(), (
         f"{what}: max err {err.max():.3g}, worst {(err / lim).max():.3g} x "
         f"the limit (rms {rms:.3g})")
