@@ -382,6 +382,16 @@ MM_STAGED_KN = ((7, 1), (63, 7), (65, 9), (1000, 127), (3583, 129),
                 (125, 517), (1006, 262), (1000, 520))
 MM_STAGED_OFFS = ((0, 0), (2, 6), (6, 14), (14, 2))
 MM_STAGED_SPLITS = (1, 2, 3, 7, 10_000)
+# the warpgroup route (wgmma): M around its 128-row tile and the plan's
+# 256-row threshold; K past a 64-row step and under one; N under, at and
+# past its 128- and 256-column tiles; every layout of A and B (row-major or
+# a .t() view)
+WG_EDGE_MS = (1, 65, 129, 255, 256, 257, 300)
+WG_EDGE_KN = ((64, 8), (72, 136), (520, 264), (1000, 520))
+WG_SPLIT_SHAPES = ((256, 3584, 512), (296, 1000, 520), (520, 4096, 264),
+                   (2104, 1000, 2000))     # the last at 256 columns a CTA
+WG_SPLITS = (2, 3, 7, 10_000)
+LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 
 # the decode template's split walk: contexts 1, 31, 32, 33 around the first
 # 32-row tile edge, and contexts of about DECODE_LONG (bytes-bound), each
@@ -483,8 +493,12 @@ def card_line() -> str:
                           text=True, check=True).stdout.strip()
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on its own line, after the seconds since the script began."""
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -578,15 +592,17 @@ def staged_view(torch, rnd, shape, off):
 def staged_grid(torch, rnd) -> int:
     """The tensor-core route on operands whose rows are not 16-byte
     aligned, against ``ref.matmul`` at 3e-2: every M of MM_STAGED_MS at
-    every (K, N) of MM_STAGED_KN with A and B off by MM_STAGED_OFFS; the
-    forced splits of MM_STAGED_SPLITS at M = 65; each staged combination
-    (A only, B only, both) launched twice on the same inputs bit for bit,
-    and a staged launch on views off 16 bytes bit for bit against an
-    aligned launch on copies of them (one tile layout, one product loop).
+    every (K, N) of MM_STAGED_KN with A and B off by MM_STAGED_OFFS
+    (aligned operands at M = 300 take ``wgmma``); the forced splits of
+    MM_STAGED_SPLITS at M = 65; each staged combination (A only, B only,
+    both) launched twice on the same inputs bit for bit, and a staged
+    launch on views off 16 bytes bit for bit against an aligned ``mma``
+    launch on copies of them (one tile layout, one product loop).
     Returns the launches held to the plain version."""
     from repro_torch.kernels.matmul import matmul as mm_k
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
+    from repro_torch.kernels.matmul.plan import WG_MIN_M
 
     t0 = time.perf_counter()
     tol, n = TOL["bfloat16"], 0
@@ -600,9 +616,12 @@ def staged_grid(torch, rnd) -> int:
                 got = mm_ops.matmul(a, b)
                 staged = (K % 8 != 0 or a_off != 0, N % 8 != 0 or b_off != 0)
                 p = mm_k.plan_for(a, b)
-                if p.route != "mma" or p.staged != staged:
+                # aligned operands at 256 rows and more: the wgmma route
+                route = "mma" if any(staged) or M < WG_MIN_M else "wgmma"
+                if p.route != route or p.staged != staged:
                     fail(f"matmul staged {M}x{K}x{N} (A +{a_off} B +{b_off} "
-                         f"bytes): plan {p}, want mma with staged {staged}")
+                         f"bytes): plan {p}, want {route} with staged "
+                         f"{staged}")
                 check_close(torch, f"matmul staged {M}x{K}x{N} A +{a_off} "
                             f"B +{b_off} ({p})", got, want, tol)
                 n += 1
@@ -611,7 +630,8 @@ def staged_grid(torch, rnd) -> int:
                          f"({p}): two launches on the same inputs differ")
                 if any(staged) and K % 8 == 0 and N % 8 == 0 and M in (
                         4, 65, 300) and not torch.equal(
-                            got, mm_k.matmul_cuda(a.clone(), b.clone())):
+                            got, mm_k.matmul_cuda(a.clone(), b.clone(),
+                                                  route="mma")):
                     fail(f"matmul staged {M}x{K}x{N} A +{a_off} B +{b_off}: "
                          "differs from the aligned launch on copies")
             # forced splits, more than the K steps last
@@ -641,6 +661,105 @@ def staged_grid(torch, rnd) -> int:
         f"{MM_STAGED_SPLITS} at M = 65), each staged combination bit for "
         f"bit twice, aligned copies bit for bit; {launched} staged launches "
         "counted "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return n
+
+
+def laid_out(rnd, M, K, N, a_t, b_t):
+    """bf16 a (M, K) and b (K, N), each row-major or (``a_t`` / ``b_t``)
+    the ``.t()`` view of a row-major matrix, as ``MatMul``'s backward
+    passes them; b scaled by 1 / sqrt(K)."""
+    a = rnd((K, M)).t() if a_t else rnd((M, K))
+    b = (rnd((N, K)).t() if b_t else rnd((K, N))).mul_(1 / math.sqrt(K))
+    return a, b
+
+
+def layout_tag(a_t, b_t) -> str:
+    return f"{'A^T' if a_t else 'A'} {'B^T' if b_t else 'B'}"
+
+
+def wgmma_grid(torch, rnd) -> int:
+    """The warpgroup route against ``ref.matmul`` at 3e-2 in every layout
+    of A and B (row-major or a ``.t()`` view, read in place): the plan's
+    route at every M of WG_EDGE_MS and (K, N) of WG_EDGE_KN (``wgmma``
+    from 256 rows, ``mma`` on copies below), ``wgmma`` forced at every M
+    at the plan's width, each launched twice bit for bit and, where a
+    view, set beside the launch on its row-major copies (logged: the same
+    products in the same order); forced splits (WG_SPLITS) at
+    WG_SPLIT_SHAPES.  The plan's widths must include both of WG_BNS, and
+    the wrapper must count one ``wgmma`` launch per planned one.  Returns
+    the launches held to the plain version."""
+    from repro_torch.kernels.matmul import matmul as mm_k
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import plan as mm_plan
+    from repro_torch.kernels.matmul import ref as mm_ref
+
+    t0 = time.perf_counter()
+    tol, n, planned, views, same = TOL["bfloat16"], 0, 0, 0, 0
+    widths = set()
+    before = mm_ops.matmul.routes["wgmma"]
+    for K, N in WG_EDGE_KN:
+        for M in WG_EDGE_MS:
+            for a_t, b_t in LAYOUTS:
+                a, b = laid_out(rnd, M, K, N, a_t, b_t)
+                tag = f"{M}x{K}x{N} {layout_tag(a_t, b_t)}"
+                want = mm_ref.matmul(a, b)
+                p = mm_k.plan_for(a, b)
+                legal = all(mm_plan.tma_operand(tuple(t.shape), t.stride(),
+                                                t.data_ptr()) for t in (a, b))
+                route = "wgmma" if legal and M >= mm_plan.WG_MIN_M else "mma"
+                if p.route != route:
+                    fail(f"matmul wgmma grid {tag}: plan {p}, want {route}")
+                planned += route == "wgmma"
+                check_close(torch, f"matmul {tag} ({p})", mm_ops.matmul(a, b),
+                            want, tol)
+                n += 1
+                if not legal:     # A^T with M off 8: the plan refuses
+                    try:
+                        mm_k.plan_for(a, b, route="wgmma")
+                    except ValueError:
+                        continue
+                    fail(f"matmul wgmma grid {tag}: a forced wgmma plan "
+                         "took operands TMA cannot read in place")
+                q = mm_k.plan_for(a, b, route="wgmma")
+                widths.add(q.bn)
+                got = mm_k.launch(a, b, q)
+                check_close(torch, f"matmul wgmma {tag} ({q})", got, want,
+                            tol)
+                n += 1
+                if not torch.equal(got, mm_k.launch(a, b, q)):
+                    fail(f"matmul wgmma {tag} ({q}): two launches on the "
+                         "same inputs differ")
+                if a_t or b_t:
+                    ac, bc = a.contiguous(), b.contiguous()
+                    views += 1
+                    same += torch.equal(got, mm_k.launch(
+                        ac, bc, mm_k.plan_for(ac, bc, route="wgmma")))
+    for M, K, N in WG_SPLIT_SHAPES:
+        for a_t, b_t in LAYOUTS:
+            a, b = laid_out(rnd, M, K, N, a_t, b_t)
+            want = mm_ref.matmul(a, b)
+            for splits in WG_SPLITS:
+                q = mm_k.plan_for(a, b, route="wgmma", splits=splits)
+                widths.add(q.bn)
+                check_close(torch, f"matmul wgmma {M}x{K}x{N} "
+                            f"{layout_tag(a_t, b_t)} ({q})",
+                            mm_k.launch(a, b, q), want, tol)
+                n += 1
+    if widths != set(mm_plan.WG_BNS):
+        fail(f"matmul wgmma grid: the plan chose widths {sorted(widths)}, "
+             f"want each of {mm_plan.WG_BNS}")
+    counted = mm_ops.matmul.routes["wgmma"] - before
+    if counted != planned:
+        fail(f"matmul wgmma grid: the wrapper counted {counted} wgmma "
+             f"launches, the plan sent {planned}")
+    log(f"phase 1: matmul wgmma grid: {n} launches within {tol} of "
+        f"ref.matmul (M {WG_EDGE_MS}, (K, N) {WG_EDGE_KN}, A and B "
+        f"row-major or .t() views, widths {sorted(widths)}; splits "
+        f"{WG_SPLITS} at "
+        f"{WG_SPLIT_SHAPES}), each bit for bit twice; {planned} planned on "
+        f"wgmma and counted; transposed views bit for bit against their "
+        f"row-major copies in {same} of {views} "
         f"({time.perf_counter() - t0:.1f} s)")
     return n
 
@@ -799,8 +918,10 @@ def phase_matmul(torch, cfg, sweep=False):
                             f"{p.splits}", mm_k.launch(a, b, p), want,
                             tol(dt))
                 n_forced += 1
-    # every bf16 operand takes the tensor cores: the staged grid
+    # every bf16 operand takes the tensor cores: the staged grid; the
+    # warpgroup route in every layout
     n_staged = staged_grid(torch, rnd)
+    n_wgmma = wgmma_grid(torch, lambda shape: rnd(shape, bf))
     # every route twice on the same inputs (bf16 on the tensor cores, f32
     # on the CUDA cores): bit for bit
     for route, M, K, N, dt in (("mma", SLOTS, d, d, bf), ("mma", 64, d, d, bf),
@@ -820,8 +941,8 @@ def phase_matmul(torch, cfg, sweep=False):
         f"main-path shapes x 2 dtypes (bf16 max abs err {worst:.3g}), 3 "
         f"ragged ones, {len(MM_EDGE_MS) * len(MM_EDGE_KN)} tile-edge shapes "
         f"x 2 dtypes (bf16 {edge_worst:.3g}), {n_forced} forced splits, "
-        f"{n_staged} staged launches on the tensor cores; each route "
-        "is bitwise repeatable")
+        f"{n_staged} staged launches on the tensor cores, {n_wgmma} on "
+        "the warpgroup route; each route is bitwise repeatable")
 
     def b_buffers(K, N, dt):
         """Distinct weight buffers, together past the 50 MB L2."""
@@ -1968,49 +2089,150 @@ def live_state(torch, eng) -> dict:
 
 
 class TraceIncomplete(Exception):
-    """The eager engine's profiler trace shows fewer of the port's kernels
-    than its wrappers counted, while the replay's trace shows no kernel
-    more than they counted: the profiler lost records (it has, PERF.md §5
-    and §6: once 4 of 15 matmuls of an eager step and every kernel of its
+    """The profiler lost records of the port's kernels (it has, PERF.md §5
+    and §6: once 4 of 15 matmuls of an eager step, once every kernel of a
     replay, whose outputs had matched bit for bit), so the traces cannot
-    be compared."""
+    be compared.  ``partial``: a replay's trace held some of the counted
+    kernels, while the replayed graphs themselves held all of them."""
+
+    def __init__(self, msg, partial=False):
+        super().__init__(msg)
+        self.partial = partial
+
+
+# the port's kernels a trace_check counts, by kind
+TRACE_KINDS = {"matmul": ("mm_mma", "mm_wgmma", "mm_skinny", "mm_tiled"),
+               "flash attention": ("fa_kernel", "fa_mma_kernel"),
+               "decode attention": ("decode::kernel",)}
+
+
+def kept_graph_class(torch):
+    """``torch.cuda.CUDAGraph`` keeping each captured graph for
+    ``debug_dump`` (``keep_graph``, instantiated at the capture's end as
+    the default does; ``enable_debug_mode``; the replays are the same),
+    and listing in ``KeptGraph.replayed`` the graphs replayed while it is
+    a list."""
+    class KeptGraph(torch.cuda.CUDAGraph):
+        replayed = None
+
+        def __new__(cls, keep_graph=True):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=True):
+            super().__init__(True)      # the C++ graph is made here
+            self.enable_debug_mode()
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+        def replay(self):
+            if KeptGraph.replayed is not None:
+                KeptGraph.replayed.append(self)
+            super().replay()
+    return KeptGraph
+
+
+def _dot_name(n: str) -> str:
+    """A regex for kernel ``n`` (``a::b`` for a namespace) in a graph's DOT
+    dump, as its mangled name (each part after its length) or its
+    demangled one."""
+    parts = n.split("::")
+    mangled = "".join(f"{len(p)}{p}" for p in parts)
+    return (rf"(?<![0-9]){re.escape(mangled)}"
+            rf"|(?<![A-Za-z0-9_:]){re.escape(n)}(?=[\\<(\s])")
+
+
+DOT_NODE = re.compile(r'^\s*"graph_\d+_node_\d+"\s*\[', re.M)
+DOT_KINDS = {kind: re.compile("|".join(_dot_name(n) for n in names))
+             for kind, names in TRACE_KINDS.items()}
+_DOT_COUNTS = {}        # id(graph) -> (graph, its nodes by kind)
+
+
+def dot_port_kernels(text: str):
+    """(nodes, {kind: the port's kernel nodes}) of a graph's DOT dump
+    (``cudaGraphDebugDotPrint``): one node a declaration, a kernel node
+    counted by the first kernel name in its label."""
+    starts = [m.start() for m in DOT_NODE.finditer(text)] + [len(text)]
+    out = dict.fromkeys(TRACE_KINDS, 0)
+    for lo, hi in zip(starts, starts[1:]):
+        label = text[lo:hi]
+        hits = [(m.start(), kind) for kind, rx in DOT_KINDS.items()
+                for m in [rx.search(label)] if m]
+        if hits:
+            out[min(hits)[1]] += 1
+    return len(starts) - 1, out
+
+
+def graph_port_kernels(graphs) -> dict:
+    """The port's kernels by kind (TRACE_KINDS) in the nodes of
+    ``graphs`` (``KeptGraph``s, each counted once a replay), read from
+    each graph's DOT dump, made once a graph (a dump frees the graph it
+    reads; its replays go on)."""
+    import warnings
+
+    total = dict.fromkeys(TRACE_KINDS, 0)
+    for g in graphs:
+        if id(g) not in _DOT_COUNTS:
+            path = ROOT / "build" / "graph_dot" / f"{id(g)}.dot"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            with warnings.catch_warnings(record=True) as said:
+                warnings.simplefilter("always")
+                g.debug_dump(str(path))
+            if not path.exists():
+                fail(f"graph lockstep: debug_dump wrote no DOT file {path} "
+                     f"({[str(w.message) for w in said]})")
+            nodes, kinds = dot_port_kernels(path.read_text(errors="replace"))
+            if nodes == 0:
+                keep = ROOT / "chiprun_out" / "graph_dot_unread.dot"
+                keep.parent.mkdir(exist_ok=True)
+                path.replace(keep)
+                fail(f"graph lockstep: no node read from the DOT dump "
+                     f"(kept as {keep})")
+            path.unlink()
+            _DOT_COUNTS[id(g)] = (g, kinds)
+        for kind, n in _DOT_COUNTS[id(g)][1].items():
+            total[kind] += n
+    return total
 
 
 def trace_check(name, what, traced: dict, issued) -> None:
     """Hold the profiler traces of ``what`` (``traced``: the port's
-    kernels by name in the eager and the graph engine's trace) to the
-    eager engine's wrapper counts for it (``issued``, ``counts.diff`` over
-    ``step_graph.WRAPPERS``): one matmul, flash-attention or decode kernel
-    per counted launch.  Both complete passes.  The eager trace short
-    while the replay's holds no kernel more than was counted, or a
-    complete eager trace beside a replay's that holds none of the port's
-    kernels at all (the profiler lost the replay's records: its outputs
-    were already held bit for bit to the eager engine's), raises
-    ``TraceIncomplete`` (the lockstep runs again and must end with both
-    complete); anything else (a complete eager trace beside a replay's
-    that holds some kernels but not the counted ones, above all) fails at
-    once."""
+    kernels by name in the eager and the graph engine's trace; "nodes":
+    by kind, those in the graphs the graph engine replayed, read from
+    the graphs) to the eager engine's wrapper counts for it (``issued``,
+    ``counts.diff`` over ``step_graph.WRAPPERS``): one matmul,
+    flash-attention or decode kernel per counted launch.  The replayed
+    graphs' nodes must equal the counts, or it fails.  Both traces
+    complete passes; a trace with a kernel more than was counted fails.
+    The profiler lost records, raising ``TraceIncomplete`` (the lockstep
+    runs again and must end with both complete), where the eager trace is
+    short, where the replay's trace holds no kernel beside a complete
+    eager one, or (``partial``) where it holds some of them, its graphs
+    all.  Anything else fails."""
     launches = [n for n, _ in issued]
     want = {"matmul": launches[0], "flash attention": launches[1],
             "decode attention": sum(launches[2:])}
-    got = {mode: {
-        "matmul": sum(k.get(n, 0) for n in ("mm_mma", "mm_skinny",
-                                            "mm_tiled")),
-        "flash attention": sum(k.get(n, 0) for n in ("fa_kernel",
-                                                     "fa_mma_kernel")),
-        "decode attention": k.get("decode::kernel", 0)}
-        for mode, k in ((m, traced[m]) for m in ("eager", "graph"))}
+    nodes = traced.get("nodes")
+    if nodes != want:
+        fail(f"graph lockstep {name}: the graphs replayed for {what} hold "
+             f"the port's kernels {nodes}; the eager engine's wrappers "
+             f"issued {want}")
+    got = {mode: {kind: sum(traced[mode].get(n, 0) for n in names)
+                  for kind, names in TRACE_KINDS.items()}
+           for mode in ("eager", "graph")}
     eager, graph = got["eager"], got["graph"]
     if eager == want and graph == want:
         return
     msg = (f"graph lockstep {name}: profiler traces of {what} show the "
            f"port's kernels eager {eager}, replayed {graph}; the eager "
-           f"engine's wrappers issued {want}")
-    short = eager != want and all(eager[k] <= want[k] for k in want)
-    lost = eager == want and not any(graph.values())
-    if lost or short and all(graph[k] <= want[k] for k in want):
+           f"engine's wrappers issued {want}, the replayed graphs hold "
+           f"{nodes}")
+    if any(t[k] > want[k] for t in (eager, graph) for k in want):
+        fail(msg)
+    if eager != want or not any(graph.values()):
         raise TraceIncomplete(msg)
-    fail(msg)
+    raise TraceIncomplete(msg, partial=True)
 
 
 TRACE_ATTEMPTS = 3
@@ -2018,26 +2240,37 @@ TRACE_RERUNS = []       # (lockstep, what the profiler lost), every rerun
 
 
 def graph_lockstep_traced(*args, **kw):
-    """``graph_lockstep``, run again (up to TRACE_ATTEMPTS times in all)
-    when ``trace_check`` finds that the profiler lost records of the eager
-    engine's trace; every check is made again on the new run, and each
-    rerun is logged and kept in ``TRACE_RERUNS``."""
+    """``graph_lockstep`` with its engines capturing into ``KeptGraph``s,
+    run again (up to TRACE_ATTEMPTS times in all) when ``trace_check``
+    finds that the profiler lost records; a second partial replay trace
+    in one lockstep fails.  Every check is made again on the new run, and
+    each rerun is logged and kept in ``TRACE_RERUNS``."""
+    torch = args[0]
+    real = torch.cuda.CUDAGraph
+    partial = 0
     for attempt in range(TRACE_ATTEMPTS):
+        kept = torch.cuda.CUDAGraph = kept_graph_class(torch)
         try:
-            return graph_lockstep(*args, **kw)
+            return graph_lockstep(*args, kept=kept, **kw)
         except TraceIncomplete as e:
             TRACE_RERUNS.append((args[3], str(e)))
+            partial += e.partial
+            if partial > 1:
+                fail(f"{e}: a replay's trace short a second time in this "
+                     "lockstep")
             log(f"phase 2: {e}: the profiler lost records; the lockstep runs "
                 f"again (attempt {attempt + 2} of {TRACE_ATTEMPTS})")
             gc.collect()
-            torch = args[0]
             torch.cuda.empty_cache()
+        finally:
+            torch.cuda.CUDAGraph = real
+            _DOT_COUNTS.clear()
     fail(f"graph lockstep {args[3]}: every one of {TRACE_ATTEMPTS} runs lost "
          "profiler records")
 
 
 def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
-                   evicting=False, **kw):
+                   evicting=False, *, kept, **kw):
     """A graph engine and a ``cuda_graph=False`` engine on one stream in
     lockstep: after the wave and every decode step the same occupancy and
     tokens, and bit for bit the same KV state of the live slots (pool
@@ -2055,7 +2288,10 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
     engine's eager and captured decode steps equal the eager engine's,
     and a replay adds none; the port's kernels in a profiler trace of
     decode step ``TRACED_STEP`` and of refill ``TRACED_REFILL`` (both
-    replays) are the same, by name, as the eager engine's.  Inactive
+    replays) are the same, by name, as the eager engine's, and so are
+    those in the graphs the two replays ran, read from the graphs
+    themselves (``kept``, the ``KeptGraph`` class the engines capture
+    into; ``trace_check``).  Inactive
     slots are left out of the logits: their rows all go to null block 0 by
     one scatter, whose order among duplicate indices the card does not
     fix.  Returns the number of steps."""
@@ -2073,12 +2309,22 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 
-    def traced(fn):
+    def traced(fn, rec, mode):
+        """``fn()`` under the profiler: ``rec[mode]`` the port's kernels in
+        its trace; for the graph engine ``rec["nodes"]`` those in the
+        graphs it replayed, read from the graphs themselves."""
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        return out, port_kernels(prof.key_averages())
+        replayed = kept.replayed = [] if mode == "graph" else None
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+        finally:
+            kept.replayed = None
+        rec[mode] = port_kernels(prof.key_averages())
+        if replayed is not None:
+            rec["nodes"] = graph_port_kernels(replayed)
+        return out
 
     def zero(issued):
         return tuple((0, dict.fromkeys(r, 0)) for _, r in issued)
@@ -2111,7 +2357,7 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
             used = len(pg.log)
             before = counts.snapshot(WRAPPERS)
             if what == "refill" and n == TRACED_REFILL:
-                out, traced_refill[mode] = traced(lambda: inner(*args))
+                out = traced(lambda: inner(*args), traced_refill, mode)
             else:
                 out = inner(*args)
             rec = dict(what=what,
@@ -2195,7 +2441,7 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
                 w.dropped_blocks.reset()
             before = counts.snapshot(WRAPPERS)
             if steps == TRACED_STEP:
-                pend, traced_step[mode] = traced(eng.issue_decode)
+                pend = traced(eng.issue_decode, traced_step, mode)
             else:
                 pend = eng.issue_decode()
             seen[mode] = (counts.diff(counts.snapshot(WRAPPERS), before),
@@ -2291,7 +2537,9 @@ def graph_lockstep(torch, cfg2, params, name, lens, gens, min_steps,
         f"eager engine did and nothing on a replay; profiler traces of step "
         f"{TRACED_STEP} and refill {TRACED_REFILL} show the same port "
         f"kernels replayed as eager: {traced_step['graph']}, "
-        f"{traced_refill['graph']}")
+        f"{traced_refill['graph']}, and the replayed graphs hold them "
+        f"(their DOT dumps, by kind): {traced_step['nodes']}, "
+        f"{traced_refill['nodes']}")
     return steps
 
 
@@ -2647,6 +2895,7 @@ def phase_cnn(torch, wrappers, card_params):
         for w in wrappers.values():
             w.launches = 0
         cv_ops.conv2d.routes.update(dict.fromkeys(cv_ops.conv2d.routes, 0))
+        mm_routes = dict(wrappers["matmul"].routes)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -2656,6 +2905,8 @@ def phase_cnn(torch, wrappers, card_params):
         t1.synchronize()
         launches = {k: w.launches for k, w in wrappers.items()}
         routes = dict(cv_ops.conv2d.routes)
+        mm_routes = {k: n - mm_routes[k]
+                     for k, n in wrappers["matmul"].routes.items()}
         ms = t0.elapsed_time(t1) / CNN_REPS
         peak = torch.cuda.max_memory_allocated() / 1e9
         if out.shape != (CNN_BATCH, 1000) or not torch.isfinite(out).all():
@@ -2687,7 +2938,7 @@ def phase_cnn(torch, wrappers, card_params):
             f"take {in_fwd['conv2d']:.3f} ms and the matmuls "
             f"{in_fwd['matmul']:.3f} ms")
         runs[f"cnn {name}"] = dict(launches=launches, conv_routes=routes,
-                                   ms=ms, peak_gb=peak,
+                                   routes=mm_routes, ms=ms, peak_gb=peak,
                                    conv_ms=in_fwd["conv2d"],
                                    matmul_ms=in_fwd["matmul"])
         del params, x, out
@@ -3450,8 +3701,9 @@ def phase_ssm_card_vs_cpu(torch):
                               lens, gens, 6)
         if cfg2.family == "hybrid":
             api = mapi.build(cfg2, "cuda")
-            launches, nbytes = pd_oracle(torch, cfg2, api, cuda_params,
-                                         f"{arch} fp32", PrefillGraphs(api))
+            launches, _, nbytes = pd_oracle(torch, cfg2, api, cuda_params,
+                                            f"{arch} fp32",
+                                            PrefillGraphs(api))
             for k in ("matmul", "paged_decode"):
                 if launches[k] == 0:
                     fail(f"pd oracle {arch}: engine B never launched {k}")
@@ -3585,6 +3837,7 @@ def phase_encdec_kernels(torch):
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
     from repro_torch.kernels.matmul.matmul import launch, plan_for
+    from repro_torch.kernels.matmul.plan import WG_MIN_M
 
     cfg = family_cfg(ENCDEC_ARCH)
     T, H, D = cfg.enc_seq, cfg.n_heads, cfg.head_dim
@@ -3700,7 +3953,8 @@ def phase_encdec_kernels(torch):
                 for _ in range(n_sets)]
         p0 = plan_for(*sets[0])
         route = p0.route + (" staged" if any(p0.staged) else "")
-        want = "mma staged" if N == cfg.vocab else "mma"
+        want = "mma staged" if N == cfg.vocab else (
+            "wgmma" if M >= WG_MIN_M else "mma")
         if route != want:
             fail(f"matmul whisper {M}x{K}x{N}: route {route}, want {want}")
         plans = [plan_for(a, b) for a, b in sets]
@@ -4004,7 +4258,8 @@ def pd_oracle(torch, cfg, api, params, name, pg, **kw):
     replay).  After the import and after every decode step B's tokens,
     live slots' logits and KV state must equal C's bit for bit.  Returns
     the wrappers' launches while B decoded and refilled (counted around
-    B's steps alone) and the handoff's bytes per request."""
+    B's steps alone), the matmul's by route, and the handoff's bytes per
+    request."""
     import numpy as np
 
     from repro_torch.kernels import counts
@@ -4057,15 +4312,19 @@ def pd_oracle(torch, cfg, api, params, name, pg, **kw):
     # each engine's own launches: B's is what the import must lead to
     launches = {e: dict.fromkeys((w.__name__ for w in WRAPPERS), 0)
                 for e in "bc"}
+    mm_routes = {}
     steps = 0
     while c.busy:
         live = [i for i, r in enumerate(c.active) if r is not None]
         for e, eng in zip("bc", (b, c)):
             before = counts.snapshot(WRAPPERS)
             eng.decode_step(0.0)
-            for w, (n, _) in zip(WRAPPERS, counts.diff(
+            for w, (n, routes) in zip(WRAPPERS, counts.diff(
                     counts.snapshot(WRAPPERS), before)):
                 launches[e][w.__name__] += n
+                if e == "b" and w.__name__ == "matmul":
+                    for k, r in routes.items():
+                        mm_routes[k] = mm_routes.get(k, 0) + r
         steps += 1
         if not np.array_equal(b.last_logits[live], c.last_logits[live]):
             fail(f"pd oracle {name}: step {steps} logits differ")
@@ -4083,7 +4342,7 @@ def pd_oracle(torch, cfg, api, params, name, pg, **kw):
         f"prefills {pg.n_eager} eager, {pg.n_captures} captured, "
         f"{pg.n_replays} replayed); launches while B decoded and refilled "
         f"{launches['b']}, while C did {launches['c']}")
-    return launches["b"], nbytes
+    return launches["b"], mm_routes, nbytes
 
 
 def in_process_fleet(torch, cfg, api, params, specs, n_req, seed):
@@ -4121,7 +4380,9 @@ def in_process_fleet(torch, cfg, api, params, specs, n_req, seed):
 
 
 def launches_of(report: dict) -> dict:
-    """A worker's kernel launch counts from its metrics snapshot."""
+    """A worker's kernel launch counts from its metrics snapshot, by
+    wrapper (``matmul_wgmma``: the matmul's launches on the ``wgmma``
+    route, counted in ``matmul`` too)."""
     return {k.split(".")[1]: int(v) for k, v in report.items()
             if k.startswith("kernel.")}
 
@@ -4189,12 +4450,13 @@ def phase_cluster(torch, cfg):
                "dense": (dict(paged=False), "flash_decode")}
     handoff_bytes = {}
     for name, (kw, kernel) in carries.items():
-        launches, nbytes = pd_oracle(torch, cfg, api, params, name,
-                                     PrefillGraphs(api), **kw)
+        launches, mm_routes, nbytes = pd_oracle(
+            torch, cfg, api, params, name, PrefillGraphs(api), **kw)
         if launches[kernel] == 0 or launches["matmul"] == 0:
             fail(f"pd oracle {name}: {kernel} or matmul never launched on B "
                  f"after the import ({launches})")
-        runs[f"cluster 4a {name}"] = {"launches": launches}
+        runs[f"cluster 4a {name}"] = {"launches": launches,
+                                      "routes": mm_routes}
         handoff_bytes[name] = nbytes
         gc.collect()
 
@@ -4544,15 +4806,15 @@ def phase_train_kernels(torch, cfg):
     (BWD_*: G, ragged and unequal Sq / Skv, window, D; causal in both
     dtypes, bidirectional too), at whisper's encoder (4, 1500, 8, 64)
     bidirectional and its cross attention (32 rows over 1500 frames), bf16
-    and fp32; then the matmul's training products (every projection's
-    forward at M = 4096 tokens and its two backward products, the loss
-    chunk's head product and its two) against ``ref.matmul``.  Each is
-    timed beside its plain version, the library's call and its bound: the
-    backward at the training shape and at whisper's two, its three kernels
-    together and each alone."""
-    from repro_torch.kernels.matmul import ops as mm_ops
-    from repro_torch.kernels.matmul import ref as mm_ref
-
+    and fp32; then the matmul's training products as ``MatMul`` issues
+    them (``train_products_timed``: every projection's forward at M =
+    4096 tokens and its two backward products on views, the loss chunk's
+    head product and its two; then qwen3-moe's, internvl2's and hymba's
+    aligned ones), each on ``wgmma``, against ``ref.matmul`` and beside
+    ``torch.matmul`` and the previous route.  Each is timed beside its
+    plain version, the library's call and its bound: the backward at the
+    training shape and at whisper's two, its three kernels together and
+    each alone."""
     t0 = time.perf_counter()
     rnd = train_rnd(torch, 14)
 
@@ -4614,62 +4876,151 @@ def phase_train_kernels(torch, cfg):
             ("cross", (4, 32, 1500, 8, 8, 64, False, 0)))})
 
     # the matmul's training products at M = 4096 tokens (a microbatch)
-    d, kv, ff, V = cfg.d_model, Hkv * hd, cfg.d_ff, cfg.vocab
-    M = TRAIN_SEQ
-    projs = [("wq", d, Hq * hd), ("wk", d, kv), ("wv", d, kv),
-             ("wo", Hq * hd, d), ("w1", d, ff), ("w3", d, ff), ("w2", ff, d)]
-    rows = {}
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    mm_worst = 0.0
-    # units a step: a layer's product per microbatch, or a loss chunk's
-    units = {"layer": TRAIN_LAYERS * TRAIN_ACCUM,
-             "head": TRAIN_SEQ // LOSS_CHUNK * TRAIN_ACCUM}
-    for name, K, N, m_rows, per in (
-            [(n, K, N, M, units["layer"]) for n, K, N in projs]
-            + [("head", d, V, LOSS_CHUNK, units["head"])]):
-        a, b, dc = (rnd((m_rows, K), torch.bfloat16),
-                    rnd((K, N), torch.bfloat16),
-                    rnd((m_rows, N), torch.bfloat16))
-        bt, at = b.t().contiguous(), a.t().contiguous()
-        calls = {"forward": (a, b), "dA = dC B^T": (dc, bt),
-                 "dB = A^T dC": (at, dc)}
-        for kind, (x, y) in calls.items():
-            err = check_rms(torch, f"matmul train {name} {kind}",
-                            mm_ops.matmul(x, y), mm_ref.matmul(x, y),
-                            TOL["bfloat16"])
-            mm_worst = max(mm_worst, err)
-            t_k = time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10)
-            t_p = time_ms(torch, lambda i: mm_ref.matmul(x, y), 1, 3)
-            t_l = time_ms(torch, lambda i: torch.matmul(x, y), 1, 10)
+    mm = train_products_timed(torch, rnd, train_products(cfg))
+    torch.cuda.empty_cache()
+    fam = train_products_timed(torch, rnd, family_train_products(),
+                               plain=False)
+    torch.cuda.empty_cache()
+    return {"flash_attention_backward": bwd_stats, "matmul_train": mm,
+            "matmul_train_families": fam}
+
+
+def train_products(cfg):
+    """(tag, M, K, N, forward calls a step, backward calls a step, tied)
+    of qwen2-7b's eight training products: each projection at M = 4096
+    tokens (a microbatch; TRAIN_LAYERS x TRAIN_ACCUM a step, the forward
+    again in the recompute) and the LM head over a loss chunk (its
+    forward and recompute, TRAIN_SEQ / LOSS_CHUNK x TRAIN_ACCUM a step)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    kv = cfg.n_kv_heads * hd
+    per = TRAIN_LAYERS * TRAIN_ACCUM
+    out = [(f"{cfg.name} {n}", TRAIN_SEQ, K, N, 2 * per, per, False)
+           for n, K, N in (("wq", d, cfg.n_heads * hd), ("wk", d, kv),
+                           ("wv", d, kv), ("wo", cfg.n_heads * hd, d),
+                           ("w1", d, cfg.d_ff), ("w3", d, cfg.d_ff),
+                           ("w2", cfg.d_ff, d))]
+    n = TRAIN_SEQ // LOSS_CHUNK * TRAIN_ACCUM
+    out.append((f"{cfg.name} head", LOSS_CHUNK, d, cfg.vocab, 2 * n, n,
+                bool(cfg.tie_embeddings)))
+    return out
+
+
+def family_train_products():
+    """As ``train_products``, the aligned training products (every
+    operand's rows whole 16 bytes: ``wgmma``) of qwen3-moe, internvl2 and
+    hymba at the depths of TRAIN_FAMILIES; the misaligned ones are
+    ``train_family_products``'."""
+    from repro_torch.profiling.train_counts import (_chunk, _prefix,
+                                                    block_products)
+
+    out = []
+    for arch in ("qwen3-moe-30b-a3b", "internvl2-26b", "hymba-1.5b"):
+        cfg = train_family_cfg(arch)
+        prods = block_products(cfg)
+        for K, N in sorted(set(prods)):
+            n = prods.count((K, N)) * cfg.n_layers * TRAIN_ACCUM
+            if K % 8 == 0 and N % 8 == 0:
+                out.append((f"{arch} block", TRAIN_SEQ, K, N, 2 * n, n,
+                            False))
+        rows = _chunk(TRAIN_SEQ - _prefix(cfg), LOSS_CHUNK)
+        if rows % 8 == 0 and cfg.d_model % 8 == 0 and cfg.vocab % 8 == 0:
+            n = (TRAIN_SEQ - _prefix(cfg)) // rows * TRAIN_ACCUM
+            out.append((f"{arch} head", rows, cfg.d_model, cfg.vocab, 2 * n,
+                        n, bool(cfg.tie_embeddings)))
+    return out
+
+
+def issued_products(torch, rnd, M, K, N, tied):
+    """{kind: (a, b)} of the three products ``MatMul`` issues for x (M, K)
+    @ w (K, N): the forward, dA = dC w^T and dB = x^T dC, the transposes
+    as views (no copy); ``tied``: w is an (N, K) table's ``.T`` view.
+    bf16, from ``rnd``."""
+    bf = torch.bfloat16
+    x, dc = rnd((M, K), bf), rnd((M, N), bf)
+    w = rnd((N, K), bf).T if tied else rnd((K, N), bf)
+    return {"forward": (x, w), "dA = dC B^T": (dc, w.t()),
+            "dB = A^T dC": (x.t(), dc)}
+
+
+def train_products_timed(torch, rnd, products, plain=True):
+    """Each product of ``products`` as ``MatMul`` issues it (forward, dA,
+    dB; the backward's operands views): on its plan's route, which must be
+    ``wgmma``, held to ``ref.matmul`` within 3e-2 x (rms + |want|) and bit
+    for bit on a second launch; then timed in turns (kernel, torch.matmul
+    on the same views, the previous route: ``mma`` forced on contiguous
+    copies made beforehand, then the three again in reverse) beside the
+    bound and (``plain``) the plain version, one launch after a warm one.
+    Returns the per-call records and a step's totals (each call times its
+    calls a step)."""
+    from repro_torch.kernels.matmul import matmul as mm_k
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import ref as mm_ref
+
+    t0 = time.perf_counter()
+    rows, worst = {}, 0.0
+    totals = dict(ms=0.0, library_ms=0.0, mma_ms=0.0, bound_ms=0.0,
+                  **({"plain_ms": 0.0} if plain else {}))
+    bound_of = {"bytes": 0.0, "operations": 0.0}
+    for tag, M, K, N, n_fwd, n_bwd, tied in products:
+        for kind, (x, y) in issued_products(torch, rnd, M, K, N,
+                                            tied).items():
+            name = f"matmul train {tag} {kind}"
+            p = mm_k.plan_for(x, y)
+            if p.route != "wgmma":
+                fail(f"{name}: plan {p}, want wgmma")
+            got = mm_ops.matmul(x, y)
+            worst = max(worst, check_rms(torch, name, got,
+                                         mm_ref.matmul(x, y),
+                                         TOL["bfloat16"]))
+            if not torch.equal(got, mm_ops.matmul(x, y)):
+                fail(f"{name}: two launches on the same inputs differ")
+            del got
+            xc, yc = x.contiguous(), y.contiguous()
+            q = mm_k.plan_for(xc, yc, route="mma")
+            fns = {"ms": lambda i: mm_ops.matmul(x, y),
+                   "library_ms": lambda i: torch.matmul(x, y),
+                   "mma_ms": lambda i: mm_k.launch(xc, yc, q)}
+            times = {k: [] for k in fns}
+            for k in list(fns) + list(fns)[::-1]:
+                times[k].append(time_ms(torch, fns[k], 1, 10))
+            t = {k: sum(v) / len(v) for k, v in times.items()}
+            if plain:
+                t["plain_ms"] = time_ms(
+                    torch, lambda i: mm_ref.matmul(x, y), 1, 1)
             Mx, Kx = x.shape
             Nx = y.shape[1]
-            b_ms, _ = bound(2 * (Mx * Kx + Kx * Nx + Mx * Nx),
-                            2 * Mx * Kx * Nx, H100_BF16)
-            # a step issues each forward twice (remat), each backward once
-            n = per * (2 if kind == "forward" else 1)
-            rows[f"{name} {kind} ({Mx},{Kx},{Nx})"] = dict(
-                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                calls_per_step=n, route=mm_ops.plan_for(x, y).route)
-            for key, t in (("ms", t_k), ("plain_ms", t_p),
-                           ("library_ms", t_l), ("bound_ms", b_ms)):
-                totals[key] += n * t
-        del a, b, dc, bt, at
+            t["bound_ms"], by = bound(2 * (Mx * Kx + Kx * Nx + Mx * Nx),
+                                      2 * Mx * Kx * Nx, H100_BF16)
+            n = n_fwd if kind == "forward" else n_bwd
+            rows[f"{tag} {kind} ({Mx},{Kx},{Nx})"] = dict(
+                t, bound_by=by, calls_per_step=n, plan=str(p),
+                tflops=2 * Mx * Kx * Nx / t["ms"] / 1e9,
+                turns={k: v for k, v in times.items()})
+            for k in totals:
+                totals[k] += n * t[k]
+            bound_of[by] += n * t["bound_ms"]
+            del xc, yc
+        torch.cuda.empty_cache()
+    def ms_or(t, key):
+        return f"{t[key]:.4f}" if key in t else "not timed"
+
     for shape, r in rows.items():
-        log(f"  matmul train {shape} [{r['route']}]: kernel_ms "
-            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
-            f"{r['library_ms']:.4f} (torch.matmul) bound_ms "
-            f"{r['bound_ms']:.4f}; {r['calls_per_step']} a step")
-    log(f"phase 1 [train]: the matmul's training products match (max abs "
-        f"err {mm_worst:.3g}); a step's {sum(r['calls_per_step'] for r in rows.values())}"
-        f" products (seq {TRAIN_SEQ} x batch {TRAIN_BATCH} in {TRAIN_ACCUM} "
-        f"microbatches, {TRAIN_LAYERS} layers): kernel {totals['ms']:.2f} ms, "
-        f"torch.matmul {totals['library_ms']:.2f}, bound "
-        f"{totals['bound_ms']:.2f}, plain {totals['plain_ms']:.2f} "
-        f"({time.perf_counter() - t0:.1f} s for phase 1 [train])")
-    torch.cuda.empty_cache()
-    return {"flash_attention_backward": bwd_stats,
-            "matmul_train": dict(shapes=rows, step=totals,
-                                 max_abs_err=mm_worst)}
+        log(f"  matmul train {shape} [{r['plan']}]: kernel_ms {r['ms']:.4f}"
+            f" ({r['tflops']:.1f} TFLOP/s) library_ms {r['library_ms']:.4f}"
+            f" (torch.matmul, same views) mma_ms {r['mma_ms']:.4f} (the "
+            f"previous route, on copies) plain_ms {ms_or(r, 'plain_ms')} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); "
+            f"{r['calls_per_step']} a step")
+    n_step = sum(r["calls_per_step"] for r in rows.values())
+    totals["bound_by"] = max(bound_of, key=bound_of.get)
+    log(f"phase 1 [train]: {len(rows)} training products on wgmma match "
+        f"ref.matmul (max abs err {worst:.3g}), bit for bit twice; a step's "
+        f"{n_step} products (seq {TRAIN_SEQ} x batch {TRAIN_BATCH} in "
+        f"{TRAIN_ACCUM} microbatches): kernel {totals['ms']:.2f} ms, "
+        f"torch.matmul {totals['library_ms']:.2f}, the previous route (mma) "
+        f"{totals['mma_ms']:.2f}, bound {totals['bound_ms']:.2f}, plain "
+        f"{ms_or(totals, 'plain_ms')} ({time.perf_counter() - t0:.1f} s)")
+    return dict(shapes=rows, step=totals, max_abs_err=worst, calls=n_step)
 
 
 def nz_rms(t) -> float:
@@ -5282,6 +5633,9 @@ def phase_train_run(torch):
                                snap=snap))
     if not all(math.isfinite(x) for x in losses["train"]):
         fail(f"phase 3 [train]: losses {losses['train']}")
+    if runs["train"]["routes"]["wgmma"] != runs["train"]["launches"]["matmul"]:
+        fail(f"phase 3 [train]: matmul routes {runs['train']['routes']}: "
+             "every qwen2-7b training product should take wgmma")
     runs["train"]["losses"] = losses["train"]
     log(f"phase 3 [train]: {cfg.name} {cfg.n_layers} of {full_layers} "
         f"layers, bf16, seq {TRAIN_SEQ} x batch {TRAIN_BATCH} (accum "
@@ -5359,8 +5713,9 @@ def phase_train(torch) -> dict:
     torch.cuda.empty_cache()
     runs = phase_train_run(torch)
     return dict(stats, runs={k: {kk: vv for kk, vv in v.items()
-                                 if kk in ("launches", "wall", "losses",
-                                           "step", "peak_gb", "syncs")}
+                                 if kk in ("launches", "routes", "wall",
+                                           "losses", "step", "peak_gb",
+                                           "syncs")}
                              for k, v in runs.items()})
 
 
@@ -5468,12 +5823,16 @@ def phase_train_family_kernels(torch):
     in bf16 and fp32 against the f32 plain backward, bit for bit on a
     second launch, and each timed in bf16 beside SDPA and its bound; then
     the products whose rows are not 16 bytes (``train_family_products``):
-    forward, dA and dB against ``ref.matmul`` within tol x (rms + |want|),
-    on the tensor cores with the misaligned operand staged, bit for bit on
-    a second launch, timed beside ``torch.matmul`` and the bound (the
-    parent's route against another checkout: ``profiling/matmul_ab``)."""
+    forward, dA and dB as ``MatMul`` issues them (the transposes and a
+    tied table as views) against ``ref.matmul`` within tol x (rms +
+    |want|), on ``mm_mma`` with the misaligned operand staged (whisper's
+    forward, against its tied table read in place, on ``wgmma``), bit for
+    bit on a second launch, timed beside ``torch.matmul`` and the bound
+    (the parent's route against another checkout:
+    ``profiling/matmul_ab``)."""
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
+    from repro_torch.kernels.matmul.plan import WG_MIN_M, tma_operand
 
     t0 = time.perf_counter()
     rnd = train_rnd(torch, 16)
@@ -5497,11 +5856,10 @@ def phase_train_family_kernels(torch):
 
     rows, mm_worst = {}, 0.0
     for tag, M, K, N, n_fwd, n_bwd in train_family_products():
-        a, b, dc = (rnd((M, K), torch.bfloat16), rnd((K, N), torch.bfloat16),
-                    rnd((M, N), torch.bfloat16))
-        bt, at = b.t().contiguous(), a.t().contiguous()
-        for kind, (x, y) in {"forward": (a, b), "dA = dC B^T": (dc, bt),
-                             "dB = A^T dC": (at, dc)}.items():
+        tied = "head" in tag and train_family_cfg(
+            tag.split()[0]).tie_embeddings
+        for kind, (x, y) in issued_products(torch, rnd, M, K, N,
+                                            tied).items():
             name = f"matmul train {tag} {kind}"
             got = mm_ops.matmul(x, y)
             mm_worst = max(mm_worst, check_rms(
@@ -5509,8 +5867,15 @@ def phase_train_family_kernels(torch):
             if not torch.equal(got, mm_ops.matmul(x, y)):
                 fail(f"{name}: two launches on the same inputs differ")
             p = mm_ops.plan_for(x, y)
-            if p.route != "mma" or not any(p.staged):
-                fail(f"{name}: plan {p}, want mma with a staged operand")
+            # TMA reads both in place (whisper's forward against its tied
+            # table's view) from 256 rows: wgmma; else mma, one staged
+            legal = all(tma_operand(tuple(t.shape), t.stride(),
+                                    t.data_ptr()) for t in (x, y))
+            if (p.route, legal and x.shape[0] >= WG_MIN_M) not in (
+                    ("wgmma", True), ("mma", False)) or (
+                    p.route == "mma" and not any(p.staged)):
+                fail(f"{name}: plan {p}, want wgmma where TMA reads both "
+                     "operands in place, else mma with a staged operand")
             del got
             t_k = time_ms(torch, lambda i: mm_ops.matmul(x, y), 1, 10)
             t_p = time_ms(torch, lambda i: mm_ref.matmul(x, y), 1, 3)
@@ -5525,7 +5890,6 @@ def phase_train_family_kernels(torch):
                 bound_by=by, calls_per_step=n,
                 route=f"{p.route} staged {p.staged}",
                 tflops=2 * Mx * Kx * Nx / t_k / 1e9)
-        del a, b, dc, bt, at
         torch.cuda.empty_cache()
     for shape, r in rows.items():
         log(f"  matmul train {shape} [{r['route']}]: kernel_ms "
@@ -5714,7 +6078,8 @@ def spmd_partitioned_step(torch) -> dict:
     bwd = counts["bwd_kernels"]
     if counts["launches"] != want or \
             set(bwd.values()) != {want["flash_attention_backward"]} or \
-            counts["routes"]["mma"] != want["matmul"]:
+            counts["routes"]["mma"] + counts["routes"]["wgmma"] != \
+            want["matmul"]:
         fail(f"phase 3 [spmd]: launches {counts['launches']} (backward "
              f"kernels {bwd}, matmul routes {counts['routes']}), the code "
              f"issues {want}")
@@ -5890,33 +6255,29 @@ def phase_spmd(torch) -> dict:
 
 
 # --only NAME: the sources to build and the phase-1 function to run
-ONLY = {"matmul": (["matmul"], lambda torch, cfg: phase_matmul(
+MATMUL_SOURCES = ["matmul", "matmul_wgmma"]
+SERVING_SOURCES = MATMUL_SOURCES + ["flash_attention", "paged_attention",
+                                    "flash_decode"]
+TRAIN_SOURCES = MATMUL_SOURCES + ["flash_attention", "flash_attention_bwd"]
+ONLY = {"matmul": (MATMUL_SOURCES, lambda torch, cfg: phase_matmul(
             torch, cfg, sweep=True)),
         "flash_attention": (["flash_attention"], phase_flash_attention),
         "decode_attention": (["paged_attention", "flash_decode"],
                              phase_decode_kernels),
         "conv2d": (["conv2d"], lambda torch, cfg: phase_conv_kernel(
             torch, cnn_conv_shapes(), sweep=True)),
-        "serving_graph": (["matmul", "flash_attention", "paged_attention",
-                           "flash_decode"], lambda torch, cfg: phase_graph(
+        "serving_graph": (SERVING_SOURCES, lambda torch, cfg: phase_graph(
             torch, cfg, profile=True)),
-        "cluster": (["matmul", "flash_attention", "paged_attention",
-                     "flash_decode"], lambda torch, cfg: (
+        "cluster": (SERVING_SOURCES, lambda torch, cfg: (
             phase_cluster(torch, cfg), {})[1]),
-        "families": (["matmul", "flash_attention", "paged_attention",
-                      "flash_decode"], lambda torch, cfg: phase_families(
+        "families": (SERVING_SOURCES, lambda torch, cfg: phase_families(
             torch)),
-        "ssm": (["matmul", "flash_attention", "paged_attention",
-                 "flash_decode"], lambda torch, cfg: phase_ssm(torch)),
-        "encdec": (["matmul", "flash_attention", "paged_attention",
-                    "flash_decode"], lambda torch, cfg: phase_encdec(torch)),
-        "train": (["matmul", "flash_attention", "flash_attention_bwd"],
-                  lambda torch, cfg: phase_train(torch)),
-        "train_families": (["matmul", "flash_attention",
-                            "flash_attention_bwd"],
+        "ssm": (SERVING_SOURCES, lambda torch, cfg: phase_ssm(torch)),
+        "encdec": (SERVING_SOURCES, lambda torch, cfg: phase_encdec(torch)),
+        "train": (TRAIN_SOURCES, lambda torch, cfg: phase_train(torch)),
+        "train_families": (TRAIN_SOURCES,
                            lambda torch, cfg: phase_train_families(torch)),
-        "spmd": (["matmul", "flash_attention", "flash_attention_bwd"],
-                 lambda torch, cfg: phase_spmd(torch))}
+        "spmd": (TRAIN_SOURCES, lambda torch, cfg: phase_spmd(torch))}
 
 
 def serving_wrappers():
@@ -6083,6 +6444,10 @@ def main() -> None:
                 "flash_decode.cu",
                 "src/repro/kernels/flash_decode/flash_decode.py:83"),
             "conv2d": ("conv2d.cu", "src/repro/kernels/conv2d/conv2d.py:51"),
+            # training's products (M >= 256, operands read in place by
+            # TMA) on the warpgroup tensor cores
+            "matmul_wgmma": ("matmul_wgmma.cu",
+                             "src/repro/kernels/matmul/matmul.py:49"),
             # the reverse pass of the reference's training step: autodiff of
             # its XLA chunked attention (the Pallas kernel has no backward)
             "flash_attention_backward": (
@@ -6091,7 +6456,18 @@ def main() -> None:
     stats["flash_attention_backward"] = dict(
         train_stats["flash_attention_backward"],
         kernels=list(fa_ops.BWD_KERNELS))
-    stats["matmul"]["train"] = train_stats["matmul_train"]
+    mm_train = train_stats["matmul_train"]
+    step = mm_train["step"]
+    stats["matmul_wgmma"] = dict(
+        shape=f"qwen2-7b's training step: {mm_train['calls']} products "
+              f"(seq {TRAIN_SEQ} x batch {TRAIN_BATCH} in {TRAIN_ACCUM} "
+              f"microbatches, {TRAIN_LAYERS} of 28 layers; forward, dA and "
+              f"dB, the backward's operands views), bf16",
+        max_abs_err=mm_train["max_abs_err"], ms=step["ms"],
+        plain_ms=step["plain_ms"], library_ms=step["library_ms"],
+        bound_ms=step["bound_ms"], bound_by=step["bound_by"],
+        mma_ms=step["mma_ms"], train=mm_train,
+        families=train_stats["matmul_train_families"])
     # the sixteenth slice's (phase 1 [train families])
     stats["flash_attention_backward"]["families"] = dict(
         family_train_stats["attention"],
@@ -6118,11 +6494,35 @@ def main() -> None:
     stats["flash_attention"].update(
         modes=["causal", "bidirectional"],
         bidirectional=encdec_stats["flash_attention"])
+
+    def wgmma_of(run, r):
+        """A run's matmul launches on the ``wgmma`` route: its route
+        counts, or a worker's own count of them."""
+        if "routes" in r:
+            return r["routes"]["wgmma"]
+        if "matmul_wgmma" in r["launches"]:
+            return r["launches"]["matmul_wgmma"]
+        if r["launches"].get("matmul"):
+            fail(f"kernels line: run {run} has matmul launches but no "
+                 "count of their routes")
+        return 0
+
+    # each source's own launches: matmul.cu's are the matmul wrapper's
+    # less those on the wgmma route (matmul_wgmma.cu's)
+    launches_of_run = {
+        "matmul": lambda run, r: r["launches"].get("matmul", 0)
+        - wgmma_of(run, r),
+        "matmul_wgmma": wgmma_of}
     kernels = []
     for name, (src, replaces) in meta.items():
         s = stats[name]
-        by_run = {run: r["launches"][name] for run, r in runs.items()
-                  if r["launches"].get(name)}
+        count = launches_of_run.get(
+            name, lambda run, r: r["launches"].get(name, 0))
+        by_run = {run: n for run, n in ((run, count(run, r))
+                                        for run, r in runs.items()) if n}
+        if name == "matmul_wgmma" and not any(
+                run.startswith("train") for run in by_run):
+            fail(f"matmul_wgmma: no launch on the training path {by_run}")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{src}",
                         "replaces": replaces,
@@ -6144,7 +6544,7 @@ def main() -> None:
                             "bidirectional", "train", "kernels", "errs",
                             "worst", "shapes", "forward_lse_ms",
                             "forward_lse_bound_ms", "kernel_ms", "whisper",
-                            "families", "train_families")
+                            "families", "train_families", "mma_ms")
                            if key in s},
                         **({"routes_by_run": {
                             run: r["routes"] for run, r in runs.items()

@@ -10,7 +10,8 @@
 // limit, so the weights must stream from HBM once per call, with enough
 // loads in flight on every SM to fill the memory pipe, and the products
 // must keep up with them: at M = 128 the CUDA cores' f32 FMAs cannot.
-// Training's products (M = 4096) are bound by operations.
+// Training's products (M >= 256, every operand TMA-legal) are bound by
+// operations and take matmul_wgmma.cu instead; this file keeps the rest.
 //
 // The route, row tile and K split come from the wrapper's shapes-only plan
 // (kernels/matmul/plan.py), which this file checks and never overrides:
@@ -44,14 +45,14 @@
 //    an aligned launch on the same values; <BM, true, true> is the aligned
 //    kernel as it was.  With N odd the epilogue stores a pair only at an
 //    even element.
-//  * skinny (M <= 16 on the CUDA cores: f32; bf16 only when forced): a CTA
+//  * skinny (M <= 16 on the CUDA cores, f32 only): a CTA
 //    owns a 256-column stripe of B for every row of A; each lane owns 8
 //    columns and reads them as one or two 16-byte vectors per row of B
 //    (scalar loads where N or the pointer is not 16-byte aligned), four
 //    rows ahead, so every element of B is read once, by one lane, in
 //    512-byte warp rows.  The 4 warps split the CTA's K range and are
 //    summed through shared memory.
-//  * tiled (M > 16 on the CUDA cores: f32; bf16 only when forced): a 128 x
+//  * tiled (M > 16 on the CUDA cores, f32 only): a 128 x
 //    64 output tile per CTA with a 16-deep K step staged in shared memory
 //    as f32, 8 x 4 outputs per thread.  f32 stays off the tensor cores:
 //    TF32 would break the reference's 2e-4 tolerance.
@@ -76,17 +77,7 @@ constexpr int SK_STRIPE = 32 * SK_COLS;   // 256 columns per CTA
 constexpr int SK_AHEAD = 4;           // rows of B in flight per lane
 constexpr int SK_MAXM = 16;
 
-// 8 consecutive elements of B at p (16-byte aligned), as floats
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
+// 8 consecutive elements of B at p (16-byte aligned)
 __device__ __forceinline__ void load8(const float* p, float* out) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
@@ -633,6 +624,8 @@ cudaError_t launch(const void* a, const void* b, void* c, float* ws, int M,
     } else {
       return cudaErrorInvalidValue;   // f32 stays off the tensor cores
     }
+  } else if constexpr (!std::is_same<T, float>::value) {
+    return cudaErrorInvalidValue;     // the CUDA-core routes take f32 only
   } else if (route == ROUTE_SKINNY) {
     if (M <= 1)
       launch_skinny<T, 1>(A, B, C, ws, M, N, K, splits, rows, s);
@@ -660,7 +653,7 @@ cudaError_t launch(const void* a, const void* b, void* c, float* ws, int M,
 
 // C = A @ B on `stream` by the wrapper's plan (kernels/matmul/plan.py):
 // route 0 mma (bf16 only, any N, K and 2-byte aligned address; bm 16 / 64
-// / 128), 1 skinny (M <= 16), 2 tiled; K split into `splits` ranges of
+// / 128), 1 skinny (f32, M <= 16), 2 tiled (f32); K split into `splits` ranges of
 // `rows` rows (the last may be shorter, none empty); ws: (splits, M, N)
 // f32 scratch, unused when splits == 1; dtype DT_F32 or DT_BF16 for all
 // three matrices.  A plan the kernels cannot take returns

@@ -4,12 +4,14 @@ A CPU tensor goes to the plain version (``ref.matmul``); a CUDA tensor
 launches the CUDA kernel its plan picks, adds one to ``matmul.launches``,
 one to that route's count in ``matmul.routes`` and, where the plan stages
 an operand through its windows (rows not 16-byte aligned), one to
-``matmul.staged``.  Where grad is enabled
-and an operand requires it (training), the call goes through ``MatMul``,
-an autograd Function whose forward is the same launch and whose backward
-is two more products through this wrapper, dA = dC B^T and dB = A^T dC
-(each counted; the transposes are contiguous copies).  There is no
-fallback: any other device, or a tensor the kernel does not take, raises.
+``matmul.staged``.  Either operand may be a row-major matrix or the
+``.t()`` view of one: the ``wgmma`` route reads it in place, the others
+read a contiguous copy.  Where grad is enabled and an operand requires it
+(training), the call goes through ``MatMul``, an autograd Function whose
+forward is the same launch and whose backward is two more products
+through this wrapper, dA = dC B^T and dB = A^T dC (each counted; the
+transposes are views).  There is no fallback: any other device, or a
+tensor the kernel does not take, raises.
 """
 from __future__ import annotations
 
@@ -53,8 +55,6 @@ class MatMul(torch.autograd.Function):
     def backward(ctx, dc):
         a, b = ctx.saved_tensors
         dc = dc.to(a.dtype).contiguous()
-        da = matmul(dc, b.t().contiguous()) if ctx.needs_input_grad[0] \
-            else None
-        db = matmul(a.t().contiguous(), dc) if ctx.needs_input_grad[1] \
-            else None
+        da = matmul(dc, b.t()) if ctx.needs_input_grad[0] else None
+        db = matmul(a.t(), dc) if ctx.needs_input_grad[1] else None
         return da, db

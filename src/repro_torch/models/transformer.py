@@ -89,8 +89,9 @@ def _layer(tree, i: int):
 
 
 def _head(params, cfg):
-    return params["embed"].T.contiguous() if cfg.tie_embeddings \
-        else params["lm_head"]
+    """The LM head (d, V): a tied table's ``.T`` view, as the reference
+    takes it (the matmul reads it in place where its route can)."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 # ---------------------------------------------------------------------------

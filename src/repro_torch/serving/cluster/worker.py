@@ -282,7 +282,9 @@ def _process_metrics(device, boot: dict):
     """What a real worker process adds to its status snapshots: its boot
     seconds by part (``boot``: process start to ``worker_main``, the CUDA
     context, the engine build, and their sum, process start to ``Hello``),
-    peak device memory, and the kernel wrappers' launch counts."""
+    peak device memory, and the kernel wrappers' launch counts (and
+    ``kernel.matmul_wgmma.launches``: those of the matmul's on the
+    ``wgmma`` route, counted in ``kernel.matmul.launches`` too)."""
     import torch
 
     from repro_torch.kernels.counts import snapshot
@@ -304,6 +306,9 @@ def _process_metrics(device, boot: dict):
         out = [(f"worker.{part}_seconds", s) for part, s in boot.items()]
         out += [(f"kernel.{name}.launches", float(n))
                 for name, (n, _) in zip(wrappers, counts)]
+        routes = counts[list(wrappers).index("matmul")][1]
+        out.append(("kernel.matmul_wgmma.launches",
+                    float(routes.get("wgmma", 0))))
         if device.type == "cuda":
             out.append(("worker.peak_memory_bytes",
                         float(torch.cuda.max_memory_allocated(device))))

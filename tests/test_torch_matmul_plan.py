@@ -146,7 +146,12 @@ def test_forced_routes_and_bad_requests():
     with pytest.raises(ValueError, match="skinny route"):
         _plan(17, 3584, 3584, route="skinny", **f32)
     with pytest.raises(ValueError, match="unknown route"):
-        _plan(4, 3584, 3584, route="wgmma")
+        _plan(4, 3584, 3584, route="wmma")
+    # wgmma takes bf16 operands that TMA reads in place (tma=True) only
+    with pytest.raises(ValueError, match="wgmma route reads"):
+        _plan(4096, 3584, 3584, route="wgmma")
+    with pytest.raises(ValueError, match="the wgmma route takes bf16"):
+        _plan(4096, 3584, 3584, route="wgmma", tma=True, bf16=False)
     with pytest.raises(ValueError, match="splits"):
         _plan(4, 3584, 3584, splits=0)
     with pytest.raises(ValueError, match="empty"):
