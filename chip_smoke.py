@@ -120,11 +120,14 @@ Phases (each raises on failure; nothing is caught):
    whisper's encoder and cross shapes in both dtypes: the forward's
    output by the rule above, its LSE and dQ, dK, dV within 3e-2 / 2e-4 x
    (rms + |plain|) of the plain version run in f32 on the same inputs,
-   each backward bit for bit on a second launch (bf16 on the tensor
-   cores, f32 on the CUDA cores); timed, the three kernels together and
-   each alone, at the training shape and at whisper's encoder and cross
-   shapes beside the plain version, SDPA's forward + backward and the
-   operations bound (2.5x the forward's FLOPs).  Then the matmul's
+   each backward bit for bit on a second launch (bf16 on the warpgroup
+   tensor cores, route ``wgmma``; f32 on the CUDA cores); timed, the
+   three kernels together and each alone, at the training shape and at
+   whisper's encoder and cross shapes beside the plain version, SDPA's
+   forward + backward, SDPA's backward alone (its forward outside the
+   timed window) and the operations bound (2.5x the forward's FLOPs; the
+   rate also at the layout's 12 products); at the training shape SDPA's
+   forward beside the forward with LSE.  Then the matmul's
    training products (each projection's forward and two backward products
    at M = 4096, the loss chunk's head product and its two), each against
    ``ref.matmul`` and timed beside ``torch.matmul`` and its bound, summed
@@ -268,7 +271,8 @@ Phases (each raises on failure; nothing is caught):
    run of 6 from the same seed (the unwrapped step) must give the same
    losses bit for bit, and every run's launches must equal what the code
    issues (remat runs each forward kernel twice; a replay issues nothing
-   through the wrappers, ``train_counts.issued_steps``).  At 8 layers, 4
+   through the wrappers, ``train_counts.issued_steps``), every attention
+   backward on the ``wgmma`` route.  At 8 layers, 4
    graphed steps; the graphed and the eager step are measured in turns
    in one process (wall, device ms and idle share under the profiler,
    tokens per second, peak memory and the graph's pool; the forward /
@@ -4631,8 +4635,9 @@ def zero_counts(torch):
         w.launches = 0
     mm_ops.matmul.routes.update(dict.fromkeys(mm_ops.matmul.routes, 0))
     mm_ops.matmul.staged = 0
-    kernels = fa_ops.flash_attention_backward.kernels
-    kernels.update(dict.fromkeys(kernels, 0))
+    bwd = fa_ops.flash_attention_backward
+    bwd.kernels.update(dict.fromkeys(bwd.kernels, 0))
+    bwd.routes.update(dict.fromkeys(bwd.routes, 0))
 
 
 def read_counts():
@@ -4643,7 +4648,8 @@ def read_counts():
                           train_wrappers().items()},
                 routes=dict(mm_ops.matmul.routes),
                 staged=mm_ops.matmul.staged,
-                bwd_kernels=dict(fa_ops.flash_attention_backward.kernels))
+                bwd_kernels=dict(fa_ops.flash_attention_backward.kernels),
+                bwd_routes=dict(fa_ops.flash_attention_backward.routes))
 
 
 def train_rnd(torch, seed):
@@ -4754,10 +4760,22 @@ def bwd_timed(torch, rnd, tag, shape):
                    sdpa(qt, kt, vt, is_causal=causal))
             return torch.autograd.grad(out, (qt, kt, vt), dot)
 
+    def backward_alone(masked=True):
+        """SDPA's backward alone: its forward once, outside the timed
+        window, the graph kept for the repeated backward."""
+        with torch.enable_grad():
+            out = (sdpa(qt, kt, vt, attn_mask=mask) if w and masked else
+                   sdpa(qt, kt, vt, is_causal=causal))
+        return lambda i: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                             retain_graph=True)
+
     t_lib = time_ms(torch, library, 1, 10)
+    t_lib_bwd = time_ms(torch, backward_alone(), 1, 10)
     # a boolean mask takes SDPA off its flash backend: its causal call, more
     # work but the fastest single library call at the shape, is timed too
     t_lib_causal = time_ms(torch, lambda i: library(i, False), 1, 10) \
+        if w else None
+    t_lib_causal_bwd = time_ms(torch, backward_alone(False), 1, 10) \
         if w else None
     if causal and Sq == Skv:      # the (query, key) pairs each query sees
         n = min(w, Sq) if w else Sq
@@ -4772,27 +4790,37 @@ def bwd_timed(torch, rnd, tag, shape):
     r = dict(shape=f"q ({B},{Sq},{hq},{D}), k/v ({B},{Skv},{hkv},{D}), "
                    f"{mode}, bf16",
              ms=t_bwd, kernel_ms=per, plain_ms=t_plain, library_ms=t_lib,
-             bound_ms=b_ms, bound_by=by,
-             tflops=2.5 * fwd_flops / t_bwd / 1e9)
+             library_bwd_ms=t_lib_bwd, bound_ms=b_ms, bound_by=by,
+             tflops=2.5 * fwd_flops / t_bwd / 1e9,
+             tflops_layout=6 * fwd_flops / t_bwd / 1e9,
+             route=fa.bwd_route(q))
     masked = ""
     if w:
-        r["library_causal_ms"] = t_lib_causal
+        r.update(library_causal_ms=t_lib_causal,
+                 library_causal_bwd_ms=t_lib_causal_bwd)
         masked = (f"; a boolean window mask, off SDPA's flash backend: its "
-                  f"causal call without the window {t_lib_causal:.4f}")
+                  f"causal call without the window {t_lib_causal:.4f}, its "
+                  f"backward alone {t_lib_causal_bwd:.4f}")
     by_kernel = ", ".join(f"{n} {t:.4f}" for n, t in per.items())
     log(f"  flash_attention backward {tag} {r['shape']}: kernel_ms "
-        f"{t_bwd:.4f} ({r['tflops']:.1f} TFLOP/s at 2.5x the forward's "
-        f"FLOPs; by kernel {by_kernel}) plain_ms {t_plain:.4f} "
+        f"{t_bwd:.4f} on {r['route']} ({r['tflops']:.1f} TFLOP/s at 2.5x "
+        f"the forward's FLOPs, {r['tflops_layout']:.1f} at the layout's 12 "
+        f"products; by kernel {by_kernel}) plain_ms {t_plain:.4f} "
         f"library_ms {t_lib:.4f} (SDPA forward + backward, K/V "
-        f"expanded{masked}) bound_ms {b_ms:.4f} ({by})")
+        f"expanded; its backward alone {t_lib_bwd:.4f}{masked}) bound_ms "
+        f"{b_ms:.4f} ({by})")
     if tag == "train":
         t_fwd = time_ms(torch, lambda i: fa.flash_attention_cuda(
             q, k, v, causal=causal, lse=True), 1, 10)
+        with torch.no_grad():
+            t_sdpa_fwd = time_ms(torch, lambda i: sdpa(
+                qt, kt, vt, is_causal=causal), 1, 10)
         f_ms, fby = bound(2 * (2 * q.numel() + 2 * k.numel())
                           + 4 * lse.numel(), fwd_flops, H100_BF16)
         log(f"  the forward with LSE {t_fwd:.4f} ms (bound {f_ms:.4f}, "
-            f"{fby})")
-        r.update(forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms)
+            f"{fby}; SDPA's forward, K/V expanded, {t_sdpa_fwd:.4f})")
+        r.update(forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms,
+                 forward_library_ms=t_sdpa_fwd)
     del q, k, v, do, o, lse, qt, kt, vt, dot, mask
     torch.cuda.empty_cache()
     return r
@@ -5024,9 +5052,11 @@ def train_products_timed(torch, rnd, products, plain=True):
 
 
 def nz_rms(t) -> float:
-    """The RMS of ``t``'s nonzero entries (0 when it has none)."""
-    nz = t[t != 0]
-    return float(nz.float().pow(2).mean().sqrt()) if nz.numel() else 0.0
+    """The RMS of ``t``'s nonzero entries (0 when it has none): the sum of
+    the squares over their count, without gathering them (on the CPU a
+    full-width vocabulary table's gather took seconds a call)."""
+    n = int(t.count_nonzero())
+    return float(t.float().pow(2).sum().div(n).sqrt()) if n else 0.0
 
 
 def token_rms(torch, path, w, targets=None):
@@ -5086,8 +5116,9 @@ def train_tree_close(torch, what, got, want, tol, masks=None, noise=None,
                         token_rms(torch, path, w, targets), w, tol)
             if masks is not None:
                 m = masks[path].to(g.device).abs()
+                src = noise.get(path, path)   # its own mask on the card
                 rat = rat[m > UPDATE_MASK * nz_rms(
-                    masks[noise.get(path, path)])]
+                    m if src == path else masks[src])]
                 del m
             r = float(rat.max()) if rat.numel() else 0.0
             del rat
@@ -5166,10 +5197,11 @@ def train_card_vs_cpu(torch, cfg2, seq, tag, tables=False):
         targets, so_far = (step_ids, seen) if tables else (None, None)
         prev = {dev: dict((k, v.detach().clone()) for k, v in
                           leaves_with_paths(p)) for dev, p in params.items()}
-        mets, grads, routing = {}, {}, {}
+        mets, grads, routing, secs = {}, {}, {}, {}
         for dev in devs:
             used.clear()
             RS.adamw_update = recorded
+            t_dev = time.perf_counter()
             try:
                 with (Routing(MOE) if cfg2.n_experts
                       else contextlib.nullcontext()) as routing[dev]:
@@ -5177,7 +5209,11 @@ def train_card_vs_cpu(torch, cfg2, seq, tag, tables=False):
                         params[dev], opts[dev], batch)
             finally:
                 RS.adamw_update = update
+            if dev == "card":
+                torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t_dev
             grads[dev] = used.pop()
+        t_cmp = time.perf_counter()
         if cfg2.n_experts:
             card, cpu = routing["card"].calls, routing["cpu"].calls
             if len(card) != len(cpu):
@@ -5221,7 +5257,9 @@ def train_card_vs_cpu(torch, cfg2, seq, tag, tables=False):
         log(f"phase 2 [{tag}] step {step}: loss card "
             f"{float(mets['card']['loss']):.6f} cpu "
             f"{float(mets['cpu']['loss']):.6f}{aux}, lr "
-            f"{float(mets['cpu']['lr']):.3g}")
+            f"{float(mets['cpu']['lr']):.3g}; host s: the step on the card "
+            f"{secs['card']:.1f}, on the CPU {secs['cpu']:.1f}, the "
+            f"comparisons {time.perf_counter() - t_cmp:.1f}")
     del params, opts
     gc.collect()
     torch.cuda.empty_cache()
@@ -5519,6 +5557,9 @@ def counted(torch, name, want, fn):
             set(bwd.values()) != {want["flash_attention_backward"]}:
         fail(f"phase 3 [{name}]: launches {counts['launches']} (backward "
              f"kernels {bwd}), the code issues {want}")
+    if counts["bwd_routes"]["wgmma"] != want["flash_attention_backward"]:
+        fail(f"phase 3 [{name}]: backward routes {counts['bwd_routes']}: "
+             "every bf16 backward should take wgmma")
     return out, dict(counts, wall=wall,
                      peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
@@ -5566,7 +5607,8 @@ def train_cli_resume(torch, arch, n_layers, n_steps, n_resume, ckpt_dir,
                 f"init, checkpoint restore and save included), losses "
                 f"{losses[name]}, peak {runs[name]['peak_gb']:.2f} GB, "
                 f"launches {runs[name]['launches']} (= what the code "
-                f"issues), backward kernels {runs[name]['bwd_kernels']}")
+                f"issues), backward kernels {runs[name]['bwd_kernels']}, "
+                f"routes {runs[name]['bwd_routes']}")
     finally:
         train.get_config = real
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -5643,7 +5685,8 @@ def phase_train_run(torch):
         f"TrainGraph in {runs['train']['wall']:.2f} s wall (init included): "
         f"losses {losses['train']}, peak {runs['train']['peak_gb']:.2f} GB, "
         f"launches {runs['train']['launches']} (= what the code issues), "
-        f"backward kernels {runs['train']['bwd_kernels']}, matmul routes "
+        f"backward kernels {runs['train']['bwd_kernels']}, routes "
+        f"{runs['train']['bwd_routes']}, matmul routes "
         f"{runs['train']['routes']}")
     runs["train"]["step"] = train_step_logged(torch, "train step", cfg,
                                               state)
@@ -5713,9 +5756,9 @@ def phase_train(torch) -> dict:
     torch.cuda.empty_cache()
     runs = phase_train_run(torch)
     return dict(stats, runs={k: {kk: vv for kk, vv in v.items()
-                                 if kk in ("launches", "routes", "wall",
-                                           "losses", "step", "peak_gb",
-                                           "syncs")}
+                                 if kk in ("launches", "routes", "bwd_routes",
+                                           "wall", "losses", "step",
+                                           "peak_gb", "syncs")}
                              for k, v in runs.items()})
 
 
@@ -5969,7 +6012,8 @@ def phase_train_family_run(torch):
             f"included): losses "
             f"{losses}, peak {runs[name]['peak_gb']:.2f} GB, launches "
             f"{runs[name]['launches']} (= what the code issues), backward "
-            f"kernels {runs[name]['bwd_kernels']}, matmul routes "
+            f"kernels {runs[name]['bwd_kernels']}, routes "
+            f"{runs[name]['bwd_routes']}, matmul routes "
             f"{runs[name]['routes']} ({runs[name]['staged']} staged)")
         runs[name]["step"] = train_step_logged(torch, f"{name} step", cfg,
                                                state)
@@ -5992,8 +6036,8 @@ def phase_train_families(torch) -> dict:
     phase_train_family_card_vs_cpu(torch)
     runs = phase_train_family_run(torch)
     return dict(stats, runs={k: {kk: vv for kk, vv in v.items()
-                                 if kk in ("launches", "wall", "losses",
-                                           "step", "peak_gb")}
+                                 if kk in ("launches", "bwd_routes", "wall",
+                                           "losses", "step", "peak_gb")}
                              for k, v in runs.items()})
 
 
@@ -6078,11 +6122,13 @@ def spmd_partitioned_step(torch) -> dict:
     bwd = counts["bwd_kernels"]
     if counts["launches"] != want or \
             set(bwd.values()) != {want["flash_attention_backward"]} or \
+            counts["bwd_routes"]["wgmma"] != \
+            want["flash_attention_backward"] or \
             counts["routes"]["mma"] + counts["routes"]["wgmma"] != \
             want["matmul"]:
         fail(f"phase 3 [spmd]: launches {counts['launches']} (backward "
-             f"kernels {bwd}, matmul routes {counts['routes']}), the code "
-             f"issues {want}")
+             f"kernels {bwd}, routes {counts['bwd_routes']}, matmul routes "
+             f"{counts['routes']}), the code issues {want}")
     if not all(math.isfinite(x) for row in losses for x in row):
         fail(f"phase 3 [spmd]: losses {losses}")
     smi = card_line()
@@ -6096,7 +6142,8 @@ def spmd_partitioned_step(torch) -> dict:
     log(f"phase 3 [spmd]: peak {peak:.2f} GB; launches {counts['launches']}"
         f" (= what the code issues for {SPMD_PARTS} x "
         f"{issued_steps(SPMD_STEPS)} microbatches: the eager step and the "
-        f"capture), backward kernels {bwd}, matmul routes "
+        f"capture), backward kernels {bwd}, routes {counts['bwd_routes']}, "
+        f"matmul routes "
         f"{counts['routes']}; the graph {step_fn.stats()} [{smi}]")
     del step_fn           # its pool, before the partitions run alone
     gc.collect()
@@ -6478,6 +6525,7 @@ def main() -> None:
     stats["flash_attention"]["train"] = dict(
         shape=bwd["shape"], forward_lse_ms=bwd["forward_lse_ms"],
         forward_lse_bound_ms=bwd["forward_lse_bound_ms"],
+        forward_library_ms=bwd["forward_library_ms"],
         lse_max_abs_err=bwd["errs"]["lse"])
     # the twelfth slice's shapes (phase 1 [ssm]), beside the main path's
     ssm_of = {"matmul": dict(ssm_stats["matmul"],
@@ -6544,11 +6592,16 @@ def main() -> None:
                             "bidirectional", "train", "kernels", "errs",
                             "worst", "shapes", "forward_lse_ms",
                             "forward_lse_bound_ms", "kernel_ms", "whisper",
-                            "families", "train_families", "mma_ms")
+                            "families", "train_families", "mma_ms",
+                            "library_bwd_ms", "tflops", "tflops_layout")
                            if key in s},
                         **({"routes_by_run": {
                             run: r["routes"] for run, r in runs.items()
                             if "routes" in r}} if name == "matmul" else {}),
+                        **({"routes_by_run": {
+                            run: r["bwd_routes"] for run, r in runs.items()
+                            if r.get("bwd_routes")}}
+                           if name == "flash_attention_backward" else {}),
                         **({"routes": {
                             run: r["conv_routes"] for run, r in runs.items()
                             if "conv_routes" in r}} if name == "conv2d"

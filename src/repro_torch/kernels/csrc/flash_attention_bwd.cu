@@ -36,65 +36,78 @@
 // (Delta: S, dP; dK / dV: S, dP, dV twice, dK twice; dQ: S, dP, dQ twice),
 // 722 GFLOP, so its own floor is 0.73 ms.
 //
-// What the design does (bf16, the *_mma kernels): FA2's structure on the
-// warp tensor-core product mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-// built from the forward's pieces (fa_mma_kernel): 64-row tiles staged by
-// 16-byte cp.async in two stages (the next tile loads while this one is
-// used), rows padded by 8 bf16 so that ldmatrix hits no bank twice, the
-// softmax in exp2 form, P = exp2(S scale log2(e) - LSE log2(e)), and f32
-// accumulators turned straight into A fragments (pack_bf16).  P and dS go
-// to their products as two bf16 fragments each, hi = x rounded and lo = the
-// rest rounded (split_bf16), both multiplied by the same B fragment into
-// one f32 sum: P or dS rounded once to bf16, as FA2 does, puts an early
-// key's dV / dK 1.13 / 1.03x outside the bf16 bound (3e-2 of the output's
-// RMS) at 4096 causal rows (an emulation in tests/test_torch_train_kernels
-// .py): its first rows' weights are O(1), each off by up to 2^-9, against
-// an RMS set by the many small ones.  The second pass costs 3 of the 12
-// products and no shared-memory traffic (the B fragment is loaded once).
-// A CTA is 4 warps of 16 rows; P and dS live in registers and never touch
-// shared memory.
-// - fa_bwd_dkdv_mma: one CTA per (kv tile of 64 keys, kv head, batch); each
-//   warp owns 16 keys.  It walks the G query heads of its kv head in order
-//   and, for each, every 64-row query tile that can see the tile: S^T = K
-//   Q^T and dP^T = V dO^T (Q, dO by ldmatrix), P^T and dS^T = P^T o (dP^T
-//   - Delta) in registers, dV += P^T dO and dK += dS^T Q (dO, Q by
-//   ldmatrix.trans), dK and dV 16 x D f32 each in registers.
-// - fa_bwd_dq_mma: one CTA per (64-row query tile, query head, batch), the
-//   longest causal walks first; S = Q K^T, dP = dO V^T, dS in registers,
-//   dQ += dS K (K by ldmatrix.trans).
-// - fa_bwd_delta_mma: the dQ kernel's S / dP walk, summing P o dP from the
-//   f32 accumulators: each thread over its columns in key order, then the
-//   quad by shuffles (a warp owns whole rows).
-// The balance rule (dK / dV, causal): kv tile t sees Sq/64 - t query
-// tiles, so in launch order the walks fall from the longest (tile 0) to
-// the shortest.  Two CTAs fit an SM (~105 KB of shared memory each), and
-// the first SMs CTAs of a launch take one SM each, the next ones the
-// second slots in the same order; so block i < SMs takes the i-th longest
-// walk and block SMs + j the j-th shortest, and each SM pairs a long walk
-// with a short one (a permutation: any placement gives the same bits).
-// The query tile of the dK / dV walk is 64 rows: at D = 128 that kernel
-// takes 255 registers and spills 48 bytes, and 32 rows (243 registers, no
-// spill) measured 13 % slower at the training shape.
-// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 1 [train] and
-// profiling/flash_attention_bwd_ab.py against the CUDA-core layout): at the
-// training shape 3.59 ms for the three kernels (Delta 0.77, dK / dV 1.68,
-// dQ 1.11; 201 TFLOP/s of the 12 products), against 50.9 on the CUDA cores
-// and SDPA's forward + backward 0.92; dK / dV took 1.99 ms in launch order
-// against 1.71 under the balance rule.  whisper's encoder (4 x 1500, 8
-// heads of 64, bidirectional) 0.58 ms (SDPA 0.20), its cross attention (32
-// rows over 1500) 0.16 ms (SDPA 0.043).
+// What the design does (bf16: fa_bwd_delta_wgmma, fa_bwd_dkdv_wgmma and
+// fa_bwd_dq_wgmma, each <DC>, DC = ceil(D / 64)): FA2's structure on
+// Hopper's warpgroup product wgmma.mma_async (bf16 in, f32 accumulate),
+// the instruction that reaches the tensor cores' rate (the mma.sync
+// m16n8k16 layout before it reached 201 TFLOP/s of its 12 products).  A
+// CTA is two consumer warpgroups of 64 rows and one producer warp that
+// keeps TMA loads (cp.async.bulk.tensor.4d over the (D, H, S, B) view of
+// each operand, 128-byte swizzle) in flight through an mbarrier ring: a
+// tile is DC boxes of 64 rows x 64 columns, 8 KB each, and TMA fills
+// columns past D and rows past S with zeros.  The softmax is in exp2
+// form, P = exp2(S scale log2(e) - LSE log2(e)); masked entries are
+// exactly 0.  S and dP take both operands from shared memory, K-major
+// (m64n64k16); P and dS stay in registers, where the accumulator's
+// fragment layout is the A operand's, and go to their products as two
+// bf16 parts each, hi = x rounded and lo = the rest rounded (split_bf16),
+// both into one f32 sum: P or dS rounded once to bf16, as FA2 does, puts
+// an early key's dV / dK 1.13 / 1.03x outside the bf16 bound (3e-2 of the
+// output's RMS) at 4096 causal rows (tests/test_torch_train_kernels.py
+// emulates both): its first rows' weights are O(1), each off by up to
+// 2^-9, against an RMS set by the many small ones.  The second part costs
+// 3 of the 12 products.  Those products read B (dO and Q for dV and dK, K
+// for dQ) MN-major from the same tiles (the transpose bit): no copy.
+// Registers bound the layout: 9 warps get at most 168 a thread, and
+// ptxas kept to 168 under setmaxnreg too (it spilled), so no warpgroup
+// holds more than one 64 x D accumulator beside a 64 x 64 tile at D = 128.
+// - fa_bwd_dkdv_wgmma: a CTA owns 64 keys of one kv head, K and V resident,
+//   and the producer streams the (query head, 64-row query tile) pairs of
+//   the group that can see them, with their rows' LSE and Delta (its lanes
+//   load those: their (B, Sq, Hq) rows are no TMA box).  D > 64: warpgroup
+//   0 computes S^T = K Q^T and P^T and sums dV += P^T dO; warpgroup 1
+//   computes dP^T = V dO^T, takes P^T through shared memory (two tiles,
+//   named barriers: ready, and read) for dS^T = P^T o (dP^T - Delta), and
+//   sums dK += dS^T Q.  D <= 64: pair i goes to warpgroup i % 2, which
+//   sums both, and warpgroup 1's f32 sums are added to 0's at the end
+//   through the freed ring (1.4x faster there than the product split,
+//   which leaves warpgroup 1 waiting on 0's exponentials, and ptxas's 168
+//   registers hold both sums only at D <= 64).  Every sum runs in a fixed
+//   order.
+// - fa_bwd_delta_wgmma and fa_bwd_dq_wgmma (rows_walk): a CTA owns 128
+//   query rows of one head, Q and dO resident, 64 rows a warpgroup, and
+//   streams the K / V tiles of 64 keys they can see: S = Q K^T, dP = dO
+//   V^T; dQ: dS in registers and dQ += dS K; Delta: each thread sums P o
+//   dP over its columns in key order, then the quad by shuffles.  A
+//   warpgroup skips a tile none of its rows sees (the causal diagonal's
+//   last).  At D <= 64 two Delta CTAs share an SM.
+// The balance (causal): a key tile's walk shrinks from the longest (tile 0,
+// every query tile of the G heads) to the shortest; the grid is one
+// dimension in that order and one CTA fills an SM (~201 KB of shared
+// memory at D = 128), so each SM that frees takes the longest walk left.
+// With 64 keys a CTA, qwen2-7b's 256 dK / dV CTAs (1.94 waves of 132 SMs)
+// end within 2 % of an even split, where 128 keys a CTA (a warpgroup each)
+// would leave the longest walk at 2x the mean
+// (tests/test_torch_fa_bwd_wgmma.py models both).  The Delta and dQ grids
+// (128-row tiles, 896 CTAs at qwen2-7b) run the longest walks first too.
+// Tensor maps are encoded on the host at each launch and passed as
+// __grid_constant__ parameters (legal under stream capture); a barrier
+// wait past ~17 s traps, never hangs.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; profiling/flash_attention_bwd_ab
+// against the mma.sync layout in one process): at qwen2-7b's training
+// shape 2.33 ms for the three kernels against 3.55 (Delta 0.49, dK / dV
+// 1.19, dQ 0.64; ~310 TFLOP/s of the 12 products), its outputs bit for bit
+// the mma.sync layout's; whisper's encoder 0.55-0.57 ms, as before.
 // f32 (fa_bwd_delta / fa_bwd_dkdv / fa_bwd_dq, only reached by the
 // card-versus-CPU checks and the f32 tile edges) stays on the CUDA cores,
 // as the forward's f32 fa_kernel does: TF32 would break the reference's
 // 2e-4 f32 tolerance.  A CTA of 256 threads holds two 64-row tiles of each
 // side in shared memory as f32, each thread a 4 x 4 block of S and dP, P
 // and dS through shared memory.
-// Next redesign: wgmma on 64-row warpgroup tiles with Q / dO brought in by
-// TMA and a producer warp, as FA3 does.
 #include <climits>
 #include <initializer_list>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -401,40 +414,18 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels (mma.sync m16n8k16, cp.async double buffer)
+// bf16: warpgroup tensor-core kernels (wgmma.mma_async fed by TMA)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int TC_WARPS = 4;
-constexpr int TC_THREADS = TC_WARPS * 32;
-constexpr int TC_BK = 64;      // keys of a kv tile; rows of dQ's query tile
-constexpr int TC_BQ = 64;      // query rows of the dK / dV walk's tile
+constexpr int WG = 128;              // threads of a warpgroup
+constexpr int FB_THREADS = 2 * WG + 32;   // consumers 0-255, the producer
+                                          // warp 256-287
+constexpr int BOX = 64 * 128;        // bytes of a TMA box: 64 rows of 64 bf16
+                                     // (one 128-byte swizzle line a row)
+constexpr int FB_STATS = 1024;       // a stage's LSE and Delta (2 x 64 f32),
+                                     // padded to keep the tiles 1024-aligned
 constexpr float LOG2E = 1.4426950408889634f;
-
-// 4 bytes global -> shared (full == false writes a zero)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0));
-}
-
-// rows [r0, r0 + ROWS) of head h of a (B, S, H, D) tensor -> dst
-// [ROWS][DPAD + 8], by cp.async; rows past S and columns past D are zeros
-template <int DPAD, int ROWS>
-__device__ __forceinline__ void stage_tile(bf16* dst,
-                                           const bf16* __restrict__ src,
-                                           int b, int S, int H, int h, int r0,
-                                           int D) {
-  constexpr int ST = DPAD + 8, CH = DPAD / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += TC_THREADS) {
-    const int r = i / CH, c = i % CH, rr = r0 + r;
-    const bool ok = rr < S && c < D / 8;
-    const bf16* p = ok ? src + (((size_t)b * S + rr) * H + h) * D + c * 8
-                       : src;
-    cp_async16(dst + r * ST + c * 8, p, ok);
-  }
-}
 
 __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Skv,
                                         int window, int causal) {
@@ -442,44 +433,20 @@ __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Skv,
          (window <= 0 || qi - kj < window);
 }
 
-// every (query, key) of the tiles [q0, q0 + BQ) x [k0, k0 + BK) visible
-template <int BQ, int BK>
+// every (query, key) of the tiles [q0, q0 + 64) x [k0, k0 + 64) visible
 __device__ __forceinline__ bool tile_full(int q0, int k0, int Sq, int Skv,
                                           int window, int causal) {
-  return q0 + BQ <= Sq && k0 + BK <= Skv && (!causal || q0 >= k0 + BK - 1) &&
-         (window <= 0 || q0 + BQ - 1 - k0 < window);
+  return q0 + 64 <= Sq && k0 + 64 <= Skv && (!causal || q0 >= k0 + 63) &&
+         (window <= 0 || q0 + 63 - k0 < window);
 }
 
-// s = A1 B1^T and t = A2 B2^T (16 x N each) over DPAD columns: a1 / a2 the
-// warp's 16 rows of two tiles, b1 / b2 N rows of two others
-template <int DPAD, int N>
-__device__ __forceinline__ void two_abt(float (&s)[N / 8][4],
-                                        float (&t)[N / 8][4], const bf16* a1,
-                                        const bf16* b1, const bf16* a2,
-                                        const bf16* b2, int lane) {
-  constexpr int ST = DPAD + 8;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[j][c] = t[j][c] = 0.f;
-  const int ar = (lane & 15) * ST + (lane >> 4) * 8;
-  const int br = ((lane & 7) + ((lane >> 4) << 3)) * ST + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < DPAD / 16; ++kk) {
-    uint32_t x[4], y[4];
-    ldsm_x4(x, a1 + ar + kk * 16);
-    ldsm_x4(y, a2 + ar + kk * 16);
-#pragma unroll
-    for (int jp = 0; jp < N / 16; ++jp) {
-      uint32_t u[4], w[4];   // rows 16jp..+7 | d lo, d hi; rows +8..+15
-      ldsm_x4(u, b1 + br + jp * 16 * ST + kk * 16);
-      ldsm_x4(w, b2 + br + jp * 16 * ST + kk * 16);
-      mma_bf16(s[2 * jp], x, u[0], u[1]);
-      mma_bf16(s[2 * jp + 1], x, u[2], u[3]);
-      mma_bf16(t[2 * jp], y, w[0], w[1]);
-      mma_bf16(t[2 * jp + 1], y, w[2], w[3]);
-    }
-  }
+// some (query, key) of rows [r0, r0 + 64) x keys [k0, k0 + 64) visible (the
+// differences q - k of the two ranges form one interval)
+__device__ __forceinline__ bool tile_any(int r0, int k0, int Sq, int Skv,
+                                         int window, int causal) {
+  if (r0 >= Sq || k0 >= Skv) return false;
+  const int r1 = min(r0 + 63, Sq - 1), k1 = min(k0 + 63, Skv - 1);
+  return (!causal || r1 >= k0) && (window <= 0 || r0 - k1 < window);
 }
 
 // x0, x1 ~ hi + lo, each a bf16 pair (nearest even): lo carries the
@@ -492,98 +459,160 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
-// acc (16 x DPAD) += P V: P 16 x N f32, split into two bf16 A fragments
-// (hi + lo, each from two adjacent 8-column tiles) whose products both go
-// into acc, V N rows of DPAD by ldmatrix.trans (one load for both)
-template <int DPAD, int N>
-__device__ __forceinline__ void acc_pv(float (&acc)[DPAD / 8][4],
-                                       const float (&p)[N / 8][4],
-                                       const bf16* vs, int lane) {
-  constexpr int ST = DPAD + 8;
-  const int vr = ((lane & 7) + ((lane >> 3) & 1) * 8) * ST + (lane >> 4) * 8;
+// a 64 x 64 f32 accumulator (the warpgroup's fragments, 32 a thread) as the
+// A operands of four 16-deep K slices, hi and lo: slice kk's registers are
+// hi[4 kk .. 4 kk + 3] (rows g, g + 8 x columns 16 kk + 2 t4 .. and + 8)
+__device__ __forceinline__ void split_frags(const float (&x)[32],
+                                            uint32_t (&hi)[16],
+                                            uint32_t (&lo)[16]) {
 #pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    uint32_t hi[4], lo[4];
-    split_bf16(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
-    split_bf16(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
-    split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
-    split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
+  for (int i = 0; i < 16; ++i) split_bf16(x[2 * i], x[2 * i + 1], hi[i], lo[i]);
+}
+
+// d (64 x 64 DC) += A B twice over a 64-deep K (four 16-deep slices), A
+// the hi then the lo fragments, B 64 K lines of DC boxes (MN-major: the
+// transpose bit; a slice is 16 lines, 2048 bytes, on)
+template <int DC>
+__device__ __forceinline__ void acc_hi_lo(float (&d)[32 * DC],
+                                          const uint32_t (&hi)[16],
+                                          const uint32_t (&lo)[16],
+                                          uint32_t b) {
 #pragma unroll
-    for (int np = 0; np < DPAD / 16; ++np) {
-      uint32_t vb[4];   // rows lo | hi for d 16np..+7, then for d +8..+15
-      ldsm_x4_trans(vb, vs + vr + kk * 16 * ST + np * 16);
-      mma_bf16(acc[2 * np], hi, vb[0], vb[1]);
-      mma_bf16(acc[2 * np + 1], hi, vb[2], vb[3]);
-      mma_bf16(acc[2 * np], lo, vb[0], vb[1]);
-      mma_bf16(acc[2 * np + 1], lo, vb[2], vb[3]);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = smem_desc(b + kk * 2048, BOX);
+    if constexpr (DC == 2) {
+      wgmma_rs_n128<1>(d, hi + 4 * kk, db);
+      wgmma_rs_n128<1>(d, lo + 4 * kk, db);
+    } else {
+      wgmma_rs_n64<1>(d, hi + 4 * kk, db);
+      wgmma_rs_n64<1>(d, lo + 4 * kk, db);
     }
   }
 }
 
-// rows g and g + 8 of a warp's 16 x DPAD accumulator, times mul, rounded to
-// bf16 into rows ra / rb of a (.., D) tensor (row < 0: not stored)
-template <int DPAD>
+// s = A1 B1^T and t = A2 B2^T, 64 x 64 each over 64 DC columns: A1 / A2 the
+// warpgroup's 64 rows, B1 / B2 64 rows, each DC boxes (K-major)
+template <int DC>
+__device__ __forceinline__ void two_abt(float (&s)[32], float (&t)[32],
+                                        uint32_t a1, uint32_t b1, uint32_t a2,
+                                        uint32_t b2) {
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t off = c * BOX + kk * 32;
+      const int acc = c > 0 || kk > 0;
+      wgmma_n64<0, 0>(s, smem_desc(a1 + off, 16), smem_desc(b1 + off, 16),
+                      acc);
+      wgmma_n64<0, 0>(t, smem_desc(a2 + off, 16), smem_desc(b2 + off, 16),
+                      acc);
+    }
+}
+
+// rows g and g + 8 (ra, rb; < 0: not stored) of a warpgroup's 64 x 64 DC
+// accumulator, times mul, rounded to bf16 into a (.., D) tensor
+template <int DC>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ out,
-                                           const float (&acc)[DPAD / 8][4],
+                                           const float (&acc)[32 * DC],
                                            long long ra, long long rb, int D,
                                            float mul, int t4) {
 #pragma unroll
-  for (int n = 0; n < DPAD / 8; ++n) {
+  for (int n = 0; n < 8 * DC; ++n) {
     const int col = n * 8 + 2 * t4;
     if (n * 8 >= D) break;
     if (ra >= 0)
       *reinterpret_cast<uint32_t*>(out + ra * D + col) =
-          pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
+          pack_bf16(acc[4 * n] * mul, acc[4 * n + 1] * mul);
     if (rb >= 0)
       *reinterpret_cast<uint32_t*>(out + rb * D + col) =
-          pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
+          pack_bf16(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
   }
 }
 
-template <int DPAD>
-struct RowSmem {   // Q, dO; two stages of K, V
-  static constexpr size_t BYTES = sizeof(bf16) * 6 * (size_t)TC_BK * (DPAD + 8);
+// The Delta and dQ kernels: a CTA owns 128 query rows of one head (its two
+// consumer warpgroups 64 each) with Q and dO resident, and streams the K /
+// V tiles of 64 keys that the rows can see through a ring of STAGES.
+template <int DC>
+struct RowCfg {
+  static constexpr int Q_BYTES = 2 * DC * BOX;   // 128 rows of Q (or dO)
+  static constexpr int KV_BYTES = DC * BOX;      // 64 keys of K (or V)
+  static constexpr int STAGES = DC == 1 ? 4 : 3;
+  static constexpr int STAGE = 2 * KV_BYTES;     // K, then V
+  static constexpr size_t SMEM = 1024 + 2 * (size_t)Q_BYTES +
+                                 (size_t)STAGES * STAGE +
+                                 (2 * STAGES + 1) * sizeof(uint64_t);
 };
 
-// The Delta and dQ kernels' walk: grid (query tiles, Hq, B), TC_THREADS
-// threads.  DQ: dQ = scale dS K from Delta; else Delta = rowsum(P o dP).
-template <int DPAD, bool DQ>
-__device__ __forceinline__ void row_walk(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, float* __restrict__ delta,
-    bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
-    int window, int causal, float scale_log2, float scale) {
-  constexpr int ST = DPAD + 8, TILE = TC_BK * ST;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [TC_BK][ST]
-  bf16* dos = qs + TILE;
-  bf16* ks = dos + TILE;                            // [2][TC_BK][ST]
-  bf16* vs = ks + 2 * TILE;                         // [2][TC_BK][ST]
+// The Delta and dQ kernels' walk: grid (128-row query tiles x Hq x B), one
+// dimension, the longest causal walks first.  DQ: dQ = scale dS K; else
+// Delta = rowsum(P o dP).  tq .. tdo: the kernel's __grid_constant__ maps.
+template <int DC, bool DQ>
+__device__ __forceinline__ void rows_walk(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, const float* __restrict__ lse,
+    float* __restrict__ delta, bf16* __restrict__ dq, int B, int Sq, int Skv,
+    int Hq, int Hkv, int D, int window, int causal, float scale_log2,
+    float scale) {
+  using Cfg = RowCfg<DC>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base, dos = base + Cfg::Q_BYTES;
+  const uint32_t ring = base + 2 * Cfg::Q_BYTES;
+  const uint32_t bars = ring + Cfg::STAGES * Cfg::STAGE;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (Cfg::STAGES + s); };
+  const uint32_t qbar = bars + 16u * Cfg::STAGES;
+  auto ks = [&](int s) { return ring + (uint32_t)(s * Cfg::STAGE); };
+  auto vs = [&](int s) { return ks(s) + Cfg::KV_BYTES; };
 
-  const int G = Hq / Hkv;
-  // the longest causal walks first (without causal all walks are equal)
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BK;
-  const int hq = blockIdx.y, b = blockIdx.z, h = hq / G;
-  const int q_last = min(q0 + TC_BK, Sq) - 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  stage_tile<DPAD, TC_BK>(qs, q, b, Sq, Hq, hq, q0, D);
-  stage_tile<DPAD, TC_BK>(dos, dout, b, Sq, Hq, hq, q0, D);
-
+  const int per = Hq * B, n_qt = (Sq + 127) / 128;
+  const int qt = n_qt - 1 - (int)blockIdx.x / per;
+  const int hq = blockIdx.x % Hq, b = blockIdx.x / Hq % B;
+  const int h = hq / (Hq / Hkv), q0 = qt * 128;
   // the keys that a row of this tile can see
+  const int q_last = min(q0 + 128, Sq) - 1;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_hi = causal ? min(Skv, q_last + 1) : Skv;
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + TC_BK - 1) / TC_BK : 0;
-  auto load_kv = [&](int t) {
-    const int k0 = k_lo + t * TC_BK;
-    stage_tile<DPAD, TC_BK>(ks + (t & 1) * TILE, k, b, Skv, Hkv, h, k0, D);
-    stage_tile<DPAD, TC_BK>(vs + (t & 1) * TILE, v, b, Skv, Hkv, h, k0, D);
-  };
-  if (n_tiles > 0) load_kv(0);
-  cp_async_commit();                                // Q, dO and the first tile
+  const int n_t = k_hi > k_lo ? (k_hi - k_lo + 63) / 64 : 0;
 
-  const int g = lane >> 2, t4 = lane & 3, wr = warp * 16;
-  const int qa = q0 + wr + g, qb = qa + 8;          // the thread's two rows
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::STAGES; ++s) {
+      mbar_init(full(s), 1);    // the producer's expect_tx, then the bytes
+      mbar_init(empty(s), 2);   // one arrival per consumer warpgroup
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {
+    // -- the producer: one thread keeps the ring's loads in flight ----------
+    if (threadIdx.x == 2 * WG) {
+      mbar_expect_tx(qbar, 2 * Cfg::Q_BYTES);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < DC; ++c) {
+          const uint32_t at = (w * DC + c) * BOX;
+          tma_load_4d(qs + at, tq, qbar, 64 * c, hq, q0 + 64 * w, b);
+          tma_load_4d(dos + at, tdo, qbar, 64 * c, hq, q0 + 64 * w, b);
+        }
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % Cfg::STAGES, k0 = k_lo + t * 64;
+        mbar_wait(empty(s), ((t / Cfg::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), Cfg::STAGE);
+        for (int c = 0; c < DC; ++c) {
+          tma_load_4d(ks(s) + c * BOX, tk, full(s), 64 * c, h, k0, b);
+          tma_load_4d(vs(s) + c * BOX, tv, full(s), 64 * c, h, k0, b);
+        }
+      }
+    }
+    return;
+  }
+  // -- two consumers: rows [q0 + 64 wg, q0 + 64 wg + 64) ---------------------
+  const int warp = (threadIdx.x % WG) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = q0 + 64 * wg;
+  const int qa = r0 + 16 * warp + g, qb = qa + 8;   // the thread's two rows
   const size_t ra = ((size_t)b * Sq + qa) * Hq + hq;
   const size_t rb = ((size_t)b * Sq + qb) * Hq + hq;
   const float la = qa < Sq ? lse[ra] * LOG2E : 0.f;
@@ -594,53 +623,57 @@ __device__ __forceinline__ void row_walk(
     da = qa < Sq ? delta[ra] : 0.f;
     db = qb < Sq ? delta[rb] : 0.f;
   }
-  float acc[DQ ? DPAD / 8 : 1][4];                  // dQ
+  float acc[DQ ? 32 * DC : 1];                      // dQ
 #pragma unroll
-  for (int n = 0; n < (DQ ? DPAD / 8 : 1); ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < (DQ ? 32 * DC : 1); ++i) acc[i] = 0.f;
+  const uint32_t qw = qs + wg * DC * BOX, dow = dos + wg * DC * BOX;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = ks + (t & 1) * TILE;
-    const bf16* vt = vs + (t & 1) * TILE;
-    float s[TC_BK / 8][4], dp[TC_BK / 8][4];
-    two_abt<DPAD, TC_BK>(s, dp, qs + wr * ST, kt, dos + wr * ST, vt, lane);
-
-    const int k0 = k_lo + t * TC_BK;
-    const bool full = tile_full<TC_BK, TC_BK>(q0, k0, Sq, Skv, window, causal);
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_t; ++t) {
+    const int s = t % Cfg::STAGES, k0 = k_lo + t * 64;
+    mbar_wait(full(s), (t / Cfg::STAGES) & 1);
+    if (tile_any(r0, k0, Sq, Skv, window, causal)) {
+      float sc[32], dp[32];
+      wg_fence();
+      two_abt<DC>(sc, dp, qw, ks(s), dow, vs(s));   // S = Q K^T, dP = dO V^T
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      const bool all = tile_full(r0, k0, Sq, Skv, window, causal);
 #pragma unroll
-    for (int j = 0; j < TC_BK / 8; ++j) {
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qi = c < 2 ? qa : qb;
-        const int kj = k0 + j * 8 + 2 * t4 + (c & 1);
-        const float p =
-            full || visible(qi, kj, Sq, Skv, window, causal)
-                ? exp2f(fmaf(s[j][c], scale_log2, -(c < 2 ? la : lb)))
-                : 0.f;
-        if constexpr (DQ)
-          s[j][c] = p * (dp[j][c] - (c < 2 ? da : db));
-        else if (c < 2)
-          da += p * dp[j][c];
-        else
-          db += p * dp[j][c];
+        for (int c = 0; c < 4; ++c) {
+          const int qi = c < 2 ? qa : qb, kj = k0 + 8 * j + 2 * t4 + (c & 1);
+          const int i = 4 * j + c;
+          const float p = all || visible(qi, kj, Sq, Skv, window, causal)
+                              ? exp2f(fmaf(sc[i], scale_log2,
+                                           -(c < 2 ? la : lb)))
+                              : 0.f;
+          if constexpr (DQ)
+            sc[i] = p * (dp[i] - (c < 2 ? da : db));
+          else if (c < 2)
+            da += p * dp[i];
+          else
+            db += p * dp[i];
+        }
+      if constexpr (DQ) {      // dQ += dS K, K read MN-major
+        uint32_t hi[16], lo[16];
+        split_frags(sc, hi, lo);
+        wg_fence();
+        acc_hi_lo<DC>(acc, hi, lo, ks(s));
+        wg_commit();
+        wg_wait<0>();
+        fence_acc(acc);
       }
     }
-    if constexpr (DQ) acc_pv<DPAD, TC_BK>(acc, s, kt, lane);
-    __syncthreads();   // this stage is consumed before tile t + 2 lands in it
+    if (threadIdx.x % WG == 0) mbar_arrive(empty(s));   // the stage is free
   }
-  cp_async_wait<0>();
 
   if constexpr (DQ) {
-    store_rows<DPAD>(dq, acc, qa < Sq ? (long long)ra : -1,
-                     qb < Sq ? (long long)rb : -1, D, scale, t4);
+    store_rows<DC>(dq, acc, qa < Sq ? (long long)ra : -1,
+                   qb < Sq ? (long long)rb : -1, D, scale, t4);
   } else {
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {   // the quad shares a row
@@ -654,141 +687,316 @@ __device__ __forceinline__ void row_walk(
   }
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(TC_THREADS)
-fa_bwd_delta_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, float* __restrict__ delta,
-                 int Sq, int Skv, int Hq, int Hkv, int D, int window,
-                 int causal, float scale_log2) {
-  row_walk<DPAD, false>(q, k, v, dout, lse, delta, nullptr, Sq, Skv, Hq, Hkv,
-                        D, window, causal, scale_log2, 0.f);
+// D <= 64: two CTAs an SM (its registers fit 9 warps twice; one CTA
+// measured 1.5x slower at whisper's encoder)
+template <int DC>
+__global__ void __launch_bounds__(FB_THREADS, DC == 1 ? 2 : 1)
+fa_bwd_delta_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                   int window, int causal, float scale_log2) {
+  rows_walk<DC, false>(&tq, &tk, &tv, &tdo, lse, delta, nullptr, B, Sq, Skv,
+                       Hq, Hkv, D, window, causal, scale_log2, 0.f);
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(TC_THREADS)
-fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
-              int window, int causal, float scale_log2, float scale) {
-  row_walk<DPAD, true>(q, k, v, dout, lse, const_cast<float*>(delta), dq, Sq,
-                       Skv, Hq, Hkv, D, window, causal, scale_log2, scale);
+template <int DC>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                int B, int Sq, int Skv, int Hq, int Hkv, int D, int window,
+                int causal, float scale_log2, float scale) {
+  rows_walk<DC, true>(&tq, &tk, &tv, &tdo, lse, const_cast<float*>(delta),
+                      dq, B, Sq, Skv, Hq, Hkv, D, window, causal, scale_log2,
+                      scale);
 }
 
-template <int DPAD>
-struct KvSmem {    // K, V; two stages of Q, dO and of the rows' LSE, Delta
-  static constexpr size_t BYTES =
-      sizeof(bf16) * (2 * (size_t)TC_BK + 4 * (size_t)TC_BQ) * (DPAD + 8) +
-      sizeof(float) * 4 * TC_BQ;
+// bar.sync / bar.arrive on named barrier `id` (1-15; 0 is __syncthreads')
+// among `count` threads, the id chosen at run time
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The dK / dV kernel: a CTA owns 64 keys of one kv head with K and V
+// resident, and streams the (query head, 64-row query tile) pairs of the
+// group that can see them, with their LSE and Delta, through a ring of
+// STAGES.  D > 64 (SPLIT): warpgroup 0 computes S^T and P^T and sums dV,
+// warpgroup 1 dP^T and dS^T (P^T handed over through shared memory) and
+// sums dK.  D <= 64: pair i goes to warpgroup i % 2, which computes all of
+// it into its own dK and dV, and the two sums are added at the end.
+template <int DC>
+struct KvCfg {
+  // D > 64: the warpgroups split the products (dK and dV in one would not
+  // fit its registers); D <= 64: they split the pairs
+  static constexpr bool SPLIT = DC == 2;
+  static constexpr int KV_BYTES = DC * BOX;          // 64 keys of K (or V)
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE = 2 * DC * BOX + FB_STATS;   // Q, dO, stats
+  static constexpr int P_BYTES = SPLIT ? 64 * 64 * 4 : 0;   // a P^T, f32
+  static constexpr size_t SMEM = 1024 + 2 * (size_t)KV_BYTES +
+                                 (size_t)STAGES * STAGE + 2 * P_BYTES +
+                                 (2 * STAGES + 1) * sizeof(uint64_t);
+  // the pair split's f32 dK and dV of warpgroup 1, staged in the freed ring
+  static_assert(SPLIT || 2 * 64 * 64 * DC * 4 <= STAGES * STAGE, "ring");
 };
 
-// grid (kv tiles x Hkv x B), one dimension, in the balance rule's order;
-// slots: the SMs of the card
-template <int DPAD>
-__global__ void __launch_bounds__(TC_THREADS)
-fa_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int Sq,
-                int Skv, int Hq, int Hkv, int D, int window, int causal,
-                int slots, float scale_log2, float scale) {
-  constexpr int ST = DPAD + 8, KT = TC_BK * ST, QT = TC_BQ * ST;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [TC_BK][ST]
-  bf16* vs = ks + KT;
-  bf16* qs = vs + KT;                               // [2][TC_BQ][ST]
-  bf16* dos = qs + 2 * QT;                          // [2][TC_BQ][ST]
-  // [2][LSE, Delta][TC_BQ]
-  float* stats = reinterpret_cast<float*>(dos + 2 * QT);
+// grid: (64-key tiles x Hkv x B), one dimension, the longest causal walks
+// (key tile 0) first
+template <int DC>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int B, int Sq, int Skv, int Hq,
+                  int Hkv, int D, int window, int causal, float scale_log2,
+                  float scale) {
+  using Cfg = KvCfg<DC>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t kbase = base, vbase = base + Cfg::KV_BYTES;
+  const uint32_t ring = base + 2 * Cfg::KV_BYTES;
+  const uint32_t pbase = ring + Cfg::STAGES * Cfg::STAGE;   // two P^T tiles
+  const uint32_t bars = pbase + 2 * Cfg::P_BYTES;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (Cfg::STAGES + s); };
+  const uint32_t kvbar = bars + 16u * Cfg::STAGES;
+  auto qst = [&](int s) { return ring + (uint32_t)(s * Cfg::STAGE); };
+  auto dost = [&](int s) { return qst(s) + DC * BOX; };
+  auto stats = [&](int s) {    // LSE log2(e), then Delta, of the tile's rows
+    return reinterpret_cast<float*>(gbase + (qst(s) - base) + 2 * DC * BOX);
+  };
 
-  // block i < slots takes the i-th longest walk, block slots + j the j-th
-  // shortest (kv tile 0 is the longest when causal)
-  const int n = gridDim.x, L = blockIdx.x;
-  const int r = L < slots ? L : n - 1 - (L - slots);
-  const int tile = r / (Hkv * B), h = r % Hkv, b = r / Hkv % B;
-  const int k0 = tile * TC_BK;
-  const int k_last = min(k0 + TC_BK, Skv) - 1;
+  const int per = Hkv * B;
+  const int h = blockIdx.x % Hkv, b = blockIdx.x / Hkv % B;
+  const int k0 = (int)(blockIdx.x / per) * 64;
   const int G = Hq / Hkv;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  stage_tile<DPAD, TC_BK>(ks, k, b, Skv, Hkv, h, k0, D);
-  stage_tile<DPAD, TC_BK>(vs, v, b, Skv, Hkv, h, k0, D);
-
   // the query rows that can see a key of this tile, for each query head
+  const int k_last = min(k0 + 64, Skv) - 1;
   const int q_lo = causal ? k0 : 0;
   const int q_hi = window > 0 ? min(Sq, k_last + window) : Sq;
-  const int n_q = q_hi > q_lo ? (q_hi - q_lo + TC_BQ - 1) / TC_BQ : 0;
+  const int n_q = q_hi > q_lo ? (q_hi - q_lo + 63) / 64 : 0;
   const int n_it = G * n_q;
-  auto load_q = [&](int i) {
-    const int hq = h * G + i / n_q, q0 = q_lo + (i % n_q) * TC_BQ;
-    stage_tile<DPAD, TC_BQ>(qs + (i & 1) * QT, q, b, Sq, Hq, hq, q0, D);
-    stage_tile<DPAD, TC_BQ>(dos + (i & 1) * QT, dout, b, Sq, Hq, hq, q0, D);
-    float* st = stats + (i & 1) * 2 * TC_BQ;
-    for (int j = threadIdx.x; j < TC_BQ; j += TC_THREADS) {
-      const int qi = q0 + j;
-      const size_t row = qi < Sq ? ((size_t)b * Sq + qi) * Hq + hq : 0;
-      cp_async4(st + j, lse + row, qi < Sq);
-      cp_async4(st + TC_BQ + j, delta + row, qi < Sq);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::STAGES; ++s) {
+      mbar_init(full(s), 32);   // the producer warp's lanes (one expect_tx)
+      mbar_init(empty(s), Cfg::SPLIT ? 2 : 1);   // the consuming warpgroups
     }
-  };
-  if (n_it > 0) load_q(0);
-  cp_async_commit();                                // K, V and the first tile
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int g = lane >> 2, t4 = lane & 3, wr = warp * 16;
-  const int ka = k0 + wr + g, kb = ka + 8;          // the thread's two keys
-  float acc_k[DPAD / 8][4], acc_v[DPAD / 8][4];
-#pragma unroll
-  for (int n8 = 0; n8 < DPAD / 8; ++n8)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[n8][c] = acc_v[n8][c] = 0.f;
-
-  for (int i = 0; i < n_it; ++i) {
-    if (i + 1 < n_it) {
-      load_q(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qt = qs + (i & 1) * QT;
-    const bf16* dot = dos + (i & 1) * QT;
-    const float* ls = stats + (i & 1) * 2 * TC_BQ;
-    const float* dls = ls + TC_BQ;
-    const int q0 = q_lo + (i % n_q) * TC_BQ;
-    // s = S^T, t = dP^T: 16 keys x TC_BQ queries a warp
-    float s[TC_BQ / 8][4], t[TC_BQ / 8][4];
-    two_abt<DPAD, TC_BQ>(s, t, ks + wr * ST, qt, vs + wr * ST, dot, lane);
-
-    const bool full = tile_full<TC_BQ, TC_BK>(q0, k0, Sq, Skv, window, causal);
-#pragma unroll
-    for (int j = 0; j < TC_BQ / 8; ++j) {
-      const int col = j * 8 + 2 * t4;
-      const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
-      const float2 d2 = *reinterpret_cast<const float2*>(dls + col);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = c < 2 ? ka : kb, qi = q0 + col + (c & 1);
-        const float lv = (c & 1) ? l2.y : l2.x;
-        const float dl = (c & 1) ? d2.y : d2.x;
-        const float p = full || visible(qi, kj, Sq, Skv, window, causal)
-                            ? exp2f(fmaf(s[j][c], scale_log2, -lv * LOG2E))
-                            : 0.f;
-        s[j][c] = p;
-        t[j][c] = p * (t[j][c] - dl);
+  const int wg = threadIdx.x / WG;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // -- the producer warp: TMA for the tiles, its lanes for the stats -------
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * Cfg::KV_BYTES);
+      for (int c = 0; c < DC; ++c) {
+        tma_load_4d(kbase + c * BOX, &tk, kvbar, 64 * c, h, k0, b);
+        tma_load_4d(vbase + c * BOX, &tv, kvbar, 64 * c, h, k0, b);
       }
     }
-    acc_pv<DPAD, TC_BQ>(acc_v, s, dot, lane);   // dV += P^T dO
-    acc_pv<DPAD, TC_BQ>(acc_k, t, qt, lane);    // dK += dS^T Q
-    __syncthreads();   // this stage is consumed before tile i + 2 lands in it
+    for (int i = 0; i < n_it; ++i) {
+      const int s = i % Cfg::STAGES;
+      const int hq = h * G + i / n_q, q0 = q_lo + (i % n_q) * 64;
+      mbar_wait(empty(s), ((i / Cfg::STAGES) & 1) ^ 1);
+      float* st = stats(s);
+      for (int j = lane; j < 64; j += 32) {
+        const int qi = q0 + j;
+        const size_t row = ((size_t)b * Sq + qi) * Hq + hq;
+        st[j] = qi < Sq ? lse[row] * LOG2E : 0.f;
+        st[64 + j] = qi < Sq ? delta[row] : 0.f;
+      }
+      if (lane == 0) {       // after its own stats, as the others
+        mbar_expect_tx(full(s), 2 * DC * BOX);
+        for (int c = 0; c < DC; ++c) {
+          tma_load_4d(qst(s) + c * BOX, &tq, full(s), 64 * c, hq, q0, b);
+          tma_load_4d(dost(s) + c * BOX, &tdo, full(s), 64 * c, hq, q0, b);
+        }
+      } else {
+        mbar_arrive(full(s));
+      }
+    }
+    return;
   }
-  cp_async_wait<0>();
+  // -- two consumers over the tile's 64 keys -------------------------------
+  const int warp = (threadIdx.x % WG) / 32, g = lane / 4, t4 = lane % 4;
+  const int tid = threadIdx.x % WG;
+  const int ka = k0 + 16 * warp + g, kb = ka + 8;   // the thread's two keys
+  if constexpr (!Cfg::SPLIT) {
+    // -- two consumers, pair i to warpgroup i % 2, each summing dK and dV --
+    float acc_k[32 * DC], acc_v[32 * DC];
+#pragma unroll
+    for (int i = 0; i < 32 * DC; ++i) acc_k[i] = acc_v[i] = 0.f;
+    mbar_wait(kvbar, 0);
+    for (int i = wg; i < n_it; i += 2) {
+      const int s = i % Cfg::STAGES, q0 = q_lo + (i % n_q) * 64;
+      mbar_wait(full(s), (i / Cfg::STAGES) & 1);
+      // S^T = K Q^T, dP^T = V dO^T: 64 keys x 64 queries
+      float sc[32], dp[32];
+      wg_fence();
+      two_abt<DC>(sc, dp, kbase, qst(s), vbase, dost(s));
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      const float* ls = stats(s);
+      const bool all = tile_full(q0, k0, Sq, Skv, window, causal);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(ls + 64 + col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kj = c < 2 ? ka : kb, qi = q0 + col + (c & 1);
+          const int e = 4 * j + c;
+          const float p = all || visible(qi, kj, Sq, Skv, window, causal)
+                              ? exp2f(fmaf(sc[e], scale_log2,
+                                           -((c & 1) ? l2.y : l2.x)))
+                              : 0.f;
+          sc[e] = p;
+          dp[e] = p * (dp[e] - ((c & 1) ? d2.y : d2.x));
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q: dO and Q read MN-major from the tiles
+      uint32_t p_hi[16], p_lo[16], s_hi[16], s_lo[16];
+      split_frags(sc, p_hi, p_lo);
+      split_frags(dp, s_hi, s_lo);
+      wg_fence();
+      acc_hi_lo<DC>(acc_v, p_hi, p_lo, dost(s));
+      acc_hi_lo<DC>(acc_k, s_hi, s_lo, qst(s));
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(acc_v);
+      fence_acc(acc_k);
+      if (tid == 0) mbar_arrive(empty(s));   // the stage is free
+    }
+    // the two sums in a fixed order, warpgroup 0's + 1's: 1 stages its f32
+    // fragments in the freed ring (both are past their last product),
+    // thread by thread, and 0 adds them
+    float* part = reinterpret_cast<float*>(gbase + (ring - base));
+    named_sync<1, 2 * WG>();
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 32 * DC; ++i) {
+        part[i * WG + tid] = acc_k[i];
+        part[(32 * DC + i) * WG + tid] = acc_v[i];
+      }
+    }
+    named_sync<1, 2 * WG>();
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 32 * DC; ++i) {
+        acc_k[i] += part[i * WG + tid];
+        acc_v[i] += part[(32 * DC + i) * WG + tid];
+      }
+      const long long row0 = (long long)b * Skv * Hkv + h;
+      const long long ra = ka < Skv ? row0 + (long long)ka * Hkv : -1;
+      const long long rb = kb < Skv ? row0 + (long long)kb * Hkv : -1;
+      store_rows<DC>(dk, acc_k, ra, rb, D, scale, t4);
+      store_rows<DC>(dv, acc_v, ra, rb, D, 1.f, t4);
+    }
+  } else {
+    // -- warpgroup 0 sums dV, 1 sums dK ---------------------------------------
+    float acc[32 * DC];                               // dV (0) or dK (1)
+#pragma unroll
+    for (int i = 0; i < 32 * DC; ++i) acc[i] = 0.f;
 
-  const long long base = (long long)b * Skv * Hkv + h;
-  const long long ra = ka < Skv ? base + (long long)ka * Hkv : -1;
-  const long long rb = kb < Skv ? base + (long long)kb * Hkv : -1;
-  store_rows<DPAD>(dk, acc_k, ra, rb, D, scale, t4);
-  store_rows<DPAD>(dv, acc_v, ra, rb, D, 1.f, t4);
+    mbar_wait(kvbar, 0);
+    for (int i = 0; i < n_it; ++i) {
+      const int s = i % Cfg::STAGES, q0 = q_lo + (i % n_q) * 64, buf = i & 1;
+      float* pt = reinterpret_cast<float*>(gbase + (pbase - base)) +
+                  buf * 64 * 64;
+      mbar_wait(full(s), (i / Cfg::STAGES) & 1);
+      const float* st = stats(s);
+      // 0: S^T = K Q^T; 1: dP^T = V dO^T (64 keys x 64 queries)
+      float x[32];
+      const uint32_t a_op = wg == 0 ? kbase : vbase;
+      const uint32_t b_op = wg == 0 ? qst(s) : dost(s);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t off = c * BOX + kk * 32;
+          wgmma_n64<0, 0>(x, smem_desc(a_op + off, 16),
+                          smem_desc(b_op + off, 16), c > 0 || kk > 0);
+        }
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(x);
+      if (wg == 0) {
+        // P^T, handed to warpgroup 1 once it has read the tile two back
+        const bool all = tile_full(q0, k0, Sq, Skv, window, causal);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * t4;
+          const float2 l2 = *reinterpret_cast<const float2*>(st + col);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int kj = c < 2 ? ka : kb, qi = q0 + col + (c & 1);
+            const int e = 4 * j + c;
+            x[e] = all || visible(qi, kj, Sq, Skv, window, causal)
+                       ? exp2f(fmaf(x[e], scale_log2,
+                                    -((c & 1) ? l2.y : l2.x)))
+                       : 0.f;
+          }
+        }
+        if (i >= 2) bar_sync(4 + buf, 2 * WG);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) pt[e * WG + tid] = x[e];
+        bar_arrive(2 + buf, 2 * WG);
+      } else {
+        // dS^T = P^T o (dP^T - Delta)
+        bar_sync(2 + buf, 2 * WG);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(st + 64 + 8 * j + 2 * t4);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int e = 4 * j + c;
+            x[e] = pt[e * WG + tid] * (x[e] - ((c & 1) ? d2.y : d2.x));
+          }
+        }
+        if (i + 2 < n_it) bar_arrive(4 + buf, 2 * WG);
+      }
+      // dV += P^T dO (0), dK += dS^T Q (1): dO and Q read MN-major from the
+      // same tiles
+      uint32_t hi[16], lo[16];
+      split_frags(x, hi, lo);
+      wg_fence();
+      acc_hi_lo<DC>(acc, hi, lo, wg == 0 ? dost(s) : qst(s));
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(acc);
+      if (tid == 0) mbar_arrive(empty(s));   // the stage is free
+    }
+
+    const long long row0 = (long long)b * Skv * Hkv + h;
+    const long long ra = ka < Skv ? row0 + (long long)ka * Hkv : -1;
+    const long long rb = kb < Skv ? row0 + (long long)kb * Hkv : -1;
+    if (wg == 0)
+      store_rows<DC>(dv, acc, ra, rb, D, 1.f, t4);
+    else
+      store_rows<DC>(dk, acc, ra, rb, D, scale, t4);
+  }
 }
 
 // above 48 KB of dynamic shared memory needs an opt-in, once per kernel
@@ -853,59 +1061,97 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DPAD>
-int launch_delta_mma(const void* q, const void* k, const void* v,
-                     const void* dout, const float* lse, float* delta, int B,
-                     int Sq, int Skv, int Hq, int Hkv, int D, int window,
-                     int causal, cudaStream_t s) {
-  constexpr size_t smem = RowSmem<DPAD>::BYTES;
-  static bool smem_set = false;
-  if (int e = allow_smem(fa_bwd_delta_mma<DPAD>, smem, smem_set)) return e;
-  dim3 grid((Sq + TC_BK - 1) / TC_BK, Hq, B);
-  fa_bwd_delta_mma<DPAD><<<grid, TC_THREADS, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      Sq, Skv, Hq, Hkv, D, window, causal, LOG2E / sqrtf((float)D));
-  return static_cast<int>(cudaGetLastError());
+// the map of a (B, S, H, D) bf16 tensor as (D, H, S, B), boxes of 64
+// columns x 1 head x 64 rows x 1 batch, 128-byte swizzle; columns past D
+// and rows past S read as zeros
+bool encode_bshd(CUtensorMap* map, const void* p, int B, int S, int H,
+                 int D) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * sizeof(bf16),
+                                 (cuuint64_t)H * D * sizeof(bf16),
+                                 (cuuint64_t)S * H * D * sizeof(bf16)};
+  const cuuint32_t box[4] = {64u, 1u, 64u, 1u};
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DPAD>
-int launch_dq_mma(const void* q, const void* k, const void* v,
-                  const void* dout, const float* lse, const float* delta,
-                  void* dq, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                  int window, int causal, cudaStream_t s) {
-  constexpr size_t smem = RowSmem<DPAD>::BYTES;
-  static bool smem_set = false;
-  if (int e = allow_smem(fa_bwd_dq_mma<DPAD>, smem, smem_set)) return e;
-  dim3 grid((Sq + TC_BK - 1) / TC_BK, Hq, B);
-  fa_bwd_dq_mma<DPAD><<<grid, TC_THREADS, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, D, window, causal,
-      LOG2E / sqrtf((float)D), 1.f / sqrtf((float)D));
-  return static_cast<int>(cudaGetLastError());
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+bool encode_maps(Maps& m, const void* q, const void* k, const void* v,
+                 const void* dout, int B, int Sq, int Skv, int Hq, int Hkv,
+                 int D) {
+  return encode_bshd(&m.q, q, B, Sq, Hq, D) &&
+         encode_bshd(&m.k, k, B, Skv, Hkv, D) &&
+         encode_bshd(&m.v, v, B, Skv, Hkv, D) &&
+         encode_bshd(&m.dout, dout, B, Sq, Hq, D);
 }
 
-template <int DPAD>
-int launch_dkdv_mma(const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* delta,
-                    void* dk, void* dv, int B, int Sq, int Skv, int Hq,
-                    int Hkv, int D, int window, int causal, cudaStream_t s) {
-  constexpr size_t smem = KvSmem<DPAD>::BYTES;
+// Delta on the warpgroup route
+template <int DC>
+int launch_delta_wgmma(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, float* delta,
+                       int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                       int window, int causal, cudaStream_t s) {
+  constexpr size_t smem = RowCfg<DC>::SMEM;
+  Maps m;
+  if (!encode_maps(m, q, k, v, dout, B, Sq, Skv, Hq, Hkv, D))
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool smem_set = false;
-  if (int e = allow_smem(fa_bwd_dkdv_mma<DPAD>, smem, smem_set)) return e;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long n = (long long)((Skv + TC_BK - 1) / TC_BK) * Hkv * B;
+  if (int e = allow_smem(fa_bwd_delta_wgmma<DC>, smem, smem_set)) return e;
+  const long long n = (long long)((Sq + 127) / 128) * Hq * B;
   if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  fa_bwd_dkdv_mma<DPAD><<<(unsigned)n, TC_THREADS, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Skv, Hq, Hkv, D,
-      window, causal, sms, LOG2E / sqrtf((float)D), 1.f / sqrtf((float)D));
+  fa_bwd_delta_wgmma<DC><<<(unsigned)n, FB_THREADS, smem, s>>>(
+      m.q, m.k, m.v, m.dout, lse, delta, B, Sq, Skv, Hq, Hkv, D, window,
+      causal, LOG2E / sqrtf((float)D));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dQ on the warpgroup route
+template <int DC>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                    int window, int causal, cudaStream_t s) {
+  constexpr size_t smem = RowCfg<DC>::SMEM;
+  Maps m;
+  if (!encode_maps(m, q, k, v, dout, B, Sq, Skv, Hq, Hkv, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  if (int e = allow_smem(fa_bwd_dq_wgmma<DC>, smem, smem_set)) return e;
+  const long long n = (long long)((Sq + 127) / 128) * Hq * B;
+  if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  fa_bwd_dq_wgmma<DC><<<(unsigned)n, FB_THREADS, smem, s>>>(
+      m.q, m.k, m.v, m.dout, lse, delta, static_cast<bf16*>(dq), B, Sq, Skv,
+      Hq, Hkv, D, window, causal, LOG2E / sqrtf((float)D),
+      1.f / sqrtf((float)D));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DC>
+int launch_dkdv_wgmma(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dk, void* dv, int B, int Sq, int Skv, int Hq,
+                      int Hkv, int D, int window, int causal, cudaStream_t s) {
+  constexpr size_t smem = KvCfg<DC>::SMEM;
+  Maps m;
+  if (!encode_maps(m, q, k, v, dout, B, Sq, Skv, Hq, Hkv, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  if (int e = allow_smem(fa_bwd_dkdv_wgmma<DC>, smem, smem_set)) return e;
+  const long long n = (long long)((Skv + 63) / 64) * Hkv * B;
+  if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  fa_bwd_dkdv_wgmma<DC><<<(unsigned)n, FB_THREADS, smem, s>>>(
+      m.q, m.k, m.v, m.dout, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, Sq, Skv, Hq, Hkv, D, window, causal,
+      LOG2E / sqrtf((float)D), 1.f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -944,10 +1190,8 @@ extern "C" int fa_bwd_delta_launch(const void* q, const void* k,
     if (D <= 64) FA_DELTA(launch_delta, 4);
     FA_DELTA(launch_delta, 8);
   }
-  if (D <= 32) FA_DELTA(launch_delta_mma, 32);
-  if (D <= 64) FA_DELTA(launch_delta_mma, 64);
-  if (D <= 96) FA_DELTA(launch_delta_mma, 96);
-  FA_DELTA(launch_delta_mma, 128);
+  if (D <= 64) FA_DELTA(launch_delta_wgmma, 1);
+  FA_DELTA(launch_delta_wgmma, 2);
 #undef FA_DELTA
 }
 
@@ -972,10 +1216,8 @@ extern "C" int fa_bwd_dkdv_launch(const void* q, const void* k, const void* v,
     if (D <= 64) FA_DKDV(launch_dkdv, 4);
     FA_DKDV(launch_dkdv, 8);
   }
-  if (D <= 32) FA_DKDV(launch_dkdv_mma, 32);
-  if (D <= 64) FA_DKDV(launch_dkdv_mma, 64);
-  if (D <= 96) FA_DKDV(launch_dkdv_mma, 96);
-  FA_DKDV(launch_dkdv_mma, 128);
+  if (D <= 64) FA_DKDV(launch_dkdv_wgmma, 1);
+  FA_DKDV(launch_dkdv_wgmma, 2);
 #undef FA_DKDV
 }
 
@@ -998,9 +1240,7 @@ extern "C" int fa_bwd_dq_launch(const void* q, const void* k, const void* v,
     if (D <= 64) FA_DQ(launch_dq, 4);
     FA_DQ(launch_dq, 8);
   }
-  if (D <= 32) FA_DQ(launch_dq_mma, 32);
-  if (D <= 64) FA_DQ(launch_dq_mma, 64);
-  if (D <= 96) FA_DQ(launch_dq_mma, 96);
-  FA_DQ(launch_dq_mma, 128);
+  if (D <= 64) FA_DQ(launch_dq_wgmma, 1);
+  FA_DQ(launch_dq_wgmma, 2);
 #undef FA_DQ
 }

@@ -15,8 +15,9 @@ chunks of a row).
 Training: ``lse=True`` also returns each row's log-sum-exp (B, Sq, Hq) f32,
 and ``flash_attention_bwd_cuda`` launches the three backward kernels of
 ``kernels/csrc/flash_attention_bwd.cu`` (Delta = rowsum(P dP), dK / dV,
-dQ) under the same limits: bf16 on the tensor cores (``mma.sync``), f32 on
-the CUDA cores.
+dQ) under the same limits, on the route ``bwd_route`` names: bf16 on the
+warpgroup tensor cores (``wgmma``, operands read by TMA: every bf16 shape
+the limits admit), f32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ BWD_SIGNATURES = {"fa_bwd_delta_launch": [_P] * 6 + [_I] * 9 + [_P],
                   "fa_bwd_dkdv_launch": [_P] * 8 + [_I] * 9 + [_P],
                   "fa_bwd_dq_launch": [_P] * 7 + [_I] * 9 + [_P]}
 BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")
+BWD_ROUTES = ("wgmma", "cuda_cores")
 MAX_D = 128
 MAX_GROUP = 16
 
@@ -62,6 +64,13 @@ def _check_aligned(*tensors):
                                                   for t in tensors):
         raise ValueError("flash_attention: the bf16 kernel takes 16-byte "
                          "aligned operands")
+
+
+def bwd_route(q) -> str:
+    """The backward kernels' route for q's dtype: ``wgmma`` for bf16 (the
+    three kernels on the warpgroup tensor cores), ``cuda_cores`` for f32
+    (TF32 would break the f32 tolerance)."""
+    return "wgmma" if q.dtype == torch.bfloat16 else "cuda_cores"
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,

@@ -7,8 +7,10 @@ it (training), the call goes through ``FlashAttention``, an autograd
 Function: its forward is ``flash_attention_lse`` (the same kernel, also
 writing each row's log-sum-exp; one launch, counted as above) and its
 backward ``flash_attention_backward`` (the three backward kernels; each
-launch adds one to its count in ``flash_attention_backward.kernels`` and
-each call one to ``flash_attention_backward.launches``).  On a CPU tensor
+launch adds one to its count in ``flash_attention_backward.kernels``, each
+call one to ``flash_attention_backward.launches`` and one to its route's
+in ``flash_attention_backward.routes``: ``wgmma`` for bf16, ``cuda_cores``
+for f32).  On a CPU tensor
 both take their plain versions.  There is no fallback: any other device,
 or a tensor the kernels do not take, raises.
 """
@@ -17,8 +19,8 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .flash_attention import (BWD_KERNELS, flash_attention_bwd_cuda,
-                              flash_attention_cuda)
+from .flash_attention import (BWD_KERNELS, BWD_ROUTES, bwd_route,
+                              flash_attention_bwd_cuda, flash_attention_cuda)
 
 
 def _device(q) -> str:
@@ -64,12 +66,14 @@ def flash_attention_backward(q, k, v, lse, do, *, causal: bool = True,
     out = flash_attention_bwd_cuda(q, k, v, lse, do, causal=causal,
                                    window=window)
     flash_attention_backward.launches += 1
+    flash_attention_backward.routes[bwd_route(q)] += 1
     for name in BWD_KERNELS:
         flash_attention_backward.kernels[name] += 1
     return out
 
 
 flash_attention_backward.launches = 0                      # calls
+flash_attention_backward.routes = dict.fromkeys(BWD_ROUTES, 0)   # calls
 flash_attention_backward.kernels = dict.fromkeys(BWD_KERNELS, 0)
 
 

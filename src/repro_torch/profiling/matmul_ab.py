@@ -26,9 +26,15 @@ MB L2, as on the serving path where each layer's weights are read once a
 step.  Both versions are held against the plain version (3e-2 bf16, 2e-4
 fp32), compared with each other bit for bit (``bitwise``; expected where
 both run the same kernel, not across a route change) and timed with CUDA
-events in the order other, this, this, other.  Prints one line per shape,
-the decode step's 197-call and the prefill wave's 196-call totals, and
-one JSON line.  A card is required; without one it raises.
+events in the order other, this, this, other.  Where OTHER has the
+warpgroup route too (``matmul_wgmma.cu``'s ``mm_wgmma_run``), it is
+compiled beside it and qwen2-7b's four training products at a
+microbatch's 4096 rows (``WGMMA``) are run on both, each as ``MatMul``
+issues it: the forward, dA = dC B^T and dB = A^T dC with the transposes
+as views, by this checkout's plan; held, compared bit for bit and timed
+the same way.  Prints one line per shape, the decode step's 197-call and
+the prefill wave's 196-call totals, and one JSON line.  A card is
+required; without one it raises.
 """
 from __future__ import annotations
 
@@ -54,6 +60,9 @@ STAGED = (("hymba-1.5b", "in_proj", None, 3257, (SLOTS, SLOTS * 160, 4096)),
           ("hymba-1.5b", "head", None, None, (SLOTS, 248)),
           ("internvl2-26b", "head", None, None, (SLOTS, 256)),
           ("whisper-base", "head", None, None, (SLOTS, 4096)))
+# qwen2-7b's training products (K, N) at a microbatch's rows
+WGMMA = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+WGMMA_ROWS = 4096
 ITERS = 20
 L2_SPAN = 256e6              # bytes of weight buffers a shape cycles over
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -108,6 +117,88 @@ def _other_lib(root: Path):
     sys.modules[spec.name] = plan       # dataclasses look their module up
     spec.loader.exec_module(plan)
     return lib, plan
+
+
+def _other_wgmma(root: Path):
+    """OTHER's matmul_wgmma.cu compiled, or None where it has none."""
+    src = (root / "src" / "repro_torch" / "kernels" / "csrc"
+           / "matmul_wgmma.cu")
+    if not src.exists() or "mm_wgmma_run(" not in src.read_text():
+        return None
+    out = _build.BUILD_DIR / "ab" / "libmatmul_wgmma-other.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for OTHER's matmul_wgmma.cu:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    for fn, argtypes in mm_k.WG_SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _run_other_wgmma(lib, a, b, p):
+    """``a @ b`` by plan ``p`` through OTHER's ``mm_wgmma_run``, with the
+    arguments this checkout's wrapper passes."""
+    M, K = a.shape
+    N = b.shape[1]
+    ta, tb = mm_k._tma(a), mm_k._tma(b)
+    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    ws = torch.empty(mm_k.mm_plan.workspace_shape(p, M, N),
+                     dtype=torch.float32, device=a.device)
+    err = lib.mm_wgmma_run(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                           ws.data_ptr() if p.splits > 1 else None, M, N, K,
+                           ta[1], tb[1], int(ta[0]), int(not tb[0]), p.bn,
+                           p.splits, p.rows, _build.stream_of(a))
+    _build.check(lib, err, "other mm_wgmma_run")
+    return c
+
+
+def _wgmma_cases(lib, g, dev) -> dict:
+    """Each training product's forward, dA and dB on OTHER's and this
+    checkout's warpgroup kernel: held, bit for bit, timed in turns."""
+    out = {}
+    for K, N in WGMMA:
+        M = WGMMA_ROWS
+        a = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=g, device=dev)
+             / math.sqrt(K)).to(torch.bfloat16)
+        dc = torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
+        for what, x, y in (("forward", a, w), ("dA", dc, w.t()),
+                           ("dB", a.t(), dc)):
+            p = mm_k.plan_for(x, y)
+            if p.route != "wgmma":
+                raise SystemExit(f"{what} {M}x{K}x{N}: plan {p}, not wgmma")
+            want = mm_ref.matmul(x, y).float()
+            outs = {"other": _run_other_wgmma(lib, x, y, p),
+                    "this": mm_k.launch(x, y, p)}
+            torch.cuda.synchronize()
+            for who, got in outs.items():
+                err = (got.float() - want).abs()
+                if not torch.isfinite(got.float()).all() or bool(
+                        (err > 3e-2 + 3e-2 * want.abs()).any()):
+                    raise SystemExit(f"{who} wgmma disagrees with the plain "
+                                     f"version at {what} {M}x{K}x{N}")
+            runs = {"other": lambda i: _run_other_wgmma(lib, x, y, p),
+                    "this": lambda i: mm_k.launch(x, y, p)}
+            turns = [(who, _time_ms(runs[who], 1))
+                     for who in ("other", "this", "this", "other")]
+            r = {who: [t for k, t in turns if k == who] for who in runs}
+            r.update(bitwise=torch.equal(outs["other"], outs["this"]),
+                     plan=str(p))
+            name = f"wgmma {what} {M}x{K}x{N} bf16"
+            out[name] = r
+            print(f"{name} ({r['plan']}): other ms {r['other'][0]:.4f} / "
+                  f"{r['other'][1]:.4f}, this ms {r['this'][0]:.4f} / "
+                  f"{r['this'][1]:.4f}; outputs bit for bit: {r['bitwise']}",
+                  flush=True)
+            del want, outs
+        del a, w, dc
+        torch.cuda.empty_cache()
+    return out
 
 
 def _run_other(lib, plan, a, b):
@@ -211,6 +302,9 @@ def main(argv=None) -> None:
               f"{r['this'][1]:.4f}; outputs bit for bit: {r['bitwise']}",
               flush=True)
         del a, bs
+    wg_lib = _other_wgmma(Path(args[0]))
+    if wg_lib is not None:
+        results.update(_wgmma_cases(wg_lib, g, dev))
     for tag in ("decode", "prefill"):
         n = sum(c for t, *_, c in _shapes() if t == tag)
         print(f"{tag} total ({n} calls): other ms "

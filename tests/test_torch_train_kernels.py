@@ -251,39 +251,84 @@ def _one_bf16(x):
     return x.bfloat16().float()
 
 
+def _ordered_sum(parts):
+    """f32 sum of ``parts`` (a sequence of tensors), added one by one in
+    order: an accumulator's walk."""
+    acc = torch.zeros_like(parts[0])
+    for x in parts:
+        acc = acc + x
+    return acc
+
+
 def _emulated_bf16_backward(q, k, v, do, lse, *, causal=True, delta=None,
-                            rounding=_hi_lo, rows=1024):
+                            rounding=_hi_lo):
     """The bf16 backward kernels' arithmetic (``flash_attention_bwd.cu``,
-    the ``*_mma`` kernels) in plain torch, on bf16 inputs: S and dP in f32
-    from the bf16 operands, P = exp(scale S - LSE) (masked entries 0), Delta
-    = rowsum(P o dP) in f32 (or ``delta`` (B, Hkv, G, Sq) given), dS = P o
-    (dP - Delta); P taken through ``rounding`` before dV = P^T dO, dS before
-    dK = scale dS^T Q and dQ = scale dS K, f32 sums, each output rounded to
-    bf16.  ``rows`` query rows at a time."""
+    the ``*_wgmma`` kernels) in plain torch on bf16 inputs, in their walks'
+    order: S and dP in f32 from the bf16 operands, P = exp(scale S - LSE)
+    (masked entries 0), dS = P o (dP - Delta); P taken through ``rounding``
+    before dV = P^T dO, dS before dK = scale dS^T Q and dQ = scale dS K.
+    The sums run as the kernels' accumulators do, in f32 over 64-key and
+    64-row tiles: Delta (or ``delta`` (B, Hkv, G, Sq) given) and dQ of a
+    64-row tile over its 64-key tiles in key order (the rows kernels'
+    walk); dK and dV of a 64-key tile over the group's (head, 64-row tile)
+    pairs, head by head and rows ascending (``fa_bwd_dkdv_wgmma``): one sum
+    where D > 64 (a warpgroup sums dV, the other dK), else two, the even
+    and the odd pairs', added at the end.  Each output rounded once to
+    bf16."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
+    G, T = Hq // Hkv, 64
     scale = 1.0 / np.sqrt(D)
     qf, dof = (t.float().reshape(B, Sq, Hkv, G, D) for t in (q, do))
     kf, vf = k.float(), v.float()
     lse = lse.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)   # (B, Hkv, G, Sq)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    qi, kj = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    ok = qi >= kj if causal else torch.ones(Sq, Skv, dtype=torch.bool)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), torch.zeros(()))
+    del s
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    n_k, n_q = -(-Skv // T), -(-Sq // T)
+
+    def keys_of(r0):        # the key tiles a row tile sees, in key order
+        last = min(Skv, r0 + T) if causal else Skv
+        return [slice(k0, min(k0 + T, Skv)) for k0 in range(0, last, T)]
+
+    if delta is None:
+        delta = torch.zeros(B, Hkv, G, Sq)
+        for r0 in range(0, Sq, T):
+            rs = slice(r0, min(r0 + T, Sq))
+            delta[..., rs] = _ordered_sum(
+                [(p[..., rs, ks] * dp[..., rs, ks]).sum(-1)
+                 for ks in keys_of(r0)])
+    ds = p * (dp - delta[..., None])
+    del dp
+    p_r, ds_r = rounding(p), rounding(ds)
+    del p, ds
     dq = torch.zeros_like(qf)
+    for r0 in range(0, Sq, T):
+        rs = slice(r0, min(r0 + T, Sq))
+        dq[:, rs] = _ordered_sum(
+            [torch.einsum("bhgqk,bkhd->bqhgd", ds_r[..., rs, ks], kf[:, ks])
+             for ks in keys_of(r0)]) * scale
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    kj = torch.arange(Skv)
-    for r0 in range(0, Sq, rows):
-        sl = slice(r0, min(r0 + rows, Sq))
-        qi = torch.arange(sl.start, sl.stop)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, sl], kf) * scale
-        ok = qi[:, None] >= kj[None, :] if causal else \
-            torch.ones(len(qi), Skv, dtype=torch.bool)
-        p = torch.where(ok, torch.exp(s - lse[..., sl, None]),
-                        torch.zeros(()))
-        dp = torch.einsum("bqhgd,bkhd->bhgqk", dof[:, sl], vf)
-        dl = (p * dp).sum(-1) if delta is None else delta[..., sl]
-        ds = rounding(p * (dp - dl[..., None]))
-        dv += torch.einsum("bhgqk,bqhgd->bkhd", rounding(p), dof[:, sl])
-        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qf[:, sl]) * scale
-        dq[:, sl] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    for t in range(n_k):
+        ks = slice(t * T, min(t * T + T, Skv))
+        first = t if causal else 0       # the first row tile seeing the keys
+        pairs = [(g, slice(r * T, min(r * T + T, Sq))) for g in range(G)
+                 for r in range(first, n_q)]
+        for out, w, x in ((dv, p_r, dof), (dk, ds_r, qf)):
+            parts = [torch.einsum("bqk,bqd->bkd", w[:, :, g, rs, ks]
+                                  .reshape(B * Hkv, -1, ks.stop - ks.start),
+                                  x[:, rs, :, g].permute(0, 2, 1, 3)
+                                  .reshape(B * Hkv, -1, D))
+                     for g, rs in pairs]
+            if D > 64:
+                acc = _ordered_sum(parts)
+            else:
+                acc = _ordered_sum(parts[0::2]) + _ordered_sum(parts[1::2])
+            out[:, ks] = acc.reshape(B, Hkv, -1, D).permute(0, 2, 1, 3)
+    dk *= scale
     return (dq.reshape(B, Sq, Hq, D).bfloat16(), dk.bfloat16(),
             dv.bfloat16())
 
@@ -312,8 +357,9 @@ def _worst(got, want):
 def test_bf16_backward_rounding_points_at_4096_rows():
     """The tensor-core kernels feed P and dS to their products as two bf16
     parts each (hi + lo) and keep Delta = rowsum(P o dP) in f32: emulated in
-    plain torch, dQ, dK and dV stay within 3e-2 x (rms + |want|) of the f32
-    plain backward at 4096 causal rows.  Two simpler layouts, emulated the
+    plain torch in the kernels' walks' order (64 x 64 tiles, the dK / dV
+    split, f32 sums in a fixed order), dQ, dK and dV stay within 3e-2 x
+    (rms + |want|) of the f32 plain backward at 4096 causal rows.  Two simpler layouts, emulated the
     same way, do not, and this shape is one where each shows: P and dS
     rounded once to bf16 (an early key's dV takes O(1) weights of the first
     rows, each off by up to 2^-9, against an RMS set by the many small
