@@ -12,8 +12,10 @@ kernel, never to be taken for a full run.  ``--only matmul`` does the same
 for ``matmul.cu``, and also times the tensor-core route at forced split
 counts.  ``--only decode_attention`` does
 the same for ``paged_attention.cu`` and ``flash_decode.cu`` (the four entry
-points of the decode template).  ``--only conv2d`` does the same for
-``conv2d.cu``, with the conv shapes taken from shape-only batch-1 CPU
+points of the decode template and flash decode's tma route), and also
+times the tma route's split counts at whisper's, hymba's and
+qwen2-7b's dense shapes (``fd_sweep``).  ``--only conv2d`` does the same
+for ``conv2d.cu``, with the conv shapes taken from shape-only batch-1 CPU
 forwards of the three CNNs (``profiling/conv2d_ab.conv_shapes``), and also
 times the tensor-core route at forced column tiles and split counts.
 ``--only serving_graph`` builds the four sources of the serving path
@@ -73,6 +75,10 @@ Phases (each raises on failure; nothing is caught):
    serving shapes, a ragged window with an inactive slot, D = 16 and 20,
    contexts 1 / 31 / 32 / 33 and about 4,096, and timed at the main shape
    and at 4,096 (``splits`` and ``long_splits`` give the plan's counts).
+   flash_decode's bf16 operands take the tma route (``fd_tma::kernel``):
+   it is held on both routes (``fd_held``), also at contexts 64-66 and at
+   hymba's dense slab, and timed beside the template route forced on the
+   same inputs (``template_ms``, ``long_template_ms``, ``hymba``).
    Then each kernel's time beside its plain version's, one PyTorch library
    call's (a yardstick the port never calls) and its roofline bound.
    conv2d is held to its plain version at every distinct conv shape of
@@ -401,6 +407,9 @@ LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 # 32-row tile edge, and contexts of about DECODE_LONG (bytes-bound), each
 # timed launch on its own operands, LONG_SETS of them together past the L2
 EDGE_CURS = [0, 30, 31, 32]
+FD_EDGE_CURS = [63, 64, 65, 0]     # flash decode: the second tile's edge
+HYMBA_DENSE_S = 1280               # hymba's dense slab: its window bites
+HYMBA_CURS = [1279, 1100, 500, 1200]
 DECODE_LONG = 4096
 LONG_OFFSETS = (0, 5, 3, 14)
 LONG_SETS = 4
@@ -579,6 +588,110 @@ def rows_read(torch, cur, bs, T, Hkv, keep=None):
     if keep is not None:
         live = live & keep.bool().repeat_interleave(bs, dim=-1)
     return float(live.sum())
+
+
+def fd_forced(q, k, v, sms):
+    """The (route, keyword arguments) launches that hold flash decode at
+    forced splits on these operands: the template route at 1, its plan and
+    more than the walk's tiles; where ``route_of`` picks tma, also tma at
+    1, 3, its plan and 8 splits in a cluster."""
+    from repro_torch.kernels import decode_split
+    from repro_torch.kernels.flash_decode import flash_decode as fd_k
+
+    B, S, hkv = k.shape[:3]
+    tiles = -(-S // decode_split.KT)
+    runs = [("template", dict(splits=n)) for n in sorted(
+        {1, decode_split.plan(B, hkv, S, sms), tiles + 3})]
+    if fd_k.route_of(q, k, v) == "tma":
+        runs += [("tma", dict(splits=n)) for n in sorted(
+            {1, 3, fd_k.tma_plan(B, hkv, S, sms), 8})]
+    return runs
+
+
+def fd_held(torch, name, q, k, v, cur, window, sms):
+    """Flash decode through the wrapper twice (each launch counted on the
+    route ``route_of`` picks; the second bit for bit the first), then at
+    each of ``fd_forced``'s launches, against one plain output.  Returns
+    the worst abs error."""
+    from repro_torch.kernels.flash_decode import flash_decode as fd_k
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    want = fd_ref.decode_attention(q, k, v, cur, window=window)
+    tol = TOL[str(q.dtype).split(".")[1]]
+    r = fd_k.route_of(q, k, v)
+    before = dict(fd_ops.flash_decode.routes)
+    got = fd_ops.flash_decode(q, k, v, cur, window=window)
+    again = fd_ops.flash_decode(q, k, v, cur, window=window)
+    routes = fd_ops.flash_decode.routes
+    if routes[r] != before[r] + 2 or sum(routes.values()) != \
+            sum(before.values()) + 2:
+        fail(f"{name}: two wrapper launches counted {routes} after "
+             f"{before}, want 2 more on {r}")
+    if not torch.equal(got, again):
+        fail(f"{name}: a second launch on the {r} route differs")
+    worst = check_close(torch, f"{name} wrapper ({r})", got, want, tol)
+    for route, kw in fd_forced(q, k, v, sms):
+        worst = max(worst, check_close(
+            torch, f"{name} {route} {kw}", fd_k.flash_decode_cuda(
+                q, k, v, cur, window=window, route=route, **kw), want, tol))
+    return worst
+
+
+def fd_sdpa(torch, q, k, v, cur, window=0):
+    """SDPA's operands for flash decode's function: q (B, Hq, 1, D), K / V
+    expanded to the query heads, and a boolean mask of the valid positions
+    (None where every key is valid)."""
+    B, Hq, D = q.shape
+    S, hkv = k.shape[1], k.shape[2]
+    G = Hq // hkv
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    cur = cur.reshape(-1, 1).expand(B, 1)
+    pos = torch.arange(S, device=q.device)[None, :]
+    ok = pos <= cur
+    if window > 0:
+        ok = ok & (pos > cur - window)
+    mask = None if bool(ok.all()) else ok[:, None, None, :]
+    return q[:, :, None, :], kt, vt, mask
+
+
+def fd_bound(q, cur, S, hkv, window=0):
+    """Flash decode's bound: q and the output once, each live K and V row
+    (slot, kv head, position within the window up to cur) once, cur; 4 G
+    D FLOPs a row."""
+    B, Hq, D = q.shape
+    curs = cur.reshape(-1).expand(B).tolist()
+    rows = hkv * sum(min(min(c, S - 1) + 1, window or S) for c in curs)
+    return bound(2 * (2 * q.numel() + 2 * rows * D) + 4 * cur.numel(),
+                 4 * (Hq // hkv) * D * rows, H100_BF16)
+
+
+def fd_timed(torch, sets, cur, window=0):
+    """Flash decode at one shape, ``sets`` the (q, k, v) operand sets (more
+    than one: past the L2 together), each launch on the next set: the
+    route ``route_of`` picks at its plan, the template route forced, the
+    plain version and SDPA, beside the bound.  Returns the times."""
+    from repro_torch.kernels.flash_decode import flash_decode as fd_k
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n = len(sets)
+    q, k, v = sets[0]
+    lib = [fd_sdpa(torch, *st, cur, window) for st in sets]
+    t = dict(route=fd_k.route_of(q, k, v),
+             ms=time_ms(torch, lambda i: fd_k.flash_decode_cuda(
+                 *sets[i], cur, window=window), n),
+             template_ms=time_ms(torch, lambda i: fd_k.flash_decode_cuda(
+                 *sets[i], cur, window=window, route="template"), n),
+             plain_ms=time_ms(torch, lambda i: fd_ref.decode_attention(
+                 *sets[i], cur, window=window), n, 5),
+             library_ms=time_ms(torch, lambda i: sdpa(
+                 *lib[i][:3], attn_mask=lib[i][3]), n))
+    del lib
+    t["bound_ms"], t["bound_by"] = fd_bound(q, cur, k.shape[1], k.shape[2],
+                                            window)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -1129,12 +1242,14 @@ def phase_decode_kernels(torch, cfg, prefix=0, label=""):
     around the first tile edge, and contexts of about DECODE_LONG; then
     each kernel is timed alone (its ``*_cuda`` launch with the plan's
     splits: no wrapper's counting ops) at the main shape and at
-    DECODE_LONG.  Each log line starts with ``label`` and gives the worst
-    error over all of the kernel's cases."""
+    DECODE_LONG.  flash_decode (``fd_held``) also at contexts 64-66 and at
+    hymba's dense slab (25 / 5 heads of 64, window 1024 biting), each bf16
+    shape TMA takes on its tma route (forced splits) and the
+    template route, timed on both routes (``fd_timed``), hymba's too.
+    Each log line starts with ``label`` and gives the worst error over
+    all of the kernel's cases."""
     from repro_torch.kernels import decode_split
     from repro_torch.kernels.flash_decode import flash_decode as fd_k
-    from repro_torch.kernels.flash_decode import ops as fd_ops
-    from repro_torch.kernels.flash_decode import ref as fd_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import paged_attention as pa_k
     from repro_torch.kernels.paged_attention import ref as pa_ref
@@ -1422,17 +1537,23 @@ def phase_decode_kernels(torch, cfg, prefix=0, label=""):
         f"bound_ms {lb_ms:.5f}")
 
     # -- flash_decode: the dense run's slab (S = max_len), scalar and
-    # vector cur, a window, a ragged S, the tile edge, a long slab
+    # vector cur, a window, a ragged S, the tile edge, a long slab, hymba's
+    # dense slab with its window biting; every bf16 shape TMA takes on the
+    # tma route and the template route, f32 on the template
     S_main = prefix + LEVER_PROMPT + 4 * LEVER_GEN
     S_long = DECODE_LONG + 64
+    hy = family_cfg("hymba-1.5b")
+    hy_shape = (hy.n_heads, hy.n_kv_heads, hy.head_dim, hy.attn_window)
     worst = 0.0
     fcases = [(SLOTS, S_main, Hq, Hkv, hd, 0, "main", lever_curs),
               (3, 77, Hq, Hkv, hd, 16, "ragged S+window", None),
               (2, 30, 4, 2, 16, 0, "D=16", None),
               (2, 30, 4, 2, 20, 0, "D=20", None),
               (SLOTS, 40, Hq, Hkv, hd, 0, "contexts 1/31/32/33", EDGE_CURS),
+              (SLOTS, 70, Hq, Hkv, hd, 0, "contexts 64/65/66", FD_EDGE_CURS),
               (SLOTS, S_long, Hq, Hkv, hd, 0, f"contexts ~{DECODE_LONG}",
-               long_curs)]
+               long_curs),
+              (SLOTS, HYMBA_DENSE_S, *hy_shape, "hymba dense", HYMBA_CURS)]
     for B, S, hq, hkv, D, w, tag, curs in fcases:
         for dt in (bf, f32):
             q = rnd((B, hq, D), dt)
@@ -1442,71 +1563,109 @@ def phase_decode_kernels(torch, cfg, prefix=0, label=""):
                 torch.tensor(curs, dtype=torch.int32, device=dev)
             for cur in (torch.tensor(S // 2, dtype=torch.int32, device=dev),
                         vec):
-                e = held(f"flash_decode {tag} cur{tuple(cur.shape)} {dt}",
-                         lambda: fd_ops.flash_decode(q, k, v, cur, window=w),
-                         lambda n: fd_k.flash_decode_cuda(
-                             q, k, v, cur, window=w, splits=n),
-                         fd_ref.decode_attention(q, k, v, cur, window=w),
-                         TOL[str(dt).split(".")[1]], S, B, hkv)
+                e = fd_held(torch, f"{label}flash_decode {tag} "
+                            f"cur{tuple(cur.shape)} {dt}", q, k, v, cur, w,
+                            sms)
+                worst_all["flash_decode"] = max(
+                    worst_all.get("flash_decode", 0.0), e)
                 if tag == "main" and dt == bf:
                     worst = max(worst, e)
             if tag == "main" and dt == bf:
                 main = (q, k, v, vec)
     q, k, v, cur = main
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def sdpa_operands(q, k, v, cur, S):
-        """SDPA's layout: K/V expanded to the query heads, a boolean mask
-        of the valid positions."""
-        return (q[:, :, None, :],
-                k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous(),
-                v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous(),
-                (torch.arange(S, device=dev)[None, :]
-                 <= cur[:, None])[:, None, None, :])
-
-    qt, kt, vt, mask = sdpa_operands(q, k, v, cur, S_main)
-    t_k = time_ms(torch, lambda i: fd_k.flash_decode_cuda(q, k, v, cur), 1)
-    t_p = time_ms(torch, lambda i: fd_ref.decode_attention(q, k, v, cur), 1)
-    t_l = time_ms(torch, lambda i: sdpa(qt, kt, vt, attn_mask=mask), 1)
-    del qt, kt, vt
-
-    def fd_bound(q, cur):
-        return float_bound(q, cur, float((cur + 1).sum()) * Hkv, cur.numel())
-
-    b_ms, by = fd_bound(q, cur)
+    t = fd_timed(torch, [(q, k, v)], cur)
     lcur = torch.tensor(long_curs, dtype=torch.int32, device=dev)
     sets = [(rnd((SLOTS, Hq, hd), bf), rnd((SLOTS, S_long, Hkv, hd), bf),
              rnd((SLOTS, S_long, Hkv, hd), bf)) for _ in range(LONG_SETS)]
-    lt_k = time_ms(torch, lambda i: fd_k.flash_decode_cuda(*sets[i], lcur),
-                   LONG_SETS)
-    lb_ms, _ = fd_bound(sets[0][0], lcur)
-    lsets = [sdpa_operands(*st, lcur, S_long) for st in sets]
+    lt = fd_timed(torch, sets, lcur)
+    hq, hkv, D, w = hy_shape
+    hcur = torch.tensor(HYMBA_CURS, dtype=torch.int32, device=dev)
+    sets = [(rnd((SLOTS, hq, D), bf), rnd((SLOTS, HYMBA_DENSE_S, hkv, D), bf),
+             rnd((SLOTS, HYMBA_DENSE_S, hkv, D), bf))
+            for _ in range(LONG_SETS)]
+    ht = fd_timed(torch, sets, hcur, w)
     del sets
-    lt_l = time_ms(torch, lambda i: sdpa(lsets[i][0], lsets[i][1],
-                                         lsets[i][2], attn_mask=lsets[i][3]),
-                   LONG_SETS)
-    del lsets
 
-    def fd_plan(S):
-        return decode_split.plan(SLOTS, Hkv, S, sms)
+    def plans(S, hkv=Hkv):
+        return dict(tma=fd_k.tma_plan(SLOTS, hkv, S, sms),
+                    template=decode_split.plan(SLOTS, hkv, S, sms))
 
     out["flash_decode"] = dict(
         shape=f"one layer of a dense-slab decode step: q ({SLOTS},{Hq},{hd})"
               f", k/v ({SLOTS},{S_main},{Hkv},{hd}) bf16, cur "
               f"{cur.tolist()}; long: k/v ({SLOTS},{S_long},{Hkv},{hd}), cur "
-              f"{long_curs}",
-        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
-        bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_bound_ms=lb_ms,
-        long_library_ms=lt_l, splits=fd_plan(S_main),
-        long_splits=fd_plan(S_long))
+              f"{long_curs}; hymba: q ({SLOTS},{hq},{D}), k/v "
+              f"({SLOTS},{HYMBA_DENSE_S},{hkv},{D}), window {w}, cur "
+              f"{HYMBA_CURS}; ms on the {t['route']} route, template_ms the "
+              "template forced on the same inputs",
+        max_abs_err=worst, ms=t["ms"], template_ms=t["template_ms"],
+        plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], long_ms=lt["ms"],
+        long_template_ms=lt["template_ms"], long_bound_ms=lt["bound_ms"],
+        long_library_ms=lt["library_ms"], long_plain_ms=lt["plain_ms"],
+        hymba=ht, splits=plans(S_main), long_splits=plans(S_long),
+        hymba_splits=plans(HYMBA_DENSE_S, hkv))
+    for what, x, split in (("main", t, plans(S_main)),
+                           ("long", lt, plans(S_long)),
+                           ("hymba", ht, plans(HYMBA_DENSE_S, hkv))):
+        log(f"phase 1: {label}flash_decode {what}: kernel_ms {x['ms']:.4f} "
+            f"on {x['route']} (splits {split}), template_ms "
+            f"{x['template_ms']:.4f}, plain_ms "
+            f"{x['plain_ms']:.4f} library_ms {x['library_ms']:.4f} (SDPA, "
+            f"K/V expanded, a boolean mask where a key is invalid) bound_ms "
+            f"{x['bound_ms']:.5f} ({x['bound_by']})")
     log(f"phase 1: {label}flash_decode matches at {len(fcases)} shapes x "
-        f"scalar/vector cur x 2 dtypes x (the wrapper + forced splits), max "
-        f"abs err {worst_all['flash_decode']:.3g}; kernel_ms "
-        f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA with a "
-        f"boolean mask on K/V expanded to {Hq} heads) bound_ms {b_ms:.5f} "
-        f"({by}), splits {fd_plan(S_main)}; long kernel_ms {lt_k:.4f} "
-        f"library_ms {lt_l:.4f} bound_ms {lb_ms:.5f} splits "
-        f"{fd_plan(S_long)}")
+        f"scalar/vector cur x 2 dtypes x (the wrapper twice, bit for bit + "
+        f"forced splits on each route it takes), max abs err "
+        f"{worst_all['flash_decode']:.3g}")
+    return out
+
+
+# flash decode's tma route, its design choices timed at whisper's cross
+# (warm and cold) and self, hymba's dense slab, qwen2-7b's serving and
+# 4,096-token slabs: (tag, arch, S, cur, operand sets, window)
+FD_SWEEP = (("whisper cross", "whisper-base", 1500, [1499], 1, 0),
+            ("whisper cross cold", "whisper-base", 1500, [1499], 6, 0),
+            ("whisper self", "whisper-base", 96, [15, 20, 3, 40], 1, 0),
+            ("hymba dense", "hymba-1.5b", HYMBA_DENSE_S, HYMBA_CURS, 4, 1024),
+            ("qwen2-7b serving", "qwen2-7b", 96, [65, 71, 67, 69], 1, 0),
+            ("qwen2-7b 4096", "qwen2-7b", DECODE_LONG + 64,
+             [DECODE_LONG + o for o in LONG_OFFSETS], 4, 0))
+
+
+def fd_sweep(torch) -> dict:
+    """``--only decode_attention``: the tma route at splits 1, 2, 4 and 8,
+    beside the template route, at each FD_SWEEP shape, each launch on the next
+    operand set.  Logs a line a shape; returns the times."""
+    from repro_torch.kernels.flash_decode import flash_decode as fd_k
+
+    g = torch.Generator(device="cuda").manual_seed(33)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for tag, arch, S, curs, n_sets, w in FD_SWEEP:
+        cfg = family_cfg(arch)
+        hq, hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        B = SLOTS
+        sets = [tuple((torch.randn(s, generator=g, device="cuda")).to(
+            torch.bfloat16) for s in ((B, hq, D), (B, S, hkv, D),
+                                      (B, S, hkv, D)))
+                for _ in range(n_sets)]
+        cur = torch.tensor(curs if len(curs) > 1 else curs[0],
+                           dtype=torch.int32, device="cuda")
+        plan = fd_k.tma_plan(B, hkv, S, sms)
+        r = {"template": time_ms(torch, lambda i: fd_k.flash_decode_cuda(
+            *sets[i], cur, window=w, route="template"), n_sets)}
+        for n in (1, 2, 4, 8):
+            r[f"splits {n}"] = time_ms(
+                torch, lambda i: fd_k.flash_decode_cuda(
+                    *sets[i], cur, window=w, splits=n), n_sets)
+        r["plan"] = plan
+        out[tag] = r
+        del sets
+        log(f"  flash_decode sweep {tag} (G = {hq // hkv}, D = {D}, S = {S}, "
+            f"{n_sets} operand sets): "
+            + ", ".join(f"{k} {x:.4f}" for k, x in r.items()
+                        if k != "plan") + f"; the plan {r['plan']}")
     return out
 
 
@@ -2107,7 +2266,7 @@ class TraceIncomplete(Exception):
 # the port's kernels a trace_check counts, by kind
 TRACE_KINDS = {"matmul": ("mm_mma", "mm_wgmma", "mm_skinny", "mm_tiled"),
                "flash attention": ("fa_kernel", "fa_mma_kernel"),
-               "decode attention": ("decode::kernel",)}
+               "decode attention": ("decode::kernel", "fd_tma::kernel")}
 
 
 def kept_graph_class(torch):
@@ -2668,6 +2827,7 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     just after; every request must complete.  ``after(engines)``, when
     given, runs on the fleet's engines once the checks pass.  Returns the
     run's record."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.launch import serve
@@ -2675,6 +2835,8 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     for w in wrappers.values():
         w.launches = 0
     mm_ops.matmul.routes.update(dict.fromkeys(mm_ops.matmul.routes, 0))
+    fd = fd_ops.flash_decode.routes
+    fd.update(dict.fromkeys(fd, 0))
     mm_ops.matmul.staged = 0
     for w in (pa_ops.paged_decode_sparse, pa_ops.paged_decode_quant):
         w.dropped_blocks.reset()
@@ -2687,6 +2849,7 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     routes = dict(mm_ops.matmul.routes)
+    fd_routes = dict(fd)
     staged = mm_ops.matmul.staged
     dropped = {k: w.dropped_blocks.value for k, w in
                (("paged_decode_sparse", pa_ops.paged_decode_sparse),
@@ -2726,7 +2889,7 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
         f"per wall second), max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
         f"{launches}, matmul launches by route {routes} ({staged} staged), "
-        "dropped blocks "
+        f"flash_decode launches by route {fd_routes}, dropped blocks "
         f"{dropped}; decode steps {graphs['eager']} eager, "
         f"{graphs['replays']} replayed, {graphs['captures']} captures in "
         f"{graphs['capture_s']:.3f} s; prefills ({prefills['shapes']} "
@@ -2735,9 +2898,18 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
         f"{sum(e.n_refills for e in engines)} of them refills")
     if after is not None:
         after(engines)
-    return dict(launches=launches, routes=routes, staged=staged,
-                dropped=dropped, wall=wall, tokens=tokens, graphs=graphs,
-                prefills=prefills)
+    return dict(launches=launches, routes=routes, fd_routes=fd_routes,
+                staged=staged, dropped=dropped, wall=wall, tokens=tokens,
+                graphs=graphs, prefills=prefills)
+
+
+def tma_decode_only(name, run) -> None:
+    """Every flash_decode launch of a bf16 serve run on the tma route, and
+    at least one."""
+    n, fd = run["launches"]["flash_decode"], run["fd_routes"]
+    if n == 0 or fd["tma"] != n or fd["template"]:
+        fail(f"serve {name}: flash_decode launched {n} times, by route {fd}"
+             ": every bf16 launch must take the tma route")
 
 
 # the kernels each phase-3 run must launch (launch count above 0); the
@@ -2771,6 +2943,8 @@ def phase_serve(torch, cfg, wrappers):
             if runs[name]["launches"][k] == 0:
                 fail(f"serve {name}: kernel {k} was never launched on the "
                      f"run that carries it")
+            if k == "flash_decode":
+                tma_decode_only(name, runs[name])
     # every prefill wave (M = slots x prompt > 16, bf16) on the tensor cores
     for name, r in runs.items():
         if r["routes"]["mma"] == 0 or r["routes"]["tiled"] != 0:
@@ -3430,7 +3604,6 @@ def phase_ssm_kernels(torch):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_decode import flash_decode as fd_k
-    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
@@ -3572,15 +3745,10 @@ def phase_ssm_kernels(torch):
                     worst[f"paged_decode {name_of(dt)}"] = max(
                         worst.get(f"paged_decode {name_of(dt)}", 0.0), e)
                 kc, vc = rnd((B, walk, hkv, D), dt), rnd((B, walk, hkv, D), dt)
-                want = fd_ref.decode_attention(qd, kc, vc, cur, window=w)
-                got = [fd_ops.flash_decode(qd, kc, vc, cur, window=w)]
-                got += [fd_k.flash_decode_cuda(qd, kc, vc, cur, window=w,
-                                               splits=n) for n in forced]
-                for n, o in zip(["plan"] + forced, got):
-                    e = check_close(torch, f"flash_decode {tag} window={w} "
-                                    f"splits={n} {name_of(dt)}", o, want, tol)
-                    worst[f"flash_decode {name_of(dt)}"] = max(
-                        worst.get(f"flash_decode {name_of(dt)}", 0.0), e)
+                e = fd_held(torch, f"flash_decode {tag} window={w} "
+                            f"{name_of(dt)}", qd, kc, vc, cur, w, sms)
+                worst[f"flash_decode {name_of(dt)}"] = max(
+                    worst.get(f"flash_decode {name_of(dt)}", 0.0), e)
             qd = rnd((B, hq, D), bf)
             kp, vp = rnd((N, bs, hkv, D), bf), rnd((N, bs, hkv, D), bf)
             kc, vc = rnd((B, walk, hkv, D), bf), rnd((B, walk, hkv, D), bf)
@@ -3602,13 +3770,17 @@ def phase_ssm_kernels(torch):
                 t_p = time_ms(torch, plain, 1, 5)
                 dec[(kern, tag, w)] = dict(ms=t_k, plain_ms=t_p,
                                            bound_ms=b_ms, bound_by=by)
+                plan = fd_k.tma_plan(B, hkv, walk, sms) \
+                    if kern == "flash_decode" else \
+                    decode_split.plan(B, hkv, walk, sms)
                 log(f"  {kern} bf16 {tag} contexts {curs[0]}-{max(curs)} "
                     f"(25, 5, 64) window {w}: kernel_ms {t_k:.4f} plain_ms "
                     f"{t_p:.4f} bound_ms {b_ms:.5f} ({by}), plan's splits "
-                    f"{decode_split.plan(B, hkv, walk, sms)}")
+                    f"{plan}")
     log(f"phase 1 [ssm]: flash attention at (25, 5, 64), {len(fa)} shapes "
-        f"x windows 0 / {W}, and paged_decode / flash_decode at 2 context "
-        f"sets x windows x splits {forced} match their plain versions in "
+        f"x windows 0 / {W}, and paged_decode (splits {forced}) / "
+        f"flash_decode (fd_forced's launches on each route) at 2 context "
+        f"sets x windows match their plain versions in "
         "bf16 and fp32; max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
     return {"matmul": {f"{M}x{K}x{N}": t for (M, K, N), t in times.items()},
@@ -3705,9 +3877,9 @@ def phase_ssm_card_vs_cpu(torch):
                               lens, gens, 6)
         if cfg2.family == "hybrid":
             api = mapi.build(cfg2, "cuda")
-            launches, _, nbytes = pd_oracle(torch, cfg2, api, cuda_params,
-                                            f"{arch} fp32",
-                                            PrefillGraphs(api))
+            launches, _, _, nbytes = pd_oracle(torch, cfg2, api,
+                                               cuda_params, f"{arch} fp32",
+                                               PrefillGraphs(api))
             for k in ("matmul", "paged_decode"):
                 if launches[k] == 0:
                     fail(f"pd oracle {arch}: engine B never launched {k}")
@@ -3749,6 +3921,8 @@ def phase_ssm_serve(torch, wrappers):
         for k in carries:
             if runs[name]["launches"][k] == 0:
                 fail(f"serve {name}: kernel {k} was never launched")
+        if decode == "flash_decode" and cfg.family != "ssm":
+            tma_decode_only(name, runs[name])
         routes, staged = runs[name]["routes"], runs[name]["staged"]
         if routes["skinny"] + routes["tiled"] or \
                 (cfg.family == "ssm") != (staged == 0):
@@ -3793,6 +3967,7 @@ ENC_DIMS = (64, 80)
 ENC_CHECK_LAYERS = 2    # phase 2: 2 encoder + 2 decoder layers, fp32
 ENC_STEPS = 8
 ENC_DEC_LEN = 32        # the teacher-forced tokens: the cross Sq
+ENC_COLD_SETS = 6       # flash decode's cross K/V sets: 74 MB, past the L2
 # the graph lockstep: three waves of SLOTS requests, each wave of another
 # prompt width (one prefill-cache key serves them all)
 ENC_LOCKSTEP = ([PROMPT] * SLOTS + [20] * SLOTS + [27] * SLOTS,
@@ -3827,17 +4002,17 @@ def phase_encdec_kernels(torch):
     timed at the encoder beside SDPA (``is_causal=False``); flash decode at
     G = 1, D 64 over the 1500-row cross K/V at a device scalar position
     and over the self slab at a position vector, through the wrapper and at
-    forced splits, timed beside SDPA (every key valid, no mask: the same
-    function); the matmul at every (M, K, N) of an encoder wave (M = SLOTS
-    x 1500) and a decode step (M = SLOTS, the 51,865-column head staged),
-    with its route, on weight buffers past the L2.  Returns
-    the timings by kernel."""
+    forced splits on both routes (``fd_held``), each timed on both routes
+    beside SDPA (the cross: every key valid, no mask: the same function)
+    and its bound, the cross also on ENC_COLD_SETS operand sets; the
+    matmul at every (M, K, N) of an encoder wave (M = SLOTS x 1500) and a
+    decode step (M = SLOTS, the 51,865-column head staged), with its
+    route, on weight buffers past the L2.  Returns the timings by
+    kernel."""
     from repro_torch.kernels import decode_split
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_decode import flash_decode as fd_k
-    from repro_torch.kernels.flash_decode import ops as fd_ops
-    from repro_torch.kernels.flash_decode import ref as fd_ref
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
     from repro_torch.kernels.matmul.matmul import launch, plan_for
@@ -3898,7 +4073,9 @@ def phase_encdec_kernels(torch):
         f"{fa['plain_ms']:.4f} library_ms {fa['library_ms']:.4f} (SDPA, "
         f"is_causal=False) bound_ms {fa['bound_ms']:.5f} ({fa['bound_by']})")
 
-    # -- flash decode at G = 1: the cross K/V and the self slab
+    # -- flash decode at G = 1: the cross K/V and the self slab, timed on
+    # both routes; the cross also on ENC_COLD_SETS operand sets (six
+    # layers' cross K/V, past the L2 together, as a decode step reads them)
     sms = decode_split.sm_count(torch.device("cuda"))
     self_len = PROMPT + 4 * GEN
     fd = {}
@@ -3908,39 +4085,40 @@ def phase_encdec_kernels(torch):
             ("self", self_len, torch.tensor([GEN - 1] * SLOTS,
                                             dtype=torch.int32,
                                             device="cuda"))):
-        forced = sorted({1, decode_split.plan(SLOTS, H, S, sms),
-                         -(-S // decode_split.KT) + 3})
         for dt in (bf, f32):
             qd = rnd((SLOTS, H, D), dt)
             kc, vc = rnd((SLOTS, S, H, D), dt), rnd((SLOTS, S, H, D), dt)
-            want = fd_ref.decode_attention(qd, kc, vc, cur)
-            held("flash_decode", f"{tag} plan", dt,
-                 fd_ops.flash_decode(qd, kc, vc, cur), want)
-            for n in forced:
-                held("flash_decode", f"{tag} splits={n}", dt,
-                     fd_k.flash_decode_cuda(qd, kc, vc, cur, splits=n), want)
+            e = fd_held(torch, f"flash_decode {tag} {name_of(dt)}", qd, kc,
+                        vc, cur, 0, sms)
+            worst[f"flash_decode {name_of(dt)}"] = max(
+                worst.get(f"flash_decode {name_of(dt)}", 0.0), e)
+        sets = [(rnd((SLOTS, H, D), bf), rnd((SLOTS, S, H, D), bf),
+                 rnd((SLOTS, S, H, D), bf))
+                for _ in range(ENC_COLD_SETS if tag == "cross" else 1)]
+        t = fd_timed(torch, sets[:1], cur)
+        t.update(shape=f"q ({SLOTS},{H},{D}), k/v ({SLOTS},{S},{H},{D}), "
+                       f"G = 1, cur {cur.tolist()}, bf16",
+                 splits=dict(tma=fd_k.tma_plan(SLOTS, H, S, sms),
+                             template=decode_split.plan(SLOTS, H, S, sms)))
         if tag == "cross":
-            qd = rnd((SLOTS, H, D), bf)
-            kc, vc = rnd((SLOTS, S, H, D), bf), rnd((SLOTS, S, H, D), bf)
-            q4, k4, v4 = (qd[:, :, None], kc.transpose(1, 2).contiguous(),
-                          vc.transpose(1, 2).contiguous())
-            fd = dict(ms=time_ms(torch, lambda i: fd_ops.flash_decode(
-                qd, kc, vc, cur), 1),
-                plain_ms=time_ms(torch, lambda i: fd_ref.decode_attention(
-                    qd, kc, vc, cur), 1, 5),
-                library_ms=time_ms(torch, lambda i: sdpa(q4, k4, v4), 1))
-            fd["bound_ms"], fd["bound_by"] = bound(
-                2 * (2 * kc.numel() + 2 * qd.numel()),
-                4 * SLOTS * H * D * S, H100_BF16)
-            fd.update(shape=f"one decode step's cross attention: q "
-                            f"({SLOTS},{H},{D}), k/v ({SLOTS},{S},{H},{D}), "
-                            f"G = 1, cur a device scalar {T - 1}, bf16",
-                      splits=decode_split.plan(SLOTS, H, S, sms))
+            cold = fd_timed(torch, sets, cur)
+            t.update({f"cold_{k}": cold[k] for k in (
+                "ms", "template_ms", "plain_ms", "library_ms")})
+        del sets
+        fd[tag] = t
+        log(f"  flash_decode bf16 {tag} ({SLOTS},{S},{H},{D}) G = 1: "
+            f"kernel_ms {t['ms']:.4f} on {t['route']}, template_ms "
+            f"{t['template_ms']:.4f}, plain_ms {t['plain_ms']:.4f} "
+            f"library_ms {t['library_ms']:.4f} (SDPA) bound_ms "
+            f"{t['bound_ms']:.5f} ({t['bound_by']}), splits {t['splits']}"
+            + ("" if tag == "self" else
+               f"; cold ({ENC_COLD_SETS} operand sets) kernel_ms "
+               f"{t['cold_ms']:.4f}, template_ms {t['cold_template_ms']:.4f}"
+               f", library_ms {t['cold_library_ms']:.4f}"))
+    fd = dict(fd["cross"], self=fd["self"],
+              shape="one decode step's cross attention: " + fd["cross"][
+                  "shape"] + "; self: " + fd["self"]["shape"])
     fd["max_abs_err"] = worst["flash_decode bfloat16"]
-    log(f"  flash_decode bf16 cross ({SLOTS},{T},{H},{D}) G = 1: kernel_ms "
-        f"{fd['ms']:.4f} plain_ms {fd['plain_ms']:.4f} library_ms "
-        f"{fd['library_ms']:.4f} (SDPA, no mask) bound_ms "
-        f"{fd['bound_ms']:.5f} ({fd['bound_by']}), {fd['splits']} splits")
 
     # -- the matmul at an encoder wave's and a decode step's shapes
     wave, step = encdec_matmuls(cfg)
@@ -4213,6 +4391,7 @@ def phase_encdec_serve(torch, wrappers):
     for k, n in run["launches"].items():
         if (n == 0) == (k in ("matmul", "flash_attention", "flash_decode")):
             fail(f"serve {ENCDEC_ARCH}: kernel {k} launched {n} times")
+    tma_decode_only(ENCDEC_ARCH, run)
     routes = run["routes"]
     if routes["tiled"] or routes["skinny"] or run["staged"] != 4:
         fail(f"serve {ENCDEC_ARCH}: matmul routes {routes}, {run['staged']} "
@@ -4262,8 +4441,8 @@ def pd_oracle(torch, cfg, api, params, name, pg, **kw):
     replay).  After the import and after every decode step B's tokens,
     live slots' logits and KV state must equal C's bit for bit.  Returns
     the wrappers' launches while B decoded and refilled (counted around
-    B's steps alone), the matmul's by route, and the handoff's bytes per
-    request."""
+    B's steps alone), the matmul's and flash decode's by route, and the
+    handoff's bytes per request."""
     import numpy as np
 
     from repro_torch.kernels import counts
@@ -4316,7 +4495,7 @@ def pd_oracle(torch, cfg, api, params, name, pg, **kw):
     # each engine's own launches: B's is what the import must lead to
     launches = {e: dict.fromkeys((w.__name__ for w in WRAPPERS), 0)
                 for e in "bc"}
-    mm_routes = {}
+    mm_routes, fd_routes = {}, {}
     steps = 0
     while c.busy:
         live = [i for i, r in enumerate(c.active) if r is not None]
@@ -4326,9 +4505,10 @@ def pd_oracle(torch, cfg, api, params, name, pg, **kw):
             for w, (n, routes) in zip(WRAPPERS, counts.diff(
                     counts.snapshot(WRAPPERS), before)):
                 launches[e][w.__name__] += n
-                if e == "b" and w.__name__ == "matmul":
+                if e == "b" and w.__name__ in ("matmul", "flash_decode"):
+                    into = mm_routes if w.__name__ == "matmul" else fd_routes
                     for k, r in routes.items():
-                        mm_routes[k] = mm_routes.get(k, 0) + r
+                        into[k] = into.get(k, 0) + r
         steps += 1
         if not np.array_equal(b.last_logits[live], c.last_logits[live]):
             fail(f"pd oracle {name}: step {steps} logits differ")
@@ -4346,7 +4526,7 @@ def pd_oracle(torch, cfg, api, params, name, pg, **kw):
         f"prefills {pg.n_eager} eager, {pg.n_captures} captured, "
         f"{pg.n_replays} replayed); launches while B decoded and refilled "
         f"{launches['b']}, while C did {launches['c']}")
-    return launches["b"], mm_routes, nbytes
+    return launches["b"], mm_routes, fd_routes, nbytes
 
 
 def in_process_fleet(torch, cfg, api, params, specs, n_req, seed):
@@ -4454,13 +4634,16 @@ def phase_cluster(torch, cfg):
                "dense": (dict(paged=False), "flash_decode")}
     handoff_bytes = {}
     for name, (kw, kernel) in carries.items():
-        launches, mm_routes, nbytes = pd_oracle(
+        launches, mm_routes, fd_routes, nbytes = pd_oracle(
             torch, cfg, api, params, name, PrefillGraphs(api), **kw)
         if launches[kernel] == 0 or launches["matmul"] == 0:
             fail(f"pd oracle {name}: {kernel} or matmul never launched on B "
                  f"after the import ({launches})")
         runs[f"cluster 4a {name}"] = {"launches": launches,
-                                      "routes": mm_routes}
+                                      "routes": mm_routes,
+                                      "fd_routes": fd_routes}
+        if kernel == "flash_decode":
+            tma_decode_only(f"pd oracle {name}", runs[f"cluster 4a {name}"])
         handoff_bytes[name] = nbytes
         gc.collect()
 
@@ -4719,7 +4902,8 @@ def bwd_timed(torch, rnd, tag, shape):
     together and each alone, beside its plain version (autograd through
     ref.attention, the forward included), SDPA's forward + backward with
     K/V expanded to the query heads (a window as a boolean mask) and its
-    bound; at the training shape also the forward with LSE."""
+    bound; then the forward with LSE beside SDPA's forward and its bound
+    (4 Hq D FLOPs a visible pair)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -4809,18 +4993,21 @@ def bwd_timed(torch, rnd, tag, shape):
         f"library_ms {t_lib:.4f} (SDPA forward + backward, K/V "
         f"expanded; its backward alone {t_lib_bwd:.4f}{masked}) bound_ms "
         f"{b_ms:.4f} ({by})")
-    if tag == "train":
-        t_fwd = time_ms(torch, lambda i: fa.flash_attention_cuda(
-            q, k, v, causal=causal, lse=True), 1, 10)
-        with torch.no_grad():
-            t_sdpa_fwd = time_ms(torch, lambda i: sdpa(
-                qt, kt, vt, is_causal=causal), 1, 10)
-        f_ms, fby = bound(2 * (2 * q.numel() + 2 * k.numel())
-                          + 4 * lse.numel(), fwd_flops, H100_BF16)
-        log(f"  the forward with LSE {t_fwd:.4f} ms (bound {f_ms:.4f}, "
-            f"{fby}; SDPA's forward, K/V expanded, {t_sdpa_fwd:.4f})")
-        r.update(forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms,
-                 forward_library_ms=t_sdpa_fwd)
+    # the forward with LSE at the same shape, beside its bound and SDPA's
+    # forward (a window as the boolean mask)
+    t_fwd = time_ms(torch, lambda i: fa.flash_attention_cuda(
+        q, k, v, causal=causal, window=w, lse=True), 1, 10)
+    with torch.no_grad():
+        t_sdpa_fwd = time_ms(torch, lambda i: sdpa(
+            qt, kt, vt, attn_mask=mask) if w else sdpa(
+            qt, kt, vt, is_causal=causal), 1, 10)
+    f_ms, fby = bound(2 * (2 * q.numel() + 2 * k.numel())
+                      + 4 * lse.numel(), fwd_flops, H100_BF16)
+    log(f"  the forward with LSE {tag} {t_fwd:.4f} ms (bound {f_ms:.4f}, "
+        f"{fby}: {fwd_flops / 1e9:.1f} GFLOP; SDPA's forward, K/V expanded, "
+        f"{t_sdpa_fwd:.4f})")
+    r.update(forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms,
+             forward_lse_bound_by=fby, forward_library_ms=t_sdpa_fwd)
     del q, k, v, do, o, lse, qt, kt, vt, dot, mask
     torch.cuda.empty_cache()
     return r
@@ -6310,7 +6497,9 @@ ONLY = {"matmul": (MATMUL_SOURCES, lambda torch, cfg: phase_matmul(
             torch, cfg, sweep=True)),
         "flash_attention": (["flash_attention"], phase_flash_attention),
         "decode_attention": (["paged_attention", "flash_decode"],
-                             phase_decode_kernels),
+                             lambda torch, cfg: dict(
+                                 phase_decode_kernels(torch, cfg),
+                                 flash_decode_sweep=fd_sweep(torch))),
         "conv2d": (["conv2d"], lambda torch, cfg: phase_conv_kernel(
             torch, cnn_conv_shapes(), sweep=True)),
         "serving_graph": (SERVING_SOURCES, lambda torch, cfg: phase_graph(
@@ -6593,7 +6782,9 @@ def main() -> None:
                             "worst", "shapes", "forward_lse_ms",
                             "forward_lse_bound_ms", "kernel_ms", "whisper",
                             "families", "train_families", "mma_ms",
-                            "library_bwd_ms", "tflops", "tflops_layout")
+                            "library_bwd_ms", "tflops", "tflops_layout",
+                            "template_ms", "long_template_ms",
+                            "long_plain_ms", "hymba", "hymba_splits")
                            if key in s},
                         **({"routes_by_run": {
                             run: r["routes"] for run, r in runs.items()
@@ -6602,6 +6793,14 @@ def main() -> None:
                             run: r["bwd_routes"] for run, r in runs.items()
                             if r.get("bwd_routes")}}
                            if name == "flash_attention_backward" else {}),
+                        **({"launches_by_route": {
+                            k: sum(r.get("fd_routes", {}).get(k, 0)
+                                   for r in runs.values())
+                            for k in ("tma", "template")},
+                            "routes_by_run": {
+                            run: r["fd_routes"] for run, r in runs.items()
+                            if any(r.get("fd_routes", {}).values())}}
+                           if name == "flash_decode" else {}),
                         **({"routes": {
                             run: r["conv_routes"] for run, r in runs.items()
                             if "conv_routes" in r}} if name == "conv2d"

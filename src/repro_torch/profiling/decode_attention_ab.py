@@ -16,14 +16,21 @@ source and called as they were; later ones get this checkout's split plan.
 At qwen2-7b's widths (4 slots, 28 query heads, 4 kv heads, d_head 128,
 bf16 q, blocks of 16) and the main path's contexts (the serve run's 34-47
 on a float pool; the lever runs' 66-72 on an int8 pool with a keep mask
-and current rows, on a float pool with a keep mask, and on a dense slab),
-then at contexts of about 4,096 (float pool; int8 pool with current rows
-and no mask; float pool with about half the blocks kept; dense slab), both
-are held against the plain version (3e-2, 5e-2 on packed pages) and timed
-with CUDA events in the order other, this, this, other.  At 4,096 tokens
-each timed launch reads its own operands, four sets together past the
-50 MB L2.  Prints one line per case and one JSON line.  A card is
-required; without one it raises.
+and current rows, on a float pool with a keep mask, and on a dense slab,
+in bf16 and f32), then at contexts of about 4,096 (float pool; int8 pool
+with current rows and no mask; float pool with about half the blocks
+kept; dense slab), and on the dense slabs of whisper-base (8 heads of 64,
+G = 1: the cross attention over 1500 frames, warm and on six operand
+sets, and the self attention at 96 rows) and hymba-1.5b (25 / 5 heads of
+64, 1280 rows, its 1024 window biting), both are held against the plain
+version (3e-2, 5e-2 on packed pages) and timed with CUDA events in the
+order other, this, this, other.  Where a case has several operand sets
+each timed launch reads the next, the sets together past the 50 MB L2.
+OTHER's dense slab goes through its ``fd_launch`` with the template's
+split plan (``decode_split.plan``); this checkout's through
+``flash_decode_cuda``, the route ``route_of`` picks at its own plan.
+Prints one line per case and one JSON line.  A card is required; without
+one it raises.
 """
 from __future__ import annotations
 
@@ -52,6 +59,12 @@ S_MAIN, S_LONG = 96, 4160            # dense slab lengths
 THRESHOLD = 0.25
 LONG_SETS = 4
 ITERS = 20
+# the other dense slabs: (B, S, Hq, Hkv, D, window, cur, operand sets)
+DENSE = {"whisper cross": (4, 1500, 8, 8, 64, 0, 1499, 1),
+         "whisper cross cold": (4, 1500, 8, 8, 64, 0, 1499, 6),
+         "whisper self": (4, 96, 8, 8, 64, 0, [15] * 4, 1),
+         "hymba dense": (4, 1280, 25, 5, 64, 1024, [1279, 1100, 500, 1200],
+                         LONG_SETS)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -82,7 +95,7 @@ def _other_libs(root: Path):
     return libs
 
 
-def _call_other(lib, split_abi, fn, head, ints, q, walk):
+def _call_other(lib, split_abi, fn, head, ints, q, walk, hkv=HKV):
     """Launch OTHER's ``fn``: ``head`` is the (value, ctype) operands up to
     the output pointer, ``ints`` the int arguments after it.  The split ABI
     adds the workspace after ``head`` and ``splits`` before the stream."""
@@ -90,7 +103,7 @@ def _call_other(lib, split_abi, fn, head, ints, q, walk):
     args = [v for v, _ in head]
     types = [t for _, t in head]
     if split_abi:
-        n = decode_split.splits_for(q, HKV, walk, None)
+        n = decode_split.splits_for(q, hkv, walk, None)
         ws = decode_split.workspace(q, n)
         args.append(None if ws is None else ws.data_ptr())
         types.append(_P)
@@ -115,8 +128,8 @@ def _tables(curs, dev, gen):
 
 
 def _cases(dev, g):
-    """{name: (kind, operand sets, tables-or-None, cur)}, kind in paged /
-    quant / sparse / dense."""
+    """{name: (kind, operand sets, tables-or-None, cur, window)}, kind in
+    paged / quant / sparse / dense."""
     cpu = torch.Generator().manual_seed(0)
 
     def rnd(shape, dtype=torch.bfloat16):
@@ -136,7 +149,8 @@ def _cases(dev, g):
         cur = torch.tensor(curs, dtype=torch.int32, device=dev)
         out[f"paged_decode {tag}"] = ("paged", [dict(
             q=rnd((B, HQ, HD)), kp=rnd((N, BS, HKV, HD)),
-            vp=rnd((N, BS, HKV, HD))) for _ in range(n_sets)], tables, cur)
+            vp=rnd((N, BS, HKV, HD))) for _ in range(n_sets)], tables, cur,
+            0)
         tables, N = _tables(lever_curs, dev, cpu)
         cur = torch.tensor(lever_curs, dtype=torch.int32, device=dev)
         T = tables.shape[1]
@@ -150,7 +164,7 @@ def _cases(dev, g):
             ).to(torch.int32)
             sets.append(dict(q=q, kp=kq, vp=vq, ks=ks, vs=vs, keep=keep,
                              k_row=rnd((B, HKV, HD)), v_row=rnd((B, HKV, HD))))
-        out[f"paged_decode_quant {tag}"] = ("quant", sets, tables, cur)
+        out[f"paged_decode_quant {tag}"] = ("quant", sets, tables, cur, 0)
         sets = []
         for _ in range(n_sets):
             q, kp = rnd((B, HQ, HD)), keys((N, BS, HKV, HD))
@@ -165,15 +179,25 @@ def _cases(dev, g):
                          < 0.5) & valid) | current
             sets.append(dict(q=q, kp=kp, vp=rnd((N, BS, HKV, HD)),
                              keep=keep.to(torch.int32)))
-        out[f"paged_decode_sparse {tag}"] = ("sparse", sets, tables, cur)
+        out[f"paged_decode_sparse {tag}"] = ("sparse", sets, tables, cur, 0)
         S = S_MAIN if tag == "main" else S_LONG
         out[f"flash_decode {tag}"] = ("dense", [dict(
             q=rnd((B, HQ, HD)), kp=rnd((B, S, HKV, HD)),
-            vp=rnd((B, S, HKV, HD))) for _ in range(n_sets)], None, cur)
+            vp=rnd((B, S, HKV, HD))) for _ in range(n_sets)], None, cur, 0)
+    cur = torch.tensor(LEVER_CURS, dtype=torch.int32, device=dev)
+    out["flash_decode f32 main"] = ("dense", [dict(
+        q=rnd((4, HQ, HD), torch.float32),
+        kp=rnd((4, S_MAIN, HKV, HD), torch.float32),
+        vp=rnd((4, S_MAIN, HKV, HD), torch.float32))], None, cur, 0)
+    for name, (B, S, hq, hkv, D, window, curs, n_sets) in DENSE.items():
+        out[f"flash_decode {name}"] = ("dense", [dict(
+            q=rnd((B, hq, D)), kp=rnd((B, S, hkv, D)),
+            vp=rnd((B, S, hkv, D))) for _ in range(n_sets)], None,
+            torch.tensor(curs, dtype=torch.int32, device=dev), window)
     return out
 
 
-def _runners(kind, sets, tables, cur, libs):
+def _runners(kind, sets, tables, cur, window, libs):
     """(run_other(i), run_this(i), plain(i)) for one case."""
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -188,10 +212,11 @@ def _runners(kind, sets, tables, cur, libs):
         dt = _build.dtype_code(q)
         if kind == "dense":
             lib, split = libs["flash_decode"]
-            S = s["kp"].shape[1]
+            S, hkv = s["kp"].shape[1], s["kp"].shape[2]
             _call_other(lib, split, "fd_launch", common + [
-                (cur.data_ptr(), _P), (1, _I), (o.data_ptr(), _P)],
-                [B, Hq, HKV, D, S, 0, dt], q, S)
+                (cur.data_ptr(), _P), (1 if cur.ndim else 0, _I),
+                (o.data_ptr(), _P)], [B, Hq, hkv, D, S, window, dt], q, S,
+                hkv)
             return o
         lib, split = libs["paged_attention"]
         T = tables.shape[1]
@@ -215,7 +240,8 @@ def _runners(kind, sets, tables, cur, libs):
     def run_this(i):
         s = sets[i]
         if kind == "dense":
-            return fd_k.flash_decode_cuda(s["q"], s["kp"], s["vp"], cur)
+            return fd_k.flash_decode_cuda(s["q"], s["kp"], s["vp"], cur,
+                                          window=window)
         if kind == "paged":
             return pa_k.paged_decode_cuda(s["q"], s["kp"], s["vp"], tables,
                                           cur)
@@ -229,7 +255,8 @@ def _runners(kind, sets, tables, cur, libs):
     def plain(i):
         s = sets[i]
         if kind == "dense":
-            return fd_ref.decode_attention(s["q"], s["kp"], s["vp"], cur)
+            return fd_ref.decode_attention(s["q"], s["kp"], s["vp"], cur,
+                                           window=window)
         if kind == "paged":
             return pa_ref.paged_decode_attention(s["q"], s["kp"], s["vp"],
                                                  tables, cur)
@@ -269,8 +296,9 @@ def main(argv=None) -> None:
     libs = _other_libs(Path(args[0]))
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for name, (kind, sets, tables, cur) in _cases(dev, g).items():
-        run_other, run_this, plain = _runners(kind, sets, tables, cur, libs)
+    for name, (kind, sets, tables, cur, window) in _cases(dev, g).items():
+        run_other, run_this, plain = _runners(kind, sets, tables, cur,
+                                              window, libs)
         tol = 5e-2 if kind == "quant" else 3e-2
         want = plain(0).float()
         errs = {}
@@ -288,15 +316,25 @@ def main(argv=None) -> None:
                  ("this", _time_ms(run_this, n)),
                  ("this", _time_ms(run_this, n)),
                  ("other", _time_ms(run_other, n))]
-        walk = sets[0]["kp"].shape[1] if kind == "dense" \
-            else tables.shape[1] * BS
+        q, kp = sets[0]["q"], sets[0]["kp"]
         r = {tag: [t for k, t in turns if k == tag] for tag in ("other",
                                                                "this")}
-        r.update(max_abs_err=errs, contexts=(cur + 1).tolist(),
-                 splits=decode_split.splits_for(sets[0]["q"], HKV, walk,
-                                                None))
+        r.update(max_abs_err=errs, contexts=(cur + 1).tolist())
+        if kind == "dense":
+            S, hkv = kp.shape[1], kp.shape[2]
+            route = fd_k.route_of(q, kp, sets[0]["vp"])
+            r.update(route=route, splits=dict(
+                other=decode_split.splits_for(q, hkv, S, None),
+                this=fd_k.tma_plan(q.shape[0], hkv, S, decode_split.sm_count(
+                    q.device)) if route == "tma"
+                else decode_split.splits_for(q, hkv, S, None)))
+        else:
+            r.update(splits=decode_split.splits_for(q, HKV, tables.shape[1]
+                                                    * BS, None))
         results[name] = r
-        print(f"{name} (contexts {r['contexts']}, splits {r['splits']}): "
+        route = f", this on {r['route']}" if "route" in r else ""
+        print(f"{name} (contexts {r['contexts']}, splits {r['splits']}"
+              f"{route}): "
               f"other ms {r['other'][0]:.4f} / {r['other'][1]:.4f}, this ms "
               f"{r['this'][0]:.4f} / {r['this'][1]:.4f}", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
