@@ -375,6 +375,14 @@ FA_LENGTHS = (1, 9, 10, 63, 65, 100)
 FA_WINDOWS = (0, 16, 100)
 FA_DIMS = (16, 64, 80, 128)
 FA_LONG = 2048               # a long prompt: operations-bound
+# the wgmma route's tile edges beside those (128 rows of one head a CTA,
+# two warpgroups of 64, 128-key tiles at D > 64): Sq on both sides of 128,
+# a second CTA, and a second CTA's second warpgroup past Sq
+FA_WG_LENGTHS = (127, 128, 129, 200)
+# --only flash_attention: Sq of the routes' sweep (bf16, causal, Sq = Skv)
+# at qwen2-7b's group (B 4, 28 / 4 heads of 128) and at G = 1 (B 4, 8 / 8
+# heads of 64, whisper's): the evidence for fa_launch's thresholds
+FA_SWEEP = (32, 64, 128, 192, 256, 384, 512, 768, 1024, 1500)
 
 # the matmul's tensor-core tiles (16 / 64 / 128 rows, 128 columns, K steps
 # of 32 or 64 in a ring of 4): M on both sides of each row tile; K = 1000
@@ -1147,13 +1155,124 @@ def phase_matmul(torch, cfg, sweep=False):
     return out
 
 
-def phase_flash_attention(torch, cfg):
+def fa_held(torch, name, q, k, v, causal=True, window=0):
+    """Flash attention at (q, k, v) held on every route that takes it: the
+    wrapper (its route counted, its output the forced launch's of
+    ``fwd_route``) and, in bf16, each route forced with the LSE (the output
+    by ``check_close``, the LSE within tol x (rms + |want|) of
+    ``ref.attention_lse``, the serving call without LSE equal to it, a
+    second launch bit for bit).  Returns {route: max abs err}."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    dt = str(q.dtype).split(".")[1]
+    tol = TOL[dt]
+    want, want_lse = fa_ref.attention_lse(q, k, v, causal=causal,
+                                          window=window)
+    route = fa.fwd_route(q, k)
+    before = fa_ops.flash_attention.routes[route]
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    if fa_ops.flash_attention.routes[route] != before + 1:
+        fail(f"{name}: the wrapper did not count its call on {route}")
+    errs = {route: check_close(torch, f"{name} {dt} [{route}]", got, want,
+                               tol)}
+    if q.dtype != torch.bfloat16:
+        return errs
+    for r in ("wgmma", "mma"):
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window, lse=True, route=r)
+        tag = f"{name} {dt} [{r}, LSE]"
+        errs[r] = max(errs.get(r, 0.0), check_close(torch, tag, o, want, tol))
+        check_rms(torch, f"{tag} lse", lse, want_lse, tol)
+        o2, lse2 = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, lse=True, route=r)
+        plain = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, route=r)
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and torch.equal(o, plain)):
+            fail(f"{tag}: two launches on the same inputs differ")
+        if r == route and not torch.equal(o, got):
+            fail(f"{name}: the wrapper's output is not the {r} launch's")
+    return errs
+
+
+def fa_graph_replay(torch, q, k, v, causal=True):
+    """The wgmma route captured into a CUDA graph (with the LSE) and
+    replayed on new inputs copied into the captured buffers, against an
+    eager launch on them, bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    def run():
+        return fa.flash_attention_cuda(q, k, v, causal=causal, lse=True,
+                                       route="wgmma")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = run()
+    news = [torch.randn_like(t, dtype=torch.float32).to(t.dtype)
+            for t in (q, k, v)]
+    for dst, src in zip((q, k, v), news):
+        dst.copy_(src)
+    graph.replay()
+    want, want_lse = fa.flash_attention_cuda(*news, causal=causal, lse=True,
+                                             route="wgmma")
+    torch.cuda.synchronize()
+    if not (torch.equal(o, want) and torch.equal(lse, want_lse)):
+        fail(f"flash_attention wgmma q {tuple(q.shape)}: a graph replay "
+             "differs from the eager launch")
+    del graph
+
+
+def fa_routes_timed(torch, q, k, v, causal=True, window=0, lse=False,
+                    iters=10):
+    """Device ms of each bf16 route forced on the same inputs, in turns
+    (wgmma, mma, mma, wgmma: the mean of each pair)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    ts = {"wgmma": [], "mma": []}
+    for r in ("wgmma", "mma", "mma", "wgmma"):
+        ts[r].append(time_ms(torch, lambda i, r=r: fa.flash_attention_cuda(
+            q, k, v, causal=causal, window=window, lse=lse, route=r), 1,
+            iters))
+    return {r: sum(t) / len(t) for r, t in ts.items()}
+
+
+def fa_sweep(torch) -> dict:
+    """``--only flash_attention``: both bf16 routes at Sq = FA_SWEEP (causal,
+    Sq = Skv, no LSE) at G = 7 (qwen2-7b's heads, B 4) and G = 1 (whisper's,
+    B 4), with the route ``fa_launch`` picks."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for tag, hq, hkv, D in (("G=7", 28, 4, 128), ("G=1", 8, 8, 64)):
+        for S in FA_SWEEP:
+            q, k, v = (torch.randn((4, S, h, D), generator=g, device="cuda")
+                       .to(torch.bfloat16) for h in (hq, hkv, hkv))
+            r = fa_routes_timed(torch, q, k, v, iters=20)
+            out[f"{tag} Sq={S}"] = dict(r, pick=fa.fwd_route(q, k))
+            log(f"  flash_attention sweep {tag} q (4,{S},{hq},{D}) causal: "
+                f"wgmma {r['wgmma']:.4f} ms, mma {r['mma']:.4f} ms; "
+                f"fa_launch picks {fa.fwd_route(q, k)}")
+    return out
+
+
+def phase_flash_attention(torch, cfg, sweep=False):
     """The prefill flash-attention kernel against ``ref.attention`` on the
-    card: the prefill wave, a ragged windowed shape and D = 16 in bf16 and
-    fp32, then bf16 over the tensor-core kernel's tile edges (every mix of
-    FA_GROUPS, FA_LENGTHS, FA_WINDOWS and FA_DIMS) and a FA_LONG-token
-    prompt.  Timed at the main path's prefill wave and at the long prompt
-    beside SDPA (K/V expanded to the query heads) and the roofline bound."""
+    card (``fa_held``: the wrapper's route and, in bf16, both routes forced,
+    with the LSE, bit for bit twice): the prefill wave, a ragged windowed
+    shape and D = 16 in bf16 and fp32, then bf16 over both routes' tile
+    edges (every mix of FA_GROUPS, FA_LENGTHS + FA_WG_LENGTHS, FA_WINDOWS
+    and FA_DIMS) and a FA_LONG-token prompt; a graph replay of the wgmma
+    route.  Timed at the main path's prefill wave and at the long prompt,
+    both routes on the same inputs, beside SDPA (K/V expanded to the query
+    heads) and the roofline bound; ``sweep``: the routes over FA_SWEEP."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -1166,10 +1285,14 @@ def phase_flash_attention(torch, cfg):
     def check(tag, dt, B, Sq, hq, hkv, D, w):
         q, k, v = (rnd((B, Sq, hq, D), dt), rnd((B, Sq, hkv, D), dt),
                    rnd((B, Sq, hkv, D), dt))
-        return check_close(torch, f"flash_attention {tag} {dt}",
-                           fa_ops.flash_attention(q, k, v, window=w),
-                           fa_ref.attention(q, k, v, window=w),
-                           TOL[str(dt).split(".")[1]])
+        return fa_held(torch, f"flash_attention {tag}", q, k, v, window=w)
+
+    def worst_of(errs):
+        out = {}
+        for e in errs:
+            for r, x in e.items():
+                out[r] = max(out.get(r, 0.0), x)
+        return out
 
     hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     worst = 0.0
@@ -1180,17 +1303,24 @@ def phase_flash_attention(torch, cfg):
         for dt in (torch.bfloat16, torch.float32):
             e = check(tag, dt, B, Sq, hq, hkv, D, w)
             if tag == "main" and dt == torch.bfloat16:
-                worst = e
-    edges = [(G, Sq, w, D) for G in FA_GROUPS for Sq in FA_LENGTHS
+                worst = e["mma"]
+    edges = [(G, Sq, w, D) for G in FA_GROUPS
+             for Sq in FA_LENGTHS + FA_WG_LENGTHS
              for w in FA_WINDOWS for D in FA_DIMS]
-    edge_worst = max(check(f"G={G} S={Sq} window={w} D={D}", torch.bfloat16,
-                           2, Sq, 2 * G, 2, D, w) for G, Sq, w, D in edges)
+    edge_worst = worst_of(check(f"G={G} S={Sq} window={w} D={D}",
+                                torch.bfloat16, 2, Sq, 2 * G, 2, D, w)
+                          for G, Sq, w, D in edges)
     long_err = check(f"long S={FA_LONG}", torch.bfloat16, 1, FA_LONG, Hq,
                      Hkv, hd, 0)
+    fa_graph_replay(torch, rnd((1, 640, Hq, hd), torch.bfloat16),
+                    rnd((1, 640, Hkv, hd), torch.bfloat16),
+                    rnd((1, 640, Hkv, hd), torch.bfloat16))
     log(f"phase 1: flash_attention matches at {len(cases)} shapes x 2 dtypes"
         f" (bf16 main max abs err {worst:.3g}), {len(edges)} bf16 tile-edge "
-        f"shapes (max abs err {edge_worst:.3g}) and the {FA_LONG}-token prompt"
-        f" ({long_err:.3g})")
+        f"shapes on both routes with the LSE (max abs err by route "
+        f"{edge_worst}) and the {FA_LONG}-token prompt ({long_err}), each "
+        f"bit for bit on a second launch; a graph replay of the wgmma route "
+        f"equals its eager launch")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     G = Hq // Hkv
@@ -1204,6 +1334,7 @@ def phase_flash_attention(torch, cfg):
         vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
         t_k = time_ms(torch, lambda i: fa_ops.flash_attention(q, k, v), 1,
                       iters)
+        by_route = fa_routes_timed(torch, q, k, v, iters=iters)
         t_p = time_ms(torch, lambda i: fa_ref.attention(q, k, v), 1, 5)
         t_l = time_ms(torch, lambda i: sdpa(qt, kt, vt, is_causal=True), 1,
                       iters)
@@ -1211,24 +1342,32 @@ def phase_flash_attention(torch, cfg):
         flops = 4 * B * Hq * hd * pairs
         b_ms, by = bound(2 * (2 * q.numel() + 2 * k.numel()), flops,
                          H100_BF16)
-        return t_k, t_p, t_l, b_ms, by, flops
+        return (t_k, by_route, fa.fwd_route(q, k), t_p, t_l, b_ms, by,
+                flops)
 
-    t_k, t_p, t_l, b_ms, by, _ = timings(SLOTS, PROMPT, 20)
+    t_k, t_r, route, t_p, t_l, b_ms, by, _ = timings(SLOTS, PROMPT, 20)
     log(f"  flash_attention bf16 ({SLOTS},{PROMPT},{Hq},{hd}): kernel_ms "
-        f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA on K/V "
-        f"expanded to {Hq} heads) bound_ms {b_ms:.5f} ({by})")
-    lt_k, lt_p, lt_l, lb_ms, lby, lflops = timings(1, FA_LONG, 10)
+        f"{t_k:.4f} on {route} (forced: wgmma {t_r['wgmma']:.4f}, mma "
+        f"{t_r['mma']:.4f}) plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA "
+        f"on K/V expanded to {Hq} heads) bound_ms {b_ms:.5f} ({by})")
+    lt_k, lt_r, lroute, lt_p, lt_l, lb_ms, lby, lflops = timings(
+        1, FA_LONG, 10)
     log(f"  flash_attention bf16 long (1,{FA_LONG},{Hq},{hd}) causal: "
-        f"kernel_ms {lt_k:.4f} ({lflops / lt_k / 1e9:.1f} TFLOP/s) plain_ms "
-        f"{lt_p:.4f} library_ms {lt_l:.4f} ({lflops / lt_l / 1e9:.1f} "
-        f"TFLOP/s) bound_ms {lb_ms:.5f} ({lby})")
-    return {"flash_attention": dict(
+        f"kernel_ms {lt_k:.4f} on {lroute} ({lflops / lt_k / 1e9:.1f} "
+        f"TFLOP/s; forced: wgmma {lt_r['wgmma']:.4f}, mma "
+        f"{lt_r['mma']:.4f}) plain_ms {lt_p:.4f} library_ms {lt_l:.4f} "
+        f"({lflops / lt_l / 1e9:.1f} TFLOP/s) bound_ms {lb_ms:.5f} ({lby})")
+    out = {"flash_attention": dict(
         shape=f"one layer of a prefill wave: q ({SLOTS},{PROMPT},{Hq},{hd}), "
               f"k/v ({SLOTS},{PROMPT},{Hkv},{hd}), causal, bf16; long: "
               f"q (1,{FA_LONG},{Hq},{hd})",
-        max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
-        bound_ms=b_ms, bound_by=by, long_ms=lt_k, long_library_ms=lt_l,
-        long_bound_ms=lb_ms)}
+        max_abs_err=worst, ms=t_k, route=route, plain_ms=t_p,
+        library_ms=t_l, bound_ms=b_ms, bound_by=by, route_ms=t_r,
+        long_ms=lt_k, long_route=lroute, long_route_ms=lt_r,
+        long_library_ms=lt_l, long_bound_ms=lb_ms, edge_worst=edge_worst)}
+    if sweep:
+        out["flash_attention"]["sweep"] = fa_sweep(torch)
+    return out
 
 
 def phase_decode_kernels(torch, cfg, prefix=0, label=""):
@@ -2265,7 +2404,8 @@ class TraceIncomplete(Exception):
 
 # the port's kernels a trace_check counts, by kind
 TRACE_KINDS = {"matmul": ("mm_mma", "mm_wgmma", "mm_skinny", "mm_tiled"),
-               "flash attention": ("fa_kernel", "fa_mma_kernel"),
+               "flash attention": ("fa_kernel", "fa_mma_kernel",
+                                   "fa_wgmma_kernel"),
                "decode attention": ("decode::kernel", "fd_tma::kernel")}
 
 
@@ -2827,6 +2967,7 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     just after; every request must complete.  ``after(engines)``, when
     given, runs on the fleet's engines once the checks pass.  Returns the
     run's record."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -2837,6 +2978,8 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     mm_ops.matmul.routes.update(dict.fromkeys(mm_ops.matmul.routes, 0))
     fd = fd_ops.flash_decode.routes
     fd.update(dict.fromkeys(fd, 0))
+    fa = fa_ops.flash_attention.routes
+    fa.update(dict.fromkeys(fa, 0))
     mm_ops.matmul.staged = 0
     for w in (pa_ops.paged_decode_sparse, pa_ops.paged_decode_quant):
         w.dropped_blocks.reset()
@@ -2849,7 +2992,7 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     routes = dict(mm_ops.matmul.routes)
-    fd_routes = dict(fd)
+    fd_routes, fa_routes = dict(fd), dict(fa)
     staged = mm_ops.matmul.staged
     dropped = {k: w.dropped_blocks.value for k, w in
                (("paged_decode_sparse", pa_ops.paged_decode_sparse),
@@ -2889,7 +3032,8 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
         f"per wall second), max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
         f"{launches}, matmul launches by route {routes} ({staged} staged), "
-        f"flash_decode launches by route {fd_routes}, dropped blocks "
+        f"flash_decode launches by route {fd_routes}, flash_attention "
+        f"launches by route {fa_routes}, dropped blocks "
         f"{dropped}; decode steps {graphs['eager']} eager, "
         f"{graphs['replays']} replayed, {graphs['captures']} captures in "
         f"{graphs['capture_s']:.3f} s; prefills ({prefills['shapes']} "
@@ -2899,8 +3043,8 @@ def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
     if after is not None:
         after(engines)
     return dict(launches=launches, routes=routes, fd_routes=fd_routes,
-                staged=staged, dropped=dropped, wall=wall, tokens=tokens,
-                graphs=graphs, prefills=prefills)
+                fa_routes=fa_routes, staged=staged, dropped=dropped,
+                wall=wall, tokens=tokens, graphs=graphs, prefills=prefills)
 
 
 def tma_decode_only(name, run) -> None:
@@ -2945,6 +3089,14 @@ def phase_serve(torch, cfg, wrappers):
                      f"run that carries it")
             if k == "flash_decode":
                 tma_decode_only(name, runs[name])
+    # every prompt here (32 or 64 rows, bf16) on the mma route, below
+    # FA_WGMMA_MIN_SQ: the serving wave (4 x 32) and the refills
+    for name, r in runs.items():
+        n = r["launches"]["flash_attention"]
+        if r["fa_routes"]["mma"] != n or n == 0:
+            fail(f"serve {name}: flash_attention launched {n} times, by "
+                 f"route {r['fa_routes']}: every serving prefill of 32 or 64 "
+                 "rows must take the mma route")
     # every prefill wave (M = slots x prompt > 16, bf16) on the tensor cores
     for name, r in runs.items():
         if r["routes"]["mma"] == 0 or r["routes"]["tiled"] != 0:
@@ -4057,6 +4209,7 @@ def phase_encdec_kernels(torch):
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     fa = dict(ms=time_ms(torch, lambda i: fa_ops.flash_attention(
         q, k, v, causal=False), 1),
+        route_ms=fa_routes_timed(torch, q, k, v, causal=False, iters=20),
         plain_ms=time_ms(torch, lambda i: fa_ref.attention(
             q, k, v, causal=False), 1, 5),
         library_ms=time_ms(torch, lambda i: sdpa(qt, kt, vt,
@@ -4069,7 +4222,9 @@ def phase_encdec_kernels(torch):
               tflops=flops / fa["ms"] / 1e9,
               max_abs_err=worst["flash_attention bidirectional bfloat16"])
     log(f"  flash_attention bidirectional bf16 ({SLOTS},{T},{H},{D}): "
-        f"kernel_ms {fa['ms']:.4f} ({fa['tflops']:.1f} TFLOP/s) plain_ms "
+        f"kernel_ms {fa['ms']:.4f} ({fa['tflops']:.1f} TFLOP/s; forced: "
+        f"wgmma {fa['route_ms']['wgmma']:.4f}, mma "
+        f"{fa['route_ms']['mma']:.4f}) plain_ms "
         f"{fa['plain_ms']:.4f} library_ms {fa['library_ms']:.4f} (SDPA, "
         f"is_causal=False) bound_ms {fa['bound_ms']:.5f} ({fa['bound_by']})")
 
@@ -4821,6 +4976,8 @@ def zero_counts(torch):
     bwd = fa_ops.flash_attention_backward
     bwd.kernels.update(dict.fromkeys(bwd.kernels, 0))
     bwd.routes.update(dict.fromkeys(bwd.routes, 0))
+    fwd = fa_ops.flash_attention.routes
+    fwd.update(dict.fromkeys(fwd, 0))
 
 
 def read_counts():
@@ -4832,7 +4989,8 @@ def read_counts():
                 routes=dict(mm_ops.matmul.routes),
                 staged=mm_ops.matmul.staged,
                 bwd_kernels=dict(fa_ops.flash_attention_backward.kernels),
-                bwd_routes=dict(fa_ops.flash_attention_backward.routes))
+                bwd_routes=dict(fa_ops.flash_attention_backward.routes),
+                fa_routes=dict(fa_ops.flash_attention.routes))
 
 
 def train_rnd(torch, seed):
@@ -4993,20 +5151,27 @@ def bwd_timed(torch, rnd, tag, shape):
         f"library_ms {t_lib:.4f} (SDPA forward + backward, K/V "
         f"expanded; its backward alone {t_lib_bwd:.4f}{masked}) bound_ms "
         f"{b_ms:.4f} ({by})")
-    # the forward with LSE at the same shape, beside its bound and SDPA's
+    # the forward with LSE at the same shape on its route, both routes
+    # forced on the same inputs in turns, beside its bound and SDPA's
     # forward (a window as the boolean mask)
     t_fwd = time_ms(torch, lambda i: fa.flash_attention_cuda(
         q, k, v, causal=causal, window=w, lse=True), 1, 10)
+    t_routes = fa_routes_timed(torch, q, k, v, causal=causal, window=w,
+                               lse=True)
     with torch.no_grad():
         t_sdpa_fwd = time_ms(torch, lambda i: sdpa(
             qt, kt, vt, attn_mask=mask) if w else sdpa(
             qt, kt, vt, is_causal=causal), 1, 10)
     f_ms, fby = bound(2 * (2 * q.numel() + 2 * k.numel())
                       + 4 * lse.numel(), fwd_flops, H100_BF16)
-    log(f"  the forward with LSE {tag} {t_fwd:.4f} ms (bound {f_ms:.4f}, "
-        f"{fby}: {fwd_flops / 1e9:.1f} GFLOP; SDPA's forward, K/V expanded, "
-        f"{t_sdpa_fwd:.4f})")
-    r.update(forward_lse_ms=t_fwd, forward_lse_bound_ms=f_ms,
+    f_route = fa.fwd_route(q, k)
+    log(f"  the forward with LSE {tag} {t_fwd:.4f} ms on {f_route} "
+        f"({fwd_flops / t_fwd / 1e9:.1f} TFLOP/s; forced: wgmma "
+        f"{t_routes['wgmma']:.4f}, mma {t_routes['mma']:.4f}; bound "
+        f"{f_ms:.4f}, {fby}: {fwd_flops / 1e9:.1f} GFLOP; SDPA's forward, "
+        f"K/V expanded, {t_sdpa_fwd:.4f})")
+    r.update(forward_lse_ms=t_fwd, forward_lse_route=f_route,
+             forward_lse_route_ms=t_routes, forward_lse_bound_ms=f_ms,
              forward_lse_bound_by=fby, forward_library_ms=t_sdpa_fwd)
     del q, k, v, do, o, lse, qt, kt, vt, dot, mask
     torch.cuda.empty_cache()
@@ -5747,6 +5912,9 @@ def counted(torch, name, want, fn):
     if counts["bwd_routes"]["wgmma"] != want["flash_attention_backward"]:
         fail(f"phase 3 [{name}]: backward routes {counts['bwd_routes']}: "
              "every bf16 backward should take wgmma")
+    if counts["fa_routes"]["wgmma"] != want["flash_attention"]:
+        fail(f"phase 3 [{name}]: forward routes {counts['fa_routes']}: every "
+             "bf16 training forward should take wgmma")
     return out, dict(counts, wall=wall,
                      peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
@@ -6311,11 +6479,13 @@ def spmd_partitioned_step(torch) -> dict:
             set(bwd.values()) != {want["flash_attention_backward"]} or \
             counts["bwd_routes"]["wgmma"] != \
             want["flash_attention_backward"] or \
+            counts["fa_routes"]["wgmma"] != want["flash_attention"] or \
             counts["routes"]["mma"] + counts["routes"]["wgmma"] != \
             want["matmul"]:
         fail(f"phase 3 [spmd]: launches {counts['launches']} (backward "
-             f"kernels {bwd}, routes {counts['bwd_routes']}, matmul routes "
-             f"{counts['routes']}), the code issues {want}")
+             f"kernels {bwd}, routes {counts['bwd_routes']}, forward routes "
+             f"{counts['fa_routes']}, matmul routes {counts['routes']}), the "
+             f"code issues {want}")
     if not all(math.isfinite(x) for row in losses for x in row):
         fail(f"phase 3 [spmd]: losses {losses}")
     smi = card_line()
@@ -6495,7 +6665,9 @@ SERVING_SOURCES = MATMUL_SOURCES + ["flash_attention", "paged_attention",
 TRAIN_SOURCES = MATMUL_SOURCES + ["flash_attention", "flash_attention_bwd"]
 ONLY = {"matmul": (MATMUL_SOURCES, lambda torch, cfg: phase_matmul(
             torch, cfg, sweep=True)),
-        "flash_attention": (["flash_attention"], phase_flash_attention),
+        "flash_attention": (["flash_attention"],
+                            lambda torch, cfg: phase_flash_attention(
+                                torch, cfg, sweep=True)),
         "decode_attention": (["paged_attention", "flash_decode"],
                              lambda torch, cfg: dict(
                                  phase_decode_kernels(torch, cfg),
@@ -6607,6 +6779,9 @@ def main() -> None:
             for fn, n_regs, spill in entries:
                 log(f"    {fn}: {n_regs} registers, {spill} bytes of spill "
                     "stores")
+            for line in r["ptxas"].splitlines():    # e.g. wgmma serialized
+                if "warning" in line.lower():
+                    log(f"    ptxas: {line.strip()}")
 
     cfg = get_config("qwen2-7b")
     if args.only:
@@ -6713,6 +6888,8 @@ def main() -> None:
     bwd = train_stats["flash_attention_backward"]
     stats["flash_attention"]["train"] = dict(
         shape=bwd["shape"], forward_lse_ms=bwd["forward_lse_ms"],
+        forward_lse_route=bwd["forward_lse_route"],
+        forward_lse_route_ms=bwd["forward_lse_route_ms"],
         forward_lse_bound_ms=bwd["forward_lse_bound_ms"],
         forward_library_ms=bwd["forward_library_ms"],
         lse_max_abs_err=bwd["errs"]["lse"])
@@ -6784,7 +6961,9 @@ def main() -> None:
                             "families", "train_families", "mma_ms",
                             "library_bwd_ms", "tflops", "tflops_layout",
                             "template_ms", "long_template_ms",
-                            "long_plain_ms", "hymba", "hymba_splits")
+                            "long_plain_ms", "hymba", "hymba_splits",
+                            "route", "long_route", "long_route_ms",
+                            "edge_worst", "sweep")
                            if key in s},
                         **({"routes_by_run": {
                             run: r["routes"] for run, r in runs.items()
@@ -6801,6 +6980,16 @@ def main() -> None:
                             run: r["fd_routes"] for run, r in runs.items()
                             if any(r.get("fd_routes", {}).values())}}
                            if name == "flash_decode" else {}),
+                        # over the runs that count the forward's routes
+                        # (the serve runs, the training runs, spmd)
+                        **({"launches_by_route": {
+                            k: sum(r.get("fa_routes", {}).get(k, 0)
+                                   for r in runs.values())
+                            for k in fa_ops.FWD_ROUTES},
+                            "routes_by_run": {
+                            run: r["fa_routes"] for run, r in runs.items()
+                            if any(r.get("fa_routes", {}).values())}}
+                           if name == "flash_attention" else {}),
                         **({"routes": {
                             run: r["conv_routes"] for run, r in runs.items()
                             if "conv_routes" in r}} if name == "conv2d"

@@ -107,7 +107,7 @@
 #include <climits>
 #include <initializer_list>
 
-#include "hopper.cuh"
+#include "attention_tma.cuh"
 
 namespace {
 
@@ -418,36 +418,8 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int WG = 128;              // threads of a warpgroup
-constexpr int FB_THREADS = 2 * WG + 32;   // consumers 0-255, the producer
-                                          // warp 256-287
-constexpr int BOX = 64 * 128;        // bytes of a TMA box: 64 rows of 64 bf16
-                                     // (one 128-byte swizzle line a row)
 constexpr int FB_STATS = 1024;       // a stage's LSE and Delta (2 x 64 f32),
                                      // padded to keep the tiles 1024-aligned
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Skv,
-                                        int window, int causal) {
-  return qi < Sq && kj < Skv && (!causal || qi >= kj) &&
-         (window <= 0 || qi - kj < window);
-}
-
-// every (query, key) of the tiles [q0, q0 + 64) x [k0, k0 + 64) visible
-__device__ __forceinline__ bool tile_full(int q0, int k0, int Sq, int Skv,
-                                          int window, int causal) {
-  return q0 + 64 <= Sq && k0 + 64 <= Skv && (!causal || q0 >= k0 + 63) &&
-         (window <= 0 || q0 + 63 - k0 < window);
-}
-
-// some (query, key) of rows [r0, r0 + 64) x keys [k0, k0 + 64) visible (the
-// differences q - k of the two ranges form one interval)
-__device__ __forceinline__ bool tile_any(int r0, int k0, int Sq, int Skv,
-                                         int window, int causal) {
-  if (r0 >= Sq || k0 >= Skv) return false;
-  const int r1 = min(r0 + 63, Sq - 1), k1 = min(k0 + 63, Skv - 1);
-  return (!causal || r1 >= k0) && (window <= 0 || r0 - k1 < window);
-}
 
 // x0, x1 ~ hi + lo, each a bf16 pair (nearest even): lo carries the
 // rounding error of hi, so hi + lo is x within 2^-16 of its value
@@ -999,18 +971,6 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// above 48 KB of dynamic shared memory needs an opt-in, once per kernel
-template <typename K>
-int allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  done = true;
-  return 0;
-}
-
 template <int E>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
@@ -1059,26 +1019,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       delta, static_cast<float*>(dq), Sq, Skv, Hq, Hkv, D, window, causal,
       1.f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
-}
-
-// the map of a (B, S, H, D) bf16 tensor as (D, H, S, B), boxes of 64
-// columns x 1 head x 64 rows x 1 batch, 128-byte swizzle; columns past D
-// and rows past S read as zeros
-bool encode_bshd(CUtensorMap* map, const void* p, int B, int S, int H,
-                 int D) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * sizeof(bf16),
-                                 (cuuint64_t)H * D * sizeof(bf16),
-                                 (cuuint64_t)S * H * D * sizeof(bf16)};
-  const cuuint32_t box[4] = {64u, 1u, 64u, 1u};
-  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct Maps {

@@ -2,7 +2,10 @@
 
 ``flash_attention``: a CPU tensor goes to the plain version
 (``ref.attention``); a CUDA tensor launches the CUDA kernel and adds one to
-``flash_attention.launches``.  Where grad is enabled and an input requires
+``flash_attention.launches`` and one to its route's count in
+``flash_attention.routes`` (``fwd_route``: ``wgmma`` for bf16 from 256
+query rows, 768 at D <= 64, ``mma`` for shorter bf16 calls,
+``cuda_cores`` for f32).  Where grad is enabled and an input requires
 it (training), the call goes through ``FlashAttention``, an autograd
 Function: its forward is ``flash_attention_lse`` (the same kernel, also
 writing each row's log-sum-exp; one launch, counted as above) and its
@@ -19,8 +22,9 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .flash_attention import (BWD_KERNELS, BWD_ROUTES, bwd_route,
-                              flash_attention_bwd_cuda, flash_attention_cuda)
+from .flash_attention import (BWD_KERNELS, BWD_ROUTES, FWD_ROUTES, bwd_route,
+                              flash_attention_bwd_cuda, flash_attention_cuda,
+                              fwd_route)
 
 
 def _device(q) -> str:
@@ -39,11 +43,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _device(q) == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
-    flash_attention.launches += 1
+    _count(q, k)
     return out
 
 
-flash_attention.launches = 0
+def _count(q, k):
+    flash_attention.launches += 1
+    flash_attention.routes[fwd_route(q, k)] += 1
+
+
+flash_attention.launches = 0                               # calls
+flash_attention.routes = dict.fromkeys(FWD_ROUTES, 0)      # calls
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
@@ -52,7 +62,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
         return ref.attention_lse(q, k, v, causal=causal, window=window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                lse=True)
-    flash_attention.launches += 1
+    _count(q, k)
     return out
 
 

@@ -58,7 +58,8 @@ MODES = ("eager", "graph")
 # the __global__ functions of kernels/csrc, as the profiler names them
 PORT_KERNEL = re.compile(r"\b(mm_mma|mm_wgmma|mm_skinny|mm_tiled|"
                          r"split_reduce|"
-                         r"fa_kernel|fa_mma_kernel|fa_bwd_delta(?:_wgmma)?|"
+                         r"fa_kernel|fa_mma_kernel|fa_wgmma_kernel|"
+                         r"fa_bwd_delta(?:_wgmma)?|"
                          r"fa_bwd_dkdv(?:_wgmma)?|fa_bwd_dq(?:_wgmma)?|"
                          r"decode::kernel|fd_tma::kernel|"
                          r"decode::combine|conv_igemm|conv_mma)\b")

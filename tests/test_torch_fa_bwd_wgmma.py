@@ -21,117 +21,23 @@ here in numpy:
   SM) against an even split, beside the layout of 128 keys a CTA;
 * the wrapper's route and its count by route.
 
-The bf16 rounding points in the walk's order are held in
-``tests/test_torch_train_kernels.py`` (``_emulated_bf16_backward``).
+The model of boxes, swizzle and descriptors is
+``tests/_torch_wgmma_model.py``, shared with the forward's
+(``tests/test_torch_fa_fwd_wgmma.py``).  The bf16 rounding points in the
+walk's order are held in ``tests/test_torch_train_kernels.py``
+(``_emulated_bf16_backward``).
 """
-import heapq
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_wgmma_model import (BOX, H100_SMS, box, dc_of, kmajor, makespan,
+                                mnmajor, rs, ss, tile, tile_any, visible)
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
-
-LINE = 128                   # bytes a swizzle line (64 bf16)
-BOX = 64 * LINE              # a TMA box: 64 lines
-H100_SMS = 132
-
-
-def swizzle(addr):
-    """The 128-byte swizzle TMA writes and wgmma reads: the 16-byte chunk
-    within a line XOR the line within 8 (addresses from a 1024-aligned
-    base)."""
-    return addr ^ (((addr >> 7) & 7) << 4)
-
-
-def box(t, c0, h, r0, b):
-    """The TMA box at (c0, h, r0, b) of the (D, H, S, B) view of t (B, S,
-    H, D): rows r0 .. r0 + 63 by columns c0 .. c0 + 63 of head h, zeros past
-    S and D."""
-    B, S, H, D = t.shape
-    out = np.zeros((64, 64))
-    if r0 < S and c0 < D:
-        rows, cols = min(64, S - r0), min(64, D - c0)
-        out[:rows, :cols] = t[b, r0:r0 + rows, h, c0:c0 + cols]
-    return out
-
-
-def place(img, at, val):
-    """Write a 64 x 64 box at byte ``at`` (a multiple of 1024) of a shared
-    memory image (one slot a bf16), swizzled as TMA writes it."""
-    r, i = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
-    img[(at + swizzle(r * LINE + 2 * i)) // 2] = val
-
-
-def tile(t, DC, h, r0, b, halves=1):
-    """A tile as the kernels' producer loads it: ``halves`` x 64 rows from
-    r0, each DC boxes of 64 columns, box (w, c) at (w DC + c) BOX."""
-    img = np.full(halves * DC * BOX // 2, np.nan)
-    for w in range(halves):
-        for c in range(DC):
-            place(img, (w * DC + c) * BOX, box(t, 64 * c, h, r0 + 64 * w, b))
-    assert not np.isnan(img).any()
-    return img
-
-
-def kmajor(img, start, rows=64):
-    """The (rows, 16) K slice a K-major descriptor at byte ``start`` reads
-    (SBO 1024: 8 lines of 128 bytes)."""
-    r, k = np.meshgrid(np.arange(rows), np.arange(16), indexing="ij")
-    return img[swizzle(start + (r // 8) * 1024 + (r % 8) * LINE + 2 * k) // 2]
-
-
-def mnmajor(img, start, n):
-    """The (n, 16) slice an MN-major B descriptor at byte ``start`` reads
-    (LBO BOX: the stride of 64-column atoms along N; SBO 1024)."""
-    r, k = np.meshgrid(np.arange(n), np.arange(16), indexing="ij")
-    addr = (start + (r // 64) * BOX + (k // 8) * 1024 + (k % 8) * LINE
-            + (r % 64) * 2)
-    return img[swizzle(addr) // 2]
-
-
-def ss(a_img, a0, b_img, b0, DC):
-    """A B^T (64 x 64) over 64 DC columns, both operands K-major: the
-    kernels' two_abt, slice (c, kk) at c BOX + 32 kk."""
-    out = np.zeros((64, 64))
-    for c in range(DC):
-        for kk in range(4):
-            off = c * BOX + kk * 32
-            out += kmajor(a_img, a0 + off) @ kmajor(b_img, b0 + off).T
-    return out
-
-
-def rs(frag, b_img, DC):
-    """frag (64 x 64, registers) @ B (64 lines x 64 DC, MN-major): the
-    kernels' acc_hi_lo, slice kk 16 lines (2048 bytes) on."""
-    out = np.zeros((64, 64 * DC))
-    for kk in range(4):
-        out += frag[:, 16 * kk:16 * kk + 16] @ mnmajor(b_img, kk * 2048,
-                                                       64 * DC).T
-    return out
-
-
-def visible(qi, kj, Sq, Skv, window, causal):
-    ok = (qi < Sq) & (kj < Skv)
-    if causal:
-        ok &= qi >= kj
-    if window > 0:
-        ok &= qi - kj < window
-    return ok
-
-
-def tile_any(r0, k0, Sq, Skv, window, causal):
-    if r0 >= Sq or k0 >= Skv:
-        return False
-    r1, k1 = min(r0 + 63, Sq - 1), min(k0 + 63, Skv - 1)
-    return (not causal or r1 >= k0) and (window <= 0 or r0 - k1 < window)
-
-
-def dc_of(D):
-    return 1 if D <= 64 else 2
 
 
 def emulate_rows(q, k, v, do, lse, delta, causal, window, dq_out):
@@ -359,15 +265,6 @@ def test_float64_backward_is_the_plain_versions():
 # ---------------------------------------------------------------------------
 # the causal balance of the dK / dV grid
 # ---------------------------------------------------------------------------
-
-
-def makespan(jobs, sms=H100_SMS):
-    """Blocks taken in launch order, each by the SM that frees first (one
-    CTA an SM): the time the last one ends."""
-    free = [0.0] * sms
-    for j in jobs:
-        heapq.heappush(free, heapq.heappop(free) + j)
-    return max(free)
 
 
 def dkdv_walks(Sq, G, Hkv, keys):
