@@ -17,7 +17,9 @@ times the tma route's split counts at whisper's, hymba's and
 qwen2-7b's dense shapes (``fd_sweep``).  ``--only conv2d`` does the same
 for ``conv2d.cu``, with the conv shapes taken from shape-only batch-1 CPU
 forwards of the three CNNs (``profiling/conv2d_ab.conv_shapes``), and also
-times the tensor-core route at forced column tiles and split counts.
+times the two tensor-core routes over M at ResNet-50's shapes (the
+crossing ``plan.wgmma_wins`` rests on) and at forced column tiles and
+split counts.
 ``--only serving_graph`` builds the four sources of the serving path
 (``matmul.cu``, ``flash_attention.cu``, ``paged_attention.cu``,
 ``flash_decode.cu``), runs phase 2's CUDA-graph checks and then
@@ -83,14 +85,18 @@ Phases (each raises on failure; nothing is caught):
    call's (a yardstick the port never calls) and its roofline bound.
    conv2d is held to its plain version at every distinct conv shape of
    ResNet-50 at 224 (20), GoogLeNet's 5x5 branch shapes and VGG-16's
-   first conv, bf16 (3e-2) and fp32 (2e-4), plus a ragged shape; over the
-   tensor-core tiles' edges (CONV_EDGE_*); at forced splits and column
-   tiles on each route; with operands that must take the CUDA cores; and
-   by two launches of each tensor-core plan (bit for bit).  It is timed
-   at ResNet-50's shapes at batch 64 on the plan's route and on the CUDA
-   cores beside the plain version and ``F.conv2d`` (channels_last, TF32
-   off; TF32 on logged for information), cycling over input sets that
-   overflow the L2.  These checks take their shapes from what phase 2's
+   first conv, bf16 (3e-2) and fp32 (2e-4), plus a ragged shape, through
+   the wrapper (the plan's route) and, at ResNet-50's, on each
+   tensor-core route forced (``wgmma``, the warpgroup kernel fed by TMA's
+   im2col loads, and ``mma``); over both routes' tile edges (CONV_EDGE_*,
+   CONV_WG_EDGE_*); at forced splits and column tiles on each route; with
+   operands that must take the CUDA cores; by two launches of each
+   ``wgmma`` plan and of a set of ``mma`` plans (bit for bit); and by a
+   ``wgmma`` launch captured in a CUDA graph (its replay equal to the
+   eager launch).  It is timed at ResNet-50's shapes at batch 64 on the
+   plan's route and on each route forced beside the plain version and
+   ``F.conv2d`` (channels_last, TF32 off; TF32 on logged for
+   information), cycling over input sets that overflow the L2.  These checks take their shapes from what phase 2's
    CPU forwards passed to the conv2d wrapper, so they run after it.
    The matmul and flash attention are also held at the shapes of the
    eleventh slice's configs (FAMILY_RUNS), bf16 and fp32: every
@@ -313,8 +319,9 @@ Phases (each raises on failure; nothing is caught):
    output's scale), one times the kernels inside the forward with CUDA
    events, then the timed forwards (device ms per forward, images/s, peak
    memory, the conv2d and matmul launches per forward, which must equal
-   the op tables' 53+1, 57+1, 13+3, with every conv but the C = 3 stem,
-   52 / 56 / 12, on the tensor cores), and ``repro_torch.core.shaping_sim
+   the op tables' 53+1, 57+1, 13+3, with every conv but the C = 3 stem
+   on the tensor cores and each route's launches the plan's
+   (CNN_CONV_ROUTES: ``wgmma`` 47 / 44 / 12, ``mma`` 5 / 12 / 0), and ``repro_torch.core.shaping_sim
    .partition_sweep`` reproduces the paper's Fig. 5 sweep for each net on
    the host, held to the reference's own reproduction gates.
 4. The cluster on the card, at full-width bf16 qwen2-7b (seed 0), after
@@ -440,8 +447,19 @@ CONV_EDGE_CS = (8, 16, 24, 64)
 CONV_EDGE_HS = (9, 12, 13)
 CONV_EDGE_KOUT = (8, 72, 200)
 CONV_SWEEP = (1, 2, 3, 4, 6, 8)
-# conv2d launches per forward on the tensor cores: all but the C = 3 stem
-CNN_CONV_MMA = {"resnet50": 52, "googlenet": 56, "vgg16": 12}
+# the warpgroup route's tiles (128 rows, 128 / 256 columns, a depth step one
+# 128-byte line of channels): C whole lines in one dtype or both, Cout
+# inside, at and past its column tiles
+CONV_WG_EDGE_CS = (32, 64, 96, 128)
+CONV_WG_EDGE_KOUT = (8, 136, 264, 520)
+# the crossing sweep's batches (``--only conv2d``): M from one image to
+# the CNNs' batch
+CONV_CROSS_BATCHES = (1, 2, 4, 8, 16, 32, 64)
+# conv2d launches per forward at batch 64 in fp32, by route, as the plan
+# takes them
+CNN_CONV_ROUTES = {"resnet50": {"wgmma": 47, "mma": 5, "cuda_core": 1},
+                   "googlenet": {"wgmma": 44, "mma": 12, "cuda_core": 1},
+                   "vgg16": {"wgmma": 12, "mma": 0, "cuda_core": 1}}
 SWEEP_BATCH = 64             # its total batch (benchmarks/common.py SIM_KW)
 
 SERVE_ARGS = ["--arch", "qwen2-7b", "--partitions", "2", "--stagger",
@@ -1813,17 +1831,26 @@ def phase_conv_kernel(torch, shapes, sweep=False):
     to the wrapper (``shapes``: {net: {(H, Cin, Cout, k, stride): calls per
     forward}}): every distinct shape of ResNet-50 at 224, GoogLeNet's 5x5
     branch shapes and VGG-16's first conv, bf16 and fp32 at batch
-    ``CNN_CHECK_BATCH``, plus a ragged shape; the tensor-core tiles' edges
-    (CONV_EDGE_*: ragged M, Cout and R; C 8 / 16 / 24 / 64; strides 1 and
-    2; 1x1 to 7x7); forced splits and column tiles on each route; operands
-    that must take the CUDA cores (C = 3, bf16 C = 12, Cout = 70, x or w
-    off a 16-byte boundary); each tensor-core plan twice on the same
-    inputs, bit for bit.  Then ResNet-50's shapes timed at batch 64 on each
-    route beside the plain version and ``F.conv2d`` (TF32 off; TF32 on
+    ``CNN_CHECK_BATCH``, plus a ragged shape, through the wrapper (which
+    must take the plan's route) and on each tensor-core route forced
+    (``wgmma`` where TMA reads the operands, ``mma`` where ``cp.async``
+    stages them); the tensor-core tiles' edges (CONV_EDGE_*: ragged M, Cout
+    and R; C 8 / 16 / 24 / 64; strides 1 and 2; 1x1 to 7x7) and the
+    warpgroup route's (CONV_WG_EDGE_*: C a whole 128-byte line, Cout past
+    its 128- and 256-column tiles), each route forced; forced splits and
+    column tiles on each route; operands that must take the CUDA cores (C
+    = 3, bf16 C = 12, Cout = 70, x or w off a 16-byte boundary); each
+    ``wgmma`` plan and a set of ``mma`` plans twice on the same inputs,
+    bit for bit; one ``wgmma`` launch a dtype captured in a CUDA graph,
+    its replay equal to the eager launch.  Then ResNet-50's shapes timed at
+    batch 64 through the wrapper (the plan's route) and on each route
+    forced, beside the plain version and ``F.conv2d`` (TF32 off; TF32 on
     logged for information only: another function), each cycling over
     input sets that together overflow the L2, as the forward reads each
-    layer's weights once.  ``sweep`` also times the tensor-core route at
-    forced column tiles and split counts on the 28x28 to 7x7 stages."""
+    layer's weights once.  ``sweep`` also times the two tensor-core routes
+    over M (the batch) at each ResNet-50 shape, the crossing the plan's
+    ``wgmma_wins`` rests on, and each route at forced column tiles and
+    split counts at the stride-1 shapes."""
     import itertools
 
     import torch.nn.functional as F
@@ -1848,6 +1875,22 @@ def phase_conv_kernel(torch, shapes, sweep=False):
         return cv_ref.conv2d(cv_ops.pad_same(x, w.shape[0], w.shape[1], st),
                              w, stride=st)
 
+    def legal(C, K, k, st, dt):
+        """The tensor-core routes that can take fresh (aligned) operands."""
+        bf16 = dt == bf
+        return [r for r, ok in (
+            ("wgmma", cv_plan.tma_legal(C, K, k, k, st, bf16=bf16)),
+            ("mma", cv_plan.aligned(C, K, bf16=bf16))) if ok]
+
+    def route_of(N, H, C, K, k, st, dt):
+        """The route the plan must pick for fresh operands of this shape."""
+        Ho = -(-H // st)
+        M, R = N * Ho * Ho, k * k * C
+        ok = legal(C, K, k, st, dt)
+        if "wgmma" in ok and cv_plan.wgmma_wins(M, K, R, bf16=dt == bf):
+            return "wgmma"
+        return "mma" if "mma" in ok else "cuda_core"
+
     def routed(tag, x, w, st, route, padding="SAME"):
         """The wrapper's output; fails unless it took ``route``."""
         before = dict(cv_ops.conv2d.routes)
@@ -1858,6 +1901,25 @@ def phase_conv_kernel(torch, shapes, sweep=False):
             fail(f"conv2d {tag}: took route {took}, expected {route}")
         return got
 
+    n_bits = 0
+
+    def held(tag, xp, w, st, want, dt, worst, **force):
+        """Each tensor-core route the operands allow, forced, against the
+        plain version; ``wgmma`` twice, bit for bit."""
+        nonlocal n_bits
+        C, K, k = xp.shape[3], w.shape[3], w.shape[0]
+        for route in legal(C, K, k, st, dt):
+            p = cv_k.plan_for(xp, w, stride=st, route=route, **force)
+            got = cv_k.launch(xp, w, p, stride=st)
+            e = check_close(torch, f"conv2d {tag} {dt} ({p})", got, want,
+                            TOL[name_of[dt]])
+            worst[route][dt] = max(worst[route][dt], e)
+            if route == "wgmma":
+                if not torch.equal(got, cv_k.launch(xp, w, p, stride=st)):
+                    fail(f"conv2d {tag} {dt} ({p}): two launches on the "
+                         "same inputs differ")
+                n_bits += 1
+
     resnet = shapes["resnet50"]
     if len(resnet) != 20 or sum(resnet.values()) != 53:
         fail(f"conv2d: ResNet-50 passed {len(resnet)} distinct conv shapes and "
@@ -1865,43 +1927,66 @@ def phase_conv_kernel(torch, shapes, sweep=False):
     extra = sorted({sh for sh in shapes["googlenet"] if sh[3] == 5}
                    | {sh for sh in shapes["vgg16"] if sh[1] == 3})
     worst = {bf: 0.0, f32: 0.0}
+    route_worst = {r: {bf: 0.0, f32: 0.0} for r in ("wgmma", "mma")}
     cases = [(CNN_CHECK_BATCH, *sh) for sh in sorted(resnet)] + \
         [(CNN_CHECK_BATCH, *sh) for sh in extra] + \
         [(3, 13, 5, 70, 3, 2)]                      # ragged M, R and K
     for N, H, C, K, k, st in cases:
         for dt in (bf, f32):
             x, w = operands(N, H, C, K, k, dt)
-            route = "mma" if cv_plan.aligned(C, K, bf16=dt == bf) \
-                else "cuda_core"
+            want = want_of(x, w, st)
             e = check_close(torch, f"conv2d {(N, H, C, K, k, st)} {dt}",
-                            routed((N, H, C, K, k, st), x, w, st, route),
-                            want_of(x, w, st), TOL[name_of[dt]])
+                            routed((N, H, C, K, k, st), x, w, st,
+                                   route_of(N, H, C, K, k, st, dt)),
+                            want, TOL[name_of[dt]])
             if (H, C, K, k, st) in resnet:
                 worst[dt] = max(worst[dt], e)
-            del x, w
+                held((N, H, C, K, k, st), cv_ops.pad_same(x, k, k, st), w,
+                     st, want, dt, route_worst)
+            del x, w, want
     log(f"phase 1: conv2d matches its plain version at {len(cases)} shapes "
         f"(ResNet-50's {len(resnet)}, GoogLeNet's 5x5 and VGG-16's first "
-        f"{extra}, one ragged) x 2 dtypes, batch {CNN_CHECK_BATCH} (max abs "
-        f"err at ResNet-50's shapes: fp32 {worst[f32]:.3g}, bf16 "
-        f"{worst[bf]:.3g})")
+        f"{extra}, one ragged) x 2 dtypes, batch {CNN_CHECK_BATCH}, on the "
+        f"plan's route (max abs err at ResNet-50's shapes: fp32 "
+        f"{worst[f32]:.3g}, bf16 {worst[bf]:.3g}); ResNet-50's on each "
+        f"route forced: " + ", ".join(
+            f"{r} fp32 {route_worst[r][f32]:.3g} bf16 {route_worst[r][bf]:.3g}"
+            for r in route_worst))
 
     # the tensor-core tiles' edges: M around a 128-row tile, Cout around
-    # the 64 / 128 column tiles, R not whole 64 (bf16) / 32 (f32) steps
+    # the 64 / 128 / 256 column tiles, R not whole 64 (bf16) / 32 (f32)
+    # steps (mma); whole 128-byte channel lines with the same M, k and
+    # strides and Cout past 128 and 256 columns (wgmma)
     edges = [(1 + i % 2, CONV_EDGE_HS[i % 3], C, CONV_EDGE_KOUT[i // 2 % 3],
               k, st) for i, (k, C, st) in enumerate(itertools.product(
                   CONV_EDGE_TAPS, CONV_EDGE_CS, (1, 2)))]
-    edge_worst = {bf: 0.0, f32: 0.0}
+    edges += [(1 + i % 2, CONV_EDGE_HS[i % 3], C,
+               CONV_WG_EDGE_KOUT[i // 2 % 4], k, st)
+              for i, (k, C, st) in enumerate(itertools.product(
+                  CONV_EDGE_TAPS, CONV_WG_EDGE_CS, (1, 2)))]
+    edge_worst = {r: {bf: 0.0, f32: 0.0} for r in ("wgmma", "mma")}
+    n_edge = 0
     for N, H, C, K, k, st in edges:
         for dt in (bf, f32):
+            if not legal(C, K, k, st, dt):
+                continue
             x, w = operands(N, H, C, K, k, dt)
-            e = check_close(torch, f"conv2d edge {(N, H, C, K, k, st)} {dt}",
-                            routed((N, H, C, K, k, st), x, w, st, "mma"),
-                            want_of(x, w, st), TOL[name_of[dt]])
-            edge_worst[dt] = max(edge_worst[dt], e)
+            want = want_of(x, w, st)
+            check_close(torch, f"conv2d edge {(N, H, C, K, k, st)} {dt}",
+                        routed((N, H, C, K, k, st), x, w, st,
+                               route_of(N, H, C, K, k, st, dt)),
+                        want, TOL[name_of[dt]])
+            held(f"edge {(N, H, C, K, k, st)}", cv_ops.pad_same(x, k, k, st),
+                 w, st, want, dt, edge_worst)
+            n_edge += 1
+            del x, w, want
     # forced splits and column tiles on each route (the last split count
     # more than the depth steps; the CUDA cores hold any count to 1)
     n_forced = 0
     for route, (N, H, C, K, k, st) in (
+            ("wgmma", (CNN_CHECK_BATCH, 7, 512, 512, 3, 1)),
+            ("wgmma", (3, 13, 64, 264, 5, 2)),
+            ("wgmma", (CNN_BATCH, 7, 512, 512, 3, 1)),
             ("mma", (CNN_CHECK_BATCH, 7, 512, 512, 3, 1)),
             ("mma", (3, 13, 24, 72, 5, 2)),
             ("mma", (CNN_BATCH, 7, 512, 512, 3, 1)),
@@ -1910,16 +1995,20 @@ def phase_conv_kernel(torch, shapes, sweep=False):
             x, w = operands(N, H, C, K, k, dt)
             xp = cv_ops.pad_same(x, k, k, st)
             want = cv_ref.conv2d(xp, w, stride=st)
-            for splits, bn in itertools.product(
-                    (1, 2, 3, 7, 10_000),
-                    cv_plan.MMA_BNS if route == "mma" else (None,)):
+            bns = {"wgmma": cv_plan.WG_BNS, "mma": cv_plan.MMA_BNS}.get(
+                route, (None,))
+            for splits, bn in itertools.product((1, 2, 3, 7, 10_000), bns):
                 p = cv_k.plan_for(xp, w, stride=st, route=route,
                                   splits=splits, bn=bn)
                 if route == "cuda_core" and p.splits != 1:
                     fail(f"conv2d cuda_core plan {p}: splits past 1")
+                got = cv_k.launch(xp, w, p, stride=st)
                 check_close(torch, f"conv2d {route} {(N, H, C, K, k, st)} "
-                            f"{dt} {p}", cv_k.launch(xp, w, p, stride=st),
-                            want, TOL[name_of[dt]])
+                            f"{dt} {p}", got, want, TOL[name_of[dt]])
+                if route == "wgmma" and not torch.equal(
+                        got, cv_k.launch(xp, w, p, stride=st)):
+                    fail(f"conv2d {(N, H, C, K, k, st)} {dt} ({p}): two "
+                         "launches on the same inputs differ")
                 n_forced += 1
             del x, w, xp, want
     # operands the tensor cores cannot stage: the plan sends them to the
@@ -1950,8 +2039,7 @@ def phase_conv_kernel(torch, shapes, sweep=False):
                                         padding="VALID"),
                         cv_ref.conv2d(x, w, stride=1), TOL[name_of[dt]])
             n_cc += 1
-    # each tensor-core plan twice on the same inputs: bit for bit
-    n_bits = 0
+    # mma plans twice on the same inputs: bit for bit
     for (N, H, C, K, k, st), splits, bn in (
             ((CNN_BATCH, 7, 512, 512, 3, 1), None, None),   # split 2
             ((CNN_CHECK_BATCH, 28, 128, 128, 3, 1), 1, 128),
@@ -1962,27 +2050,48 @@ def phase_conv_kernel(torch, shapes, sweep=False):
         for dt in (bf, f32):
             x, w = operands(N, H, C, K, k, dt)
             xp = cv_ops.pad_same(x, k, k, st)
-            p = cv_k.plan_for(xp, w, stride=st, splits=splits, bn=bn)
-            if p.route != "mma" or not torch.equal(
-                    cv_k.launch(xp, w, p, stride=st),
-                    cv_k.launch(xp, w, p, stride=st)):
+            p = cv_k.plan_for(xp, w, stride=st, route="mma", splits=splits,
+                              bn=bn)
+            if not torch.equal(cv_k.launch(xp, w, p, stride=st),
+                               cv_k.launch(xp, w, p, stride=st)):
                 fail(f"conv2d {(N, H, C, K, k, st)} {dt} ({p}): two launches "
                      "on the same inputs differ")
             n_bits += 1
             del x, w, xp
-    log(f"phase 1: conv2d matches its plain version at {len(edges)} tile-edge "
-        f"shapes x 2 dtypes on the tensor cores (max abs err fp32 "
-        f"{edge_worst[f32]:.3g}, bf16 {edge_worst[bf]:.3g}), {n_forced} "
-        f"forced plans, {n_cc} operands the plan sends to the CUDA cores; "
-        f"{n_bits} tensor-core plans are bitwise repeatable")
+    # a wgmma launch captured in a CUDA graph (its maps passed by value,
+    # the f32 weights split inside the graph): the replay equals the eager
+    # launch
+    for dt in (bf, f32):
+        x, w = operands(CNN_CHECK_BATCH, 14, 256, 256, 3, dt)
+        xp = cv_ops.pad_same(x, 3, 3, 1)
+        p = cv_k.plan_for(xp, w, stride=1, route="wgmma", splits=2)
+        eager = cv_k.launch(xp, w, p, stride=1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = cv_k.launch(xp, w, p, stride=1)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(captured, eager):
+            fail(f"conv2d wgmma {dt} ({p}): a graph replay differs from the "
+                 "eager launch")
+        del graph, captured, eager, x, w, xp
+    log(f"phase 1: conv2d matches its plain version at {n_edge} tile-edge "
+        f"shape x dtype cases on each tensor-core route they allow (max abs "
+        f"err " + ", ".join(f"{r} fp32 {edge_worst[r][f32]:.3g} bf16 "
+                            f"{edge_worst[r][bf]:.3g}" for r in edge_worst)
+        + f"), {n_forced} forced plans, {n_cc} operands the plan sends to "
+        f"the CUDA cores; {n_bits} tensor-core plans are bitwise repeatable; "
+        f"a captured wgmma launch a dtype replays bit for bit")
 
     # one ResNet-50 forward's convs at batch 64, each shape timed on the
-    # input the wrapper would pad: kernel on the plan's route (through the
-    # wrapper, VALID on the padded input) and on the CUDA cores, plain
+    # input the wrapper would pad: kernel through the wrapper (the plan's
+    # route, VALID on the padded input) and on each route forced, plain
     # version, F.conv2d on channels_last tensors
-    keys = ("ms", "cuda_core", "plain", "lib", "lib_tf32", "bound",
+    routes = ("wgmma", "mma", "cuda_core")
+    keys = ("ms", *routes, "plain", "lib", "lib_tf32", "bound",
             "bound_cuda_core", "bound_bytes", "bound_operations")
     tot = {dt: dict.fromkeys(keys, 0.0) for dt in (f32, bf)}
+    per_shape = {}
     for (H, C, K, k, st), calls in sorted(resnet.items()):
         line = []
         for dt in (f32, bf):
@@ -2000,10 +2109,16 @@ def phase_conv_kernel(torch, shapes, sweep=False):
             p = cv_k.plan_for(sets[0][0], sets[0][1], stride=st)
             t = dict(ms=time_ms(torch, lambda i: cv_ops.conv2d(
                 sets[i][0], sets[i][1], stride=st, padding="VALID"), n, 2 * n))
-            pc = cv_k.plan_for(sets[0][0], sets[0][1], stride=st,
-                               route="cuda_core")
-            t["cuda_core"] = time_ms(torch, lambda i: cv_k.launch(
-                sets[i][0], sets[i][1], pc, stride=st), n, 2 * n)
+            plans = {}
+            for route in routes:
+                if route != "cuda_core" and route not in legal(C, K, k, st,
+                                                               dt):
+                    t[route] = t["ms"]   # the plan's route in the totals
+                    continue
+                pr = plans[route] = cv_k.plan_for(sets[0][0], sets[0][1],
+                                                  stride=st, route=route)
+                t[route] = time_ms(torch, lambda i: cv_k.launch(
+                    sets[i][0], sets[i][1], pr, stride=st), n, 2 * n)
             t["plain"] = time_ms(torch, lambda i: cv_ref.conv2d(
                 sets[i][0], sets[i][1], stride=st), n, n)
             t["lib"] = time_ms(torch, lambda i: F.conv2d(
@@ -2014,8 +2129,13 @@ def phase_conv_kernel(torch, shapes, sweep=False):
                     sets[i][2], sets[i][3], stride=st), n, 2 * n)
                 torch.backends.cudnn.allow_tf32 = False
             xp, w = sets[0][:2]
-            M, _, R, _, _ = cv_plan.gemm_dims(xp.shape, w.shape, st)
-            byts = xp.element_size() * (xp.numel() + w.numel() + M * K)
+            M, _, R, Ho, Wo = cv_plan.gemm_dims(xp.shape, w.shape, st)
+            # the input rows and columns the windows touch (a 1x1 conv at
+            # stride 2 reads one pixel in four)
+            rows, cols = ((o - 1) * st + k if k >= st else o * k
+                          for o in (Ho, Wo))
+            byts = xp.element_size() * (xp.shape[0] * rows * cols * C
+                                        + w.numel() + M * K)
             flops = 2.0 * M * K * R
             # the bound is the dtype's, whatever the route: bf16 at the
             # tensor cores' rate, f32 as their three bf16 passes; each
@@ -2026,10 +2146,16 @@ def phase_conv_kernel(torch, shapes, sweep=False):
             t[f"bound_{by}"] = t["bound"]
             for key, v in t.items():
                 tot[dt][key] += calls * v
+            per_shape[f"{CNN_BATCH}x{H}x{H}x{C} -> {K} k{k} s{st} "
+                      f"{name_of[dt]}"] = dict(
+                calls=calls, route=p.route, **{r: t[r] for r in plans},
+                lib=t["lib"], bound=t["bound"])
             line.append(f"{name_of[dt]} ({p.route}, bn {p.bn}, splits "
-                        f"{p.splits}) kernel_ms {t['ms']:.4f} cuda_core_ms "
-                        f"{t['cuda_core']:.4f} plain_ms {t['plain']:.4f} "
-                        f"library_ms {t['lib']:.4f}" + (
+                        f"{p.splits}) kernel_ms {t['ms']:.4f} " + " ".join(
+                            f"{r}_ms {t[r]:.4f} ({plans[r].bn}x"
+                            f"{plans[r].splits})" for r in plans)
+                        + f" plain_ms {t['plain']:.4f} library_ms "
+                        f"{t['lib']:.4f}" + (
                             f" (TF32 on {t['lib_tf32']:.4f})" if dt == f32
                             else "") + f" bound_ms {t['bound']:.4f} ({by}) "
                         f"({n} input sets)")
@@ -2040,32 +2166,38 @@ def phase_conv_kernel(torch, shapes, sweep=False):
         t = tot[dt]
         log(f"  conv2d one ResNet-50 forward's 53 convs, batch {CNN_BATCH}, "
             f"{name_of[dt]}: kernel_ms {t['ms']:.3f} (plan's routes) "
-            f"cuda_core_ms {t['cuda_core']:.3f} plain_ms {t['plain']:.3f} "
-            f"library_ms {t['lib']:.3f}" + (
+            + " ".join(f"{r}_ms {t[r]:.3f}" for r in routes)
+            + f" (each route forced where it can take the shape, the "
+            f"plan's route elsewhere: the C = 3 stem on cuda_core) "
+            f"plain_ms {t['plain']:.3f} library_ms "
+            f"{t['lib']:.3f}" + (
                 f" (TF32 on, for information: {t['lib_tf32']:.3f})"
                 if dt == f32 else "") + f" bound_ms {t['bound']:.3f} (the "
             f"dtype's on the tensor cores, {t['bound_operations']:.3f} of it "
             f"operations-bound; cuda_core route {t['bound_cuda_core']:.3f})")
+    crossing = conv_crossing_sweep(torch, resnet, operands) if sweep else {}
     if sweep:
         for (H, C, K, k, st), _ in sorted(resnet.items()):
-            if H > 28 or st != 1:
+            if st != 1:
                 continue
             for dt in (f32, bf):
                 x, w = operands(CNN_BATCH, H, C, K, k, dt)
                 xp = cv_ops.pad_same(x, k, k, st)
-                plan = cv_k.plan_for(xp, w, stride=st)
-                row = []
-                for bn, splits in itertools.product(cv_plan.MMA_BNS,
-                                                    CONV_SWEEP):
-                    p = cv_k.plan_for(xp, w, stride=st, bn=bn, splits=splits)
-                    if p.splits != splits:
-                        continue
-                    ms = time_ms(torch, lambda i: cv_k.launch(
-                        xp, w, p, stride=st), 1)
-                    row.append(f"{p.bm}x{bn} x{splits}: {ms:.4f}")
-                log(f"  conv2d sweep {CNN_BATCH}x{H}x{H}x{C} -> {K} k{k} "
-                    f"{name_of[dt]} (plan {plan.bm}x{plan.bn} splits "
-                    f"{plan.splits}): ms " + ", ".join(row))
+                for route, bns in (("wgmma", cv_plan.WG_BNS),
+                                   ("mma", cv_plan.MMA_BNS)):
+                    plan = cv_k.plan_for(xp, w, stride=st, route=route)
+                    row = []
+                    for bn, splits in itertools.product(bns, CONV_SWEEP):
+                        p = cv_k.plan_for(xp, w, stride=st, route=route,
+                                          bn=bn, splits=splits)
+                        if p.splits != splits:
+                            continue
+                        ms = time_ms(torch, lambda i: cv_k.launch(
+                            xp, w, p, stride=st), 1)
+                        row.append(f"{p.bm}x{bn} x{splits}: {ms:.4f}")
+                    log(f"  conv2d sweep {route} {CNN_BATCH}x{H}x{H}x{C} -> "
+                        f"{K} k{k} {name_of[dt]} (plan {plan.bm}x{plan.bn} "
+                        f"splits {plan.splits}): ms " + ", ".join(row))
                 del x, w, xp
     t, tb = tot[f32], tot[bf]
     return {"conv2d": dict(
@@ -2075,17 +2207,55 @@ def phase_conv_kernel(torch, shapes, sweep=False):
         max_abs_err=worst[f32], ms=t["ms"], plain_ms=t["plain"],
         library_ms=t["lib"], bound_ms=t["bound"],
         bound_by=max(("bytes", "operations"), key=lambda b: t[f"bound_{b}"]),
-        route_ms={"cuda_core": t["cuda_core"]},
-        route_bound_ms={"mma": t["bound"],
+        route_ms={r: t[r] for r in routes},
+        route_bound_ms={"wgmma": t["bound"], "mma": t["bound"],
                         "cuda_core": t["bound_cuda_core"]},
+        route_errs={r: {name_of[dt]: route_worst[r][dt] for dt in (f32, bf)}
+                    for r in route_worst},
+        edge_worst={r: {name_of[dt]: edge_worst[r][dt] for dt in (f32, bf)}
+                    for r in edge_worst},
         library_tf32_ms=t["lib_tf32"], bf16_ms=tb["ms"],
         bf16_plain_ms=tb["plain"], bf16_library_ms=tb["lib"],
         bf16_bound_ms=tb["bound"],
         bf16_bound_by=max(("bytes", "operations"),
                           key=lambda b: tb[f"bound_{b}"]),
-        bf16_route_ms={"cuda_core": tb["cuda_core"]},
-        bf16_route_bound_ms={"mma": tb["bound"],
-                             "cuda_core": tb["bound_cuda_core"]})}
+        bf16_route_ms={r: tb[r] for r in routes},
+        bf16_route_bound_ms={"wgmma": tb["bound"], "mma": tb["bound"],
+                             "cuda_core": tb["bound_cuda_core"]},
+        shapes=per_shape, **({"sweep": crossing} if crossing else {}))}
+
+
+def conv_crossing_sweep(torch, resnet, operands):
+    """``--only conv2d``: the two tensor-core routes forced at each
+    ResNet-50 shape over M (batches CONV_CROSS_BATCHES), bf16 and fp32, on
+    one input set each (each route at its own plan's column tile and
+    split): the evidence for ``plan.wgmma_wins``.  Returns {shape: {batch:
+    (mma ms, wgmma ms)}}."""
+    from repro_torch.kernels.conv2d import conv2d as cv_k
+    from repro_torch.kernels.conv2d import ops as cv_ops
+
+    out = {}
+    for (H, C, K, k, st), _ in sorted(resnet.items()):
+        if C == 3:
+            continue
+        for dt in (torch.float32, torch.bfloat16):
+            row, key = [], f"{H}x{H}x{C} -> {K} k{k} s{st} {dt}"
+            out[key] = {}
+            for N in CONV_CROSS_BATCHES:
+                x, w = operands(N, H, C, K, k, dt)
+                xp = cv_ops.pad_same(x, k, k, st)
+                ms = []
+                for route in ("mma", "wgmma"):
+                    p = cv_k.plan_for(xp, w, stride=st, route=route)
+                    ms.append(time_ms(torch, lambda i: cv_k.launch(
+                        xp, w, p, stride=st), 1))
+                Ho = -(-H // st)
+                out[key][N] = tuple(ms)
+                row.append(f"N {N} (M {N * Ho * Ho}) mma {ms[0]:.4f} wgmma "
+                           f"{ms[1]:.4f}")
+                del x, w, xp
+            log(f"  conv2d crossing {key}: " + ", ".join(row))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3145,8 +3315,9 @@ def phase_cnn(torch, wrappers, card_params):
     the call's own inputs; a second brackets every conv2d kernel and matmul
     launch with CUDA events (their device time inside a forward, cold
     weights included); then the timed forwards, with the counts set to 0
-    just before them and read just after.  Then the paper's partition sweep
-    on the host.  Returns one run record per net."""
+    just before them and read just after (the conv launches by route must
+    be the plan's, CNN_CONV_ROUTES).  Then the paper's partition sweep on
+    the host.  Returns one run record per net."""
     from repro_torch.core.shaping_sim import partition_sweep
     from repro_torch.kernels.conv2d import ops as cv_ops
     from repro_torch.kernels.conv2d import ref as cv_ref
@@ -3247,9 +3418,7 @@ def phase_cnn(torch, wrappers, card_params):
             fail(f"cnn {name}: (conv2d, matmul) launches per forward {per}, "
                  f"expected {CNN_LAUNCHES[name]}")
         # every conv but the C = 3 stem on the tensor cores, by plan
-        want = {"mma": CNN_CONV_MMA[name] * CNN_REPS,
-                "cuda_core": (CNN_LAUNCHES[name][0] - CNN_CONV_MMA[name])
-                * CNN_REPS}
+        want = {r: n * CNN_REPS for r, n in CNN_CONV_ROUTES[name].items()}
         if routes != want:
             fail(f"cnn {name}: conv2d launches by route {routes} in "
                  f"{CNN_REPS} forwards, expected {want}")
@@ -6753,6 +6922,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.conv2d import ops as cv_ops
+    from repro_torch.kernels.conv2d import plan as cv_plan
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.matmul import ops as mm_ops
@@ -6990,7 +7160,11 @@ def main() -> None:
                             run: r["fa_routes"] for run, r in runs.items()
                             if any(r.get("fa_routes", {}).values())}}
                            if name == "flash_attention" else {}),
-                        **({"routes": {
+                        **({"launches_by_route": {
+                            k: sum(r.get("conv_routes", {}).get(k, 0)
+                                   for r in runs.values())
+                            for k in cv_plan.ROUTES},
+                            "routes": {
                             run: r["conv_routes"] for run, r in runs.items()
                             if "conv_routes" in r}} if name == "conv2d"
                            else {}),

@@ -13,18 +13,46 @@
 //
 // What bounds it on an H100: operations, 2*M*K*R of them.  At batch 64 the
 // 3x3 / 5x5 / 7x7 convs and the wide 1x1s of the paper's CNNs do 60-600
-// FLOPs per byte they must move.  On the tensor cores (mma route) bf16
-// takes 2*M*K*R / 989 TFLOP/s; f32 runs as three bf16 passes, 3 x that
-// (ResNet-50's 53 convs at batch 64: bf16 0.50 ms of products, 0.94 ms
-// with the bytes of the 1x1s that HBM bounds; f32 1.50 and 2.17 ms).  On
-// the CUDA cores (cuda_core route) f32 FMAs at 67 TFLOP/s.
+// FLOPs per byte they must move.  On the tensor cores bf16 takes 2*M*K*R /
+// 989 TFLOP/s; f32 runs as three bf16 passes, 3 x that (ResNet-50's 53
+// convs at batch 64: bf16 0.50 ms of products, 0.94 ms with the bytes of
+// the 1x1s that HBM bounds; f32 1.50 and 2.17 ms).  On the CUDA cores
+// (cuda_core route) f32 FMAs at 67 TFLOP/s.
 //
 // The route, column tile and R split come from the wrapper's shapes-only
 // plan (kernels/conv2d/plan.py), which this file checks and never
 // overrides:
+//  * wgmma (C a whole 128-byte line of channels: 64 bf16 / 32 f32; K % 8
+//    == 0; x, w, y 16-byte aligned; stride <= 8; of these all bf16 and the
+//    f32 convs with R > 64, the measured crossing): conv_wgmma<T, BN>
+//    below, on Hopper's warpgroup tensor cores fed by TMA.  A 128 x BN
+//    output tile a CTA (BN 64, 128 or 256 by K), two consumer warpgroups
+//    of 64 rows issuing wgmma.mma_async, a producer keeping loads in
+//    flight through an mbarrier ring.  A depth step is one tap's 128-byte
+//    channel line: A, 128 output pixels x that line, comes from one TMA
+//    load in im2col mode (the map's bounding box is the window corners,
+//    traversed at the stride across output rows and images; the tap is the
+//    load's im2col offset; zeros past the last image), or for a 1x1 conv
+//    at stride 1 from x's (M, C) matrix by a tiled load laid out the same
+//    way; B is the (R, K) weights read in place, MN-major through wgmma's
+//    transpose bit.  BN 256 and f32 at 128 run one CTA an SM (384 threads,
+//    setmaxnreg), f32 at 128 walking the tiles persistently, its output
+//    staged past the ring while the producer loads the next tile; BN 64
+//    and bf16 at 128 two CTAs an SM (288 threads), so that one CTA's
+//    loads and epilogue overlap the other's products.
+//    - bf16: both operands from shared memory, rounded once.
+//    - f32: three bf16 passes in the order below (a_lo*b_hi + a_hi*b_lo +
+//      a_hi*b_hi): A's fragments read from the swizzled f32 tile and split
+//      in registers (wgmma's register-A form), the weights split once a
+//      launch by split_weights into a bf16 hi / lo scratch after the
+//      split's partial sums in the caller's workspace.  At ResNet-50's
+//      shapes its outputs equal conv_mma's bit for bit: the same products
+//      in the same order into f32 accumulators (conv2d_ab).
 //  * mma (bf16 with C % 8 == 0, f32 with C % 4 == 0; K % 8 == 0; x, w, y
-//    16-byte aligned): conv_mma<T, BN>, a 128 x BN output tile per CTA (BN
-//    64 or 128 by K), 4 warps of 64 x BN/2.  Each thread finds its output
+//    16-byte aligned; what wgmma does not take: GoogLeNet's channel counts
+//    that fill no whole line, f32 convs of R <= 64): conv_mma<T, BN>, a
+//    128 x BN output tile per CTA (BN 64 or 128 by K), 4 warps of 64 x
+//    BN/2.  Each thread finds its output
 //    pixel's corner in x once (a table of the CTA's 128 row bases in shared
 //    memory).  A depth step is 128 bytes a row (64 bf16 or 32 f32): each
 //    16-byte chunk of the A tile is 8 bf16 or 4 f32 channels of one tap
@@ -56,24 +84,28 @@
 //  * cuda_core (everything else: the C = 3 stems, ragged channel counts,
 //    misaligned operands): conv_igemm below, f32 FMAs, 128 x 64 tiles,
 //    no split.
-//  * Split R (mma): where the output tiles leave the SMs' CTA slots idle,
-//    the depth is split over gridDim.z CTAs that write f32 partial sums to
-//    a workspace the caller allocates; split_reduce (common.cuh) adds them
-//    in split order (bitwise deterministic) and rounds once.
-// A launch allocates nothing and synchronises nothing.  M (up to 3.2 M
-// rows at batch 64) is walked by a linear CTA index, column tiles fastest,
-// so the CTAs on the card at one time share their A rows; offsets into x,
-// y and the workspace are 64-bit (VGG-16's first activations at batch 64
-// are 822 MB).
+//  * Split R (wgmma, mma): where the output tiles leave the SMs' CTA slots
+//    idle, the depth is split over gridDim.z CTAs that write f32 partial
+//    sums to a workspace the caller allocates; split_reduce (common.cuh)
+//    adds them in split order (bitwise deterministic) and rounds once.
+// A launch allocates nothing and synchronises nothing; wgmma's tensor maps
+// are encoded on the host at each launch and passed as __grid_constant__
+// parameters, so a launch captured in a CUDA graph carries its own.  M (up
+// to 3.2 M rows at batch 64) is walked by a linear CTA index, column tiles
+// fastest, so the CTAs on the card at one time share their A rows;
+// offsets into x, y and the workspace are 64-bit (VGG-16's first
+// activations at batch 64 are 822 MB).
 //
 // Next (left out here): the three eager scale / shift / ReLU passes after
-// each conv fused into the epilogue; the SAME pad copies removed (the
-// gather zero-fills out-of-image taps instead); wgmma fed by TMA's im2col
-// mode; a persistent tile walk for the 14x14 / 7x7 layers' last wave.
+// each conv fused into the epilogue; the SAME pad copies removed (TMA's
+// im2col load zero-fills out-of-image taps: a bounding box with negative
+// corners); the C = 3 stems on the tensor cores (0.56-0.59 ms of a
+// ResNet-50 forward's convs on conv_igemm); a TMA-store epilogue, so that
+// the products of a persistent CTA's next tile start before its stores.
 #include <climits>
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -583,12 +615,476 @@ cudaError_t launch_mma(const T* x, const T* w, T* y, float* ws, const Geom& g,
   return cudaSuccess;
 }
 
-enum { ROUTE_MMA = 0, ROUTE_CUDA_CORE = 1 };
+// -- warpgroup tensor cores (conv_wgmma) ----------------------------------
+// A 128 x BN output tile per CTA: two consumer warpgroups of 64 rows each
+// issuing wgmma.mma_async and a producer, one thread of which keeps TMA
+// loads in flight through a ring of stages paced by mbarrier full / empty
+// pairs.  BN 256 and f32 at 128: one CTA an SM, 384 threads, the producer
+// a warpgroup (setmaxnreg 40, the consumers 232), 4 stages, f32 at 128
+// walking tiles persistently (PERSIST); BN 64 and bf16 at 128: two CTAs an
+// SM (the second's loads and epilogue overlap the first's products), 288
+// threads, the producer one warp, as many stages (3-4) as fit in half the
+// SM.  A depth step is one 128-byte line of channels of one tap (i, j):
+// 64 bf16 or 32 f32 depth rows.  A stage holds A, the 128 pixels' lines
+// as TMA's im2col mode lays them (K-major, 128-byte swizzle), then B: BN /
+// 64 atoms of 64 weight columns x the step's depth rows (MN-major, read in
+// place through wgmma's transpose bit), twice in f32 (the hi, then the lo
+// bf16 halves of the weights).
+namespace wg {
+
+constexpr int BM = 128;
+constexpr int LINE = 128;        // bytes of channels a pixel gives a step
+constexpr int SMEM_MAX = 232448;   // shared memory a CTA may use (227 KB)
+
+template <typename T, int BN>
+struct WgCfg {
+  static constexpr bool BF16 = std::is_same<T, bf16>::value;
+  // CTAs an SM: two where the accumulators leave registers for it (at
+  // 288 threads, 112 a thread: f32 at BN 128 spills there)
+  static constexpr int CTAS = BN == 64 || (BN == 128 && BF16) ? 2 : 1;
+  // consumers 0-255, then the producer: a warpgroup, or one warp
+  static constexpr int THREADS = CTAS == 1 ? 384 : 288;
+  static constexpr int BK = LINE / (int)sizeof(T);      // depth rows a step
+  static constexpr int A_BYTES = BM * LINE;              // 16 KB
+  static constexpr int B_ATOM = BK * 128;                // 64 bf16 columns
+  static constexpr int B_HALF = BN / 64 * B_ATOM;
+  static constexpr int B_BYTES = (BF16 ? 1 : 2) * B_HALF;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int ACC = BN / 2;                     // f32 a thread
+  static constexpr int LD = BN * (int)sizeof(T) + 16;    // a staged row
+  static constexpr int OUT = 2 * 64 * LD;                // the staged tile
+  // persistent (one CTA an SM walking tiles): the output tile is staged
+  // past the ring, which the producer fills with the next tile's steps
+  // meanwhile, where that leaves 4 stages (f32 at BN 128; bf16 at 256
+  // ran 8-15 % slower on 3); else it is staged in the ring once every
+  // product is done, one tile a CTA
+  static constexpr int FIT_P = (SMEM_MAX - 1024 - 64 - OUT) / STAGE;
+  static constexpr bool PERSIST = CTAS == 1 && FIT_P >= 4;
+  // stages in the CTA's share of the SM, less the alignment and barriers
+  static constexpr int FIT =
+      PERSIST ? FIT_P : (SMEM_MAX / CTAS - 1024 - 64) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  // the ring, 1024-byte aligned (the swizzle's period), the staged tile
+  // when persistent, then the barriers
+  static constexpr int BARS = STAGES * STAGE + (PERSIST ? OUT : 0);
+  static constexpr size_t SMEM =
+      1024 + (size_t)BARS + 2 * STAGES * sizeof(uint64_t);
+  static_assert(BN == 64 || BN == 128 || BN == 256, "BN");
+  static_assert(STAGES >= 3, "ring");
+  static_assert(STAGE % 1024 == 0 && B_ATOM % 1024 == 0, "alignment");
+  static_assert(PERSIST || OUT <= STAGES * STAGE, "output tile in the ring");
+};
+
+template <int BN, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_n256<0, TB>(d, da, db);
+  else if constexpr (BN == 128)
+    wgmma_n128<0, TB>(d, da, db);
+  else
+    wgmma_n64<0, TB>(d, da, db);
+}
+template <int BN, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
+                                         const uint32_t* a, uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_rs_n256<TB>(d, a, db);
+  else if constexpr (BN == 128)
+    wgmma_rs_n128<TB>(d, a, db);
+  else
+    wgmma_rs_n64<TB>(d, a, db);
+}
+
+// f32 A, k16 slice kk of a step: this thread's fragment (rows g, g + 8 of
+// its warp's 16 x depth 2 t4 (+1), 2 t4 + 8 (+1)) read from the swizzled
+// tile at `rows` (the warp's first row, 1024-aligned lines of 128 bytes)
+// and split into bf16 hi and lo pairs
+__device__ __forceinline__ void frag_f32(const unsigned char* rows, int lane,
+                                         int kk, uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {   // (row, column) g / +8, 2 t4 / +8
+    const int r = gq + 8 * (q & 1);
+    const int byte = 64 * kk + 32 * (q >> 1) + 8 * t4;
+    const float2 v = *reinterpret_cast<const float2*>(
+        rows + r * LINE + (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15));
+    split_bf16(v.x, v.y, hi[q], lo[q]);
+  }
+}
+
+// grid (CTAs, 1, splits): the output tiles, column tiles fastest, one a
+// CTA, or walked by min(tiles, SMs) persistent CTAs (WgCfg::PERSIST), CTA
+// b taking tiles b, b + gridDim.x, ...; split z owns depth rows [z * rows,
+// min(R, (z + 1) * rows)), rows a multiple of BK (and R, C % BK == 0, so
+// every step is whole).  tx: x's im2col map, or with `flat` (a 1x1 conv
+// at stride 1: A is x's (M, C) matrix) its 2-d tiled map of BK-column x
+// 128-row boxes, which lays a box out as the im2col load does; tw: the
+// (R, K) bf16 weights (f32: the (2 R, K) hi / lo halves) as a 2-d map of
+// 64-column x BK-row boxes.
+template <typename T, int BN>
+__global__ void __launch_bounds__(WgCfg<T, BN>::THREADS, WgCfg<T, BN>::CTAS)
+conv_wgmma(const __grid_constant__ CUtensorMap tx,
+           const __grid_constant__ CUtensorMap tw, T* __restrict__ y,
+           float* __restrict__ ws, Geom g, int rows, int flat) {
+  using Cfg = WgCfg<T, BN>;
+  constexpr int BK = Cfg::BK, STAGES = Cfg::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const ring = smem_raw + (base - smem_addr(smem_raw));
+  unsigned char* const out = ring + (Cfg::PERSIST ? STAGES * Cfg::STAGE : 0);
+  const uint32_t bars = base + Cfg::BARS;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+  auto stage_a = [&](int s) { return base + (uint32_t)(s * Cfg::STAGE); };
+  auto stage_b = [&](int s) { return stage_a(s) + Cfg::A_BYTES; };
+
+  const int col_tiles = (g.K + BN - 1) / BN;
+  const int tiles = (g.M + BM - 1) / BM * col_tiles;
+  const int k_begin = blockIdx.z * rows;
+  const int steps = (min(g.R, k_begin + rows) - k_begin) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);    // the producer's expect_tx, then the bytes
+      mbar_init(empty(s), 2);   // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the ring's steps are counted over the CTA's tiles: step q in stage q %
+  // STAGES, its phase (q / STAGES) & 1
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // -- the producer: one thread keeps the ring's loads in flight ----------
+    if constexpr (Cfg::CTAS == 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int q = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / col_tiles * BM, n0 = tile % col_tiles * BN;
+        // the im2col walk starts at the tile's first output pixel's corner
+        const int n = m0 / g.HoWo, rem = m0 - n * g.HoWo;
+        const int ho = rem / g.Wo, wo = rem - ho * g.Wo;
+        const int h0 = ho * g.stride, w0 = wo * g.stride;
+        for (int t = 0; t < steps; ++t, ++q) {
+          const int s = q % STAGES;
+          mbar_wait(empty(s), ((q / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(s), Cfg::STAGE);
+          const int r = k_begin + t * BK;     // the step's first depth row
+          const int tap = r / g.C, c = r - tap * g.C;
+          const int i = tap / g.kw, j = tap - i * g.kw;
+          if (flat)
+            tma_load(stage_a(s), &tx, full(s), c, m0);
+          else
+            tma_load_im2col(stage_a(s), &tx, full(s), c, w0, h0, n,
+                            (uint16_t)j, (uint16_t)i);
+#pragma unroll
+          for (int k = 0; k < BN / 64; ++k) {
+            tma_load(stage_b(s) + k * Cfg::B_ATOM, &tw, full(s), n0 + 64 * k,
+                     r);
+            if constexpr (!Cfg::BF16)
+              tma_load(stage_b(s) + Cfg::B_HALF + k * Cfg::B_ATOM, &tw,
+                       full(s), n0 + 64 * k, g.R + r);
+          }
+        }
+      }
+    }
+  } else {
+    // -- two consumers: rows [64 wg, 64 wg + 64) of each tile ---------------
+    if constexpr (Cfg::CTAS == 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    // thread holds rows r0, r0 + 8 and columns 8 j + 2 (lane % 4) + {0, 1}
+    const int r0 = warp * 16 + lane / 4;
+    auto release = [&](int q) {   // step q's products are done: its stage
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty(q % STAGES));
+    };
+    auto wg_sync = [&] {          // this warpgroup's 128 threads
+      if (wg == 0)
+        named_sync<2, 128>();
+      else
+        named_sync<3, 128>();
+    };
+    int q = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / col_tiles * BM, n0 = tile % col_tiles * BN;
+      float acc[Cfg::ACC];
+#pragma unroll
+      for (int i = 0; i < Cfg::ACC; ++i) acc[i] = 0.f;
+      for (int t = 0; t < steps; ++t, ++q) {
+        const int s = q % STAGES;
+        mbar_wait(full(s), (q / STAGES) & 1);
+        // the warpgroup's 64 pixels: 64 lines of A; a k16 slice is 32
+        // bytes along a bf16 line (16 lines of an MN-major B atom)
+        const uint32_t a0 = stage_a(s) + wg * 64 * LINE, b0 = stage_b(s);
+        if constexpr (Cfg::BF16) {
+          fence_acc(acc);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_ss<BN, 1>(acc, smem_desc(a0 + kk * 32, 16),
+                            smem_desc(b0 + kk * 2048, Cfg::B_ATOM));
+          wg_commit();
+          wg_wait<1>();              // step q - 1's products are done ...
+          fence_acc(acc);
+          if (t > 0) release(q - 1);   // ... its stage is free
+        } else {
+          // three bf16 passes, the small terms first: a_lo b_hi + a_hi b_lo
+          // + a_hi b_hi, A's halves split in registers from the f32 tile
+          uint32_t ah[BK / 16][4], al[BK / 16][4];
+          const unsigned char* rows_a =
+              ring + (a0 - base) + warp * 16 * LINE;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            frag_f32(rows_a, lane, kk, ah[kk], al[kk]);
+          fence_acc(acc);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t dh = smem_desc(b0 + kk * 2048, Cfg::B_ATOM);
+            const uint64_t dl =
+                smem_desc(b0 + Cfg::B_HALF + kk * 2048, Cfg::B_ATOM);
+            wgmma_rs<BN, 1>(acc, al[kk], dh);
+            wgmma_rs<BN, 1>(acc, ah[kk], dl);
+            wgmma_rs<BN, 1>(acc, ah[kk], dh);
+          }
+          wg_commit();
+          wg_wait<0>();              // the fragments' registers are free
+          fence_acc(acc);
+          release(q);
+        }
+      }
+      wg_wait<0>();
+      fence_acc(acc);
+      if (Cfg::BF16 && steps > 0) release(q - 1);
+
+      if (gridDim.z == 1) {
+        // rounded to T through shared memory, stored as whole 16-byte
+        // chunks: each warpgroup stages its 64 x BN outputs in rows padded
+        // by 16 bytes, then writes them out, a row's chunks on adjacent
+        // lanes.  In the ring: once both consumers are past their last
+        // wgmma; past it: once this warpgroup has stored its last tile
+        constexpr int LD = Cfg::LD, CH = 16 / (int)sizeof(T);
+        constexpr int CPR = BN / CH, RPP = 128 / CPR;   // chunks a row,
+                                                        // rows a pass
+        if constexpr (Cfg::PERSIST)
+          wg_sync();
+        else
+          named_sync<1, 256>();
+        unsigned char* tile_out = out + wg * 64 * LD;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            store2(reinterpret_cast<T*>(tile_out + (r0 + 8 * h) * LD) +
+                       8 * j + 2 * (lane % 4),
+                   acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        wg_sync();
+        const int t = threadIdx.x % 128, col = n0 + CH * (t % CPR);
+        if (col < g.K)
+          for (int r = t / CPR; r < 64; r += RPP) {
+            const int row = m0 + wg * 64 + r;
+            if (row < g.M)
+              *reinterpret_cast<uint4*>(y + (size_t)row * g.K + col) =
+                  *reinterpret_cast<const uint4*>(tile_out + r * LD +
+                                                  16 * (t % CPR));
+          }
+      } else {
+        // f32 partial sums of this split into the workspace (K % 8 == 0:
+        // a pair is in or out, 8-byte aligned)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (lane % 4);
+          if (col >= g.K) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + wg * 64 + r0 + 8 * h;
+            if (row < g.M)
+              store2(ws + ((size_t)blockIdx.z * g.M + row) * g.K + col,
+                     acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// the f32 weights' bf16 halves, hi = bf16(w) then lo = bf16(w - hi), as
+// conv_mma splits them in registers: out[0 .. n) hi, out[n .. 2 n) lo
+__global__ void split_weights(const float4* __restrict__ w,
+                              uint2* __restrict__ out, size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = w[i];
+    uint2 hi, lo;
+    split_bf16(v.x, v.y, hi.x, lo.x);
+    split_bf16(v.z, v.w, hi.y, lo.y);
+    out[i] = hi;
+    out[n4 + i] = lo;
+  }
+}
+
+// x's im2col map: (C, Wp, Hp, N), pixels walked over the window corners
+// [0, Wp - kw] x [0, Hp - kh] at the conv's stride, 128 of them a load,
+// one 128-byte line of channels each; zeros past the last image
+bool encode_x(CUtensorMap* map, const void* x, bool is_bf16, int N, int Hp,
+              const Geom& g, int kh) {
+  const EncodeIm2col enc = im2col_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t e = is_bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)g.C, (cuuint64_t)g.Wp,
+                              (cuuint64_t)Hp, (cuuint64_t)N};
+  const cuuint64_t strides[3] = {g.C * e, (cuuint64_t)g.Wp * g.C * e,
+                                 (cuuint64_t)Hp * g.Wp * g.C * e};
+  const int lower[2] = {0, 0};                    // (W, H)
+  const int upper[2] = {1 - g.kw, 1 - kh};
+  const cuuint32_t unit[4] = {1u, (cuuint32_t)g.stride, (cuuint32_t)g.stride,
+                              1u};
+  return enc(map,
+             is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             4, const_cast<void*>(x), dims, strides, lower, upper,
+             (cuuint32_t)(LINE / e), (cuuint32_t)BM, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 1x1 stride-1 conv's x as the (M, C) matrix: boxes of one 128-byte line
+// of channels x 128 rows (pixels), zeros past M
+bool encode_x_flat(CUtensorMap* map, const void* x, bool is_bf16,
+                   const Geom& g) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t e = is_bf16 ? 2 : 4;
+  const cuuint64_t dims[2] = {(cuuint64_t)g.C, (cuuint64_t)g.M};
+  const cuuint64_t strides[1] = {g.C * e};
+  const cuuint32_t boxes[2] = {(cuuint32_t)(LINE / e), (cuuint32_t)BM};
+  const cuuint32_t unit[2] = {1u, 1u};
+  return enc(map,
+             is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             2, const_cast<void*>(x), dims, strides, boxes, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the bf16 weights as `rows` lines of K: boxes of 64 columns x `box` rows
+bool encode_w(CUtensorMap* map, const void* w, int K, int rows, int box) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
+  const cuuint32_t boxes[2] = {64u, (cuuint32_t)box};
+  const cuuint32_t unit[2] = {1u, 1u};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
+             dims, strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// which convs the kernel takes: whole 128-byte channel lines, 16-byte rows
+// of w and y, TMA's traversal stride (<= 8) and im2col corner range
+template <typename T>
+bool legal(const void* x, const void* w, const void* y, const Geom& g,
+           int kh) {
+  return g.C % WgCfg<T, 128>::BK == 0 && g.K % 8 == 0 && g.stride <= 8 &&
+         kh <= 129 && g.kw <= 129 && cc::aligned16(x) && cc::aligned16(w) &&
+         cc::aligned16(y);
+}
+
+template <typename T, int BN>
+cudaError_t launch(const T* x, const T* w, T* y, float* ws, const Geom& g,
+                   int N, int Hp, int kh, int splits, int rows,
+                   cudaStream_t s) {
+  using Cfg = WgCfg<T, BN>;
+  if (rows % Cfg::BK || !legal<T>(x, w, y, g, kh))
+    return cudaErrorInvalidValue;
+  const long long ctas = (long long)((g.M + BM - 1) / BM) *
+                         ((g.K + BN - 1) / BN);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  // f32: the weights' bf16 halves after the split's partial sums
+  const void* wb = w;
+  if constexpr (!Cfg::BF16) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    bf16* halves = reinterpret_cast<bf16*>(
+        ws + (splits > 1 ? (size_t)splits * g.M * g.K : 0));
+    const size_t n4 = (size_t)g.R * g.K / 4;
+    split_weights<<<(int)std::min<size_t>((n4 + 255) / 256, 1024), 256, 0,
+                    s>>>(reinterpret_cast<const float4*>(w),
+                         reinterpret_cast<uint2*>(halves), n4);
+    wb = halves;
+  }
+  // a 1x1 conv at stride 1 reads x as the (M, C) matrix it is
+  const bool flat = kh == 1 && g.kw == 1 && g.stride == 1;
+  CUtensorMap tx, tw;
+  if (!(flat ? encode_x_flat(&tx, x, Cfg::BF16, g)
+             : encode_x(&tx, x, Cfg::BF16, N, Hp, g, kh)) ||
+      !encode_w(&tw, wb, g.K, (Cfg::BF16 ? 1 : 2) * g.R, Cfg::BK))
+    return cudaErrorInvalidValue;
+  static bool attrs_set = false;   // above 48 KB needs an opt-in, once
+  if (!attrs_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        conv_wgmma<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Cfg::SMEM);
+    if (e == cudaSuccess)   // all of the SM's 228 KB as shared memory
+      e = cudaFuncSetAttribute(conv_wgmma<T, BN>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    attrs_set = true;
+  }
+  long long grid_x = ctas;
+  if constexpr (Cfg::PERSIST) {   // one CTA an SM walks the tiles
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    grid_x = std::min<long long>(ctas, sms);
+  }
+  const dim3 grid((unsigned)grid_x, 1, splits);
+  conv_wgmma<T, BN><<<grid, Cfg::THREADS, Cfg::SMEM, s>>>(tx, tw, y, ws, g,
+                                                          rows, flat);
+  return cudaSuccess;
+}
+
+// one im2col load into shared memory, copied out as it lies there (the
+// swizzled 128 x 128-byte box): the card's check of the walk's model
+__global__ void im2col_probe(const __grid_constant__ CUtensorMap tx,
+                             uint4* __restrict__ out, int c, int w, int h,
+                             int n, int i, int j) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = base + BM * LINE;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, BM * LINE);
+    tma_load_im2col(base, &tx, bar, c, w, h, n, (uint16_t)j, (uint16_t)i);
+  }
+  mbar_wait(bar, 0);
+  const uint4* box =
+      reinterpret_cast<const uint4*>(smem_raw + (base - smem_addr(smem_raw)));
+  for (int q = threadIdx.x; q < BM * LINE / 16; q += blockDim.x)
+    out[q] = box[q];
+}
+
+}  // namespace wg
+
+enum { ROUTE_MMA = 0, ROUTE_CUDA_CORE = 1, ROUTE_WGMMA = 2 };
 
 template <typename T>
 cudaError_t launch(const void* xv, const void* wv, void* yv, float* ws,
-                   const Geom& g, int route, int bm, int bn, int splits,
-                   int rows, cudaStream_t s) {
+                   const Geom& g, int N, int Hp, int kh, int route, int bm,
+                   int bn, int splits, int rows, cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
   const T* w = static_cast<const T*>(wv);
   T* y = static_cast<T*>(yv);
@@ -599,18 +1095,30 @@ cudaError_t launch(const void* xv, const void* wv, void* yv, float* ws,
     cc::launch<T>(xv, wv, yv, g, s);
     return cudaSuccess;
   }
-  if (route != ROUTE_MMA || bm != 128) return cudaErrorInvalidValue;
-  constexpr int CH = 16 / (int)sizeof(T);
-  if (g.C % CH || g.K % 8 || !cc::aligned16(xv) || !cc::aligned16(wv) ||
-      !cc::aligned16(yv))
+  if ((route != ROUTE_MMA && route != ROUTE_WGMMA) || bm != 128)
     return cudaErrorInvalidValue;
   cudaError_t e;
-  if (bn == 128)
-    e = launch_mma<T, 128>(x, w, y, ws, g, splits, rows, s);
-  else if (bn == 64)
-    e = launch_mma<T, 64>(x, w, y, ws, g, splits, rows, s);
-  else
-    return cudaErrorInvalidValue;
+  if (route == ROUTE_WGMMA) {
+    if (bn == 256)
+      e = wg::launch<T, 256>(x, w, y, ws, g, N, Hp, kh, splits, rows, s);
+    else if (bn == 128)
+      e = wg::launch<T, 128>(x, w, y, ws, g, N, Hp, kh, splits, rows, s);
+    else if (bn == 64)
+      e = wg::launch<T, 64>(x, w, y, ws, g, N, Hp, kh, splits, rows, s);
+    else
+      return cudaErrorInvalidValue;
+  } else {
+    constexpr int CH = 16 / (int)sizeof(T);
+    if (g.C % CH || g.K % 8 || !cc::aligned16(xv) || !cc::aligned16(wv) ||
+        !cc::aligned16(yv))
+      return cudaErrorInvalidValue;
+    if (bn == 128)
+      e = launch_mma<T, 128>(x, w, y, ws, g, splits, rows, s);
+    else if (bn == 64)
+      e = launch_mma<T, 64>(x, w, y, ws, g, splits, rows, s);
+    else
+      return cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return e;
   if (splits > 1) launch_split_reduce<T>(ws, y, splits, (size_t)g.M * g.K, s);
   return cudaSuccess;
@@ -621,11 +1129,13 @@ cudaError_t launch(const void* xv, const void* wv, void* yv, float* ws,
 // y (N, Ho, Wo, K) = VALID conv of x (N, Hp, Wp, C) with w (kh, kw, C, K)
 // at `stride` on `stream`, Ho = (Hp - kh) / stride + 1 (likewise Wo), by
 // the wrapper's plan (kernels/conv2d/plan.py): route 0 mma (bm 128, bn 64
-// or 128), 1 cuda_core (bm 128, bn 64, splits 1); depth R = kh*kw*C split
-// into `splits` ranges of `rows` rows (the last may be shorter, none
-// empty); ws: (splits, M, K) f32 scratch, unused when splits == 1; dtype
-// DT_F32 or DT_BF16 for all three tensors.  A plan the kernels cannot take
-// returns cudaErrorInvalidValue and launches nothing.
+// or 128), 1 cuda_core (bm 128, bn 64, splits 1), 2 wgmma (bm 128, bn 64,
+// 128 or 256); depth R = kh*kw*C split into `splits` ranges of `rows` rows
+// (the last may be shorter, none empty); ws: f32 scratch, (splits, M, K)
+// partial sums when splits > 1, then on route 2 in f32 R * K more for the
+// weights' bf16 hi / lo halves; dtype DT_F32 or DT_BF16 for all three
+// tensors.  A plan the kernels cannot take returns cudaErrorInvalidValue
+// and launches nothing.
 extern "C" int conv_run(const void* x, const void* w, void* y, void* ws,
                         int N, int Hp, int Wp, int C, int K, int kh, int kw,
                         int stride, int Ho, int Wo, int route, int bm, int bn,
@@ -636,7 +1146,9 @@ extern "C" int conv_run(const void* x, const void* w, void* y, void* ws,
       Wo < 1 || (Ho - 1) * stride + kh > Hp || (Wo - 1) * stride + kw > Wp ||
       M > 0x7fffffffLL || R > 0x7fffffffLL || splits < 1 || splits > 65535 ||
       rows < 1 || (long long)rows * splits < R ||
-      (long long)rows * (splits - 1) >= R || (splits > 1 && ws == nullptr))
+      (long long)rows * (splits - 1) >= R ||
+      ((splits > 1 || (route == ROUTE_WGMMA && dtype == DT_F32)) &&
+       ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Geom g;
   g.M = (int)M;
@@ -652,11 +1164,38 @@ extern "C" int conv_run(const void* x, const void* w, void* y, void* ws,
   float* wsf = static_cast<float*>(ws);
   cudaError_t e;
   if (dtype == DT_F32)
-    e = launch<float>(x, w, y, wsf, g, route, bm, bn, splits, rows, s);
+    e = launch<float>(x, w, y, wsf, g, N, Hp, kh, route, bm, bn, splits,
+                      rows, s);
   else if (dtype == DT_BF16)
-    e = launch<bf16>(x, w, y, wsf, g, route, bm, bn, splits, rows, s);
+    e = launch<bf16>(x, w, y, wsf, g, N, Hp, kh, route, bm, bn, splits,
+                     rows, s);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the card's check of the im2col walk: one load of x (N, Hp, Wp, C)'s
+// im2col map for a kh x kw conv at `stride` (the map conv_wgmma reads),
+// from the window corner (w, h) of image n, channels from c, tap (i, j),
+// copied to out (16 KB) as it lies in shared memory, swizzled
+extern "C" int conv_im2col_probe(const void* x, void* out, int N, int Hp,
+                                 int Wp, int C, int kh, int kw, int stride,
+                                 int c, int w, int h, int n, int i, int j,
+                                 int dtype, void* stream) {
+  if ((dtype != DT_F32 && dtype != DT_BF16) || N < 1 || C < 1 || kh < 1 ||
+      kw < 1 || kh > Hp || kw > Wp || stride < 1 || stride > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom g{};
+  g.Wp = Wp;
+  g.C = C;
+  g.kw = kw;
+  g.stride = stride;
+  CUtensorMap tx;
+  if (!wg::encode_x(&tx, x, dtype == DT_BF16, N, Hp, g, kh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wg::im2col_probe<<<1, 128, wg::BM * wg::LINE + 1024 + 8,
+                     static_cast<cudaStream_t>(stream)>>>(
+      tx, static_cast<uint4*>(out), c, w, h, n, i, j);
   return static_cast<int>(cudaGetLastError());
 }

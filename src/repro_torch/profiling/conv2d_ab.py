@@ -16,9 +16,11 @@ conv wrapper of a shape-only forward), in fp32 and bf16: each shape's
 timed launches cycle over distinct input sets, together past the 50 MB
 L2, as a forward reads each layer's weights once.  Both versions are held
 against the plain version (2e-4 fp32, 3e-2 bf16) and timed with CUDA
-events in the order other, this, this, other.  Prints one line per shape,
-one ResNet-50 forward's 53-conv totals per dtype, and one JSON line.  A
-card is required; without one it raises.
+events in the order other, this, this, other.  Prints one line per shape
+(with each side's route: OTHER's plan's, or ``conv_launch``, and this
+checkout's; and whether the two outputs are equal bit for bit, as they
+must be where both sides run one kernel), one ResNet-50 forward's
+53-conv totals per dtype, and one JSON line.  A card is required; without one it raises.
 """
 from __future__ import annotations
 
@@ -109,6 +111,22 @@ def _other_lib(root: Path):
     return lib, plan
 
 
+def _other_plan(plan, x, w, stride):
+    """OTHER's plan for these operands, by its own ``plan.py`` (with its
+    TMA legality where it has a ``wgmma`` route)."""
+    N, Hp, Wp, C = x.shape
+    kh, kw, _, K = w.shape
+    Ho, Wo = (Hp - kh) // stride + 1, (Wp - kw) // stride + 1
+    bf16 = x.dtype == torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tma = ({"tma": plan.tma_legal(C, K, kh, kw, stride, x.data_ptr(),
+                                  w.data_ptr(), bf16=bf16)}
+           if hasattr(plan, "tma_legal") else {})
+    return plan.plan(N * Ho * Wo, K, kh * kw * C, bf16=bf16, n_sm=n_sm,
+                     is_aligned=plan.aligned(C, K, x.data_ptr(), w.data_ptr(),
+                                             bf16=bf16), **tma)
+
+
 def _run_other(lib, plan, x, w, stride):
     N, Hp, Wp, C = x.shape
     kh, kw, _, K = w.shape
@@ -120,16 +138,15 @@ def _run_other(lib, plan, x, w, stride):
                               Wp, C, K, kh, kw, stride, Ho, Wo, code,
                               _build.stream_of(x))
     else:
-        M, R = N * Ho * Wo, kh * kw * C
-        bf16 = x.dtype == torch.bfloat16
-        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-        p = plan.plan(M, K, R, bf16=bf16, n_sm=n_sm,
-                      is_aligned=plan.aligned(C, K, x.data_ptr(),
-                                              w.data_ptr(), bf16=bf16))
-        ws = torch.empty(plan.workspace_shape(p, M, K), dtype=torch.float32,
-                         device=x.device)
+        M = N * Ho * Wo
+        p = _other_plan(plan, x, w, stride)
+        extra = (plan.weights_scratch(p, kh * kw * C, K,
+                                      bf16=x.dtype == torch.bfloat16)
+                 if hasattr(plan, "weights_scratch") else 0)
+        ws = torch.empty(math.prod(plan.workspace_shape(p, M, K)) + extra,
+                         dtype=torch.float32, device=x.device)
         err = lib.conv_run(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                           ws.data_ptr() if p.splits > 1 else None, N, Hp, Wp,
+                           ws.data_ptr() if ws.numel() else None, N, Hp, Wp,
                            C, K, kh, kw, stride, Ho, Wo,
                            plan.ROUTE_CODES[p.route], p.bm, p.bn, p.splits,
                            p.rows, code, _build.stream_of(x))
@@ -181,12 +198,13 @@ def main(argv=None) -> None:
             n = len(sets)
             xp, w = sets[0]
             want = cv_ref.conv2d(xp, w, stride=st).float()
-            errs = {}
+            errs, outs = {}, {}
             for who, fn in (("other", lambda s: _run_other(
                     lib, other_plan, s[0], s[1], st)),
                             ("this", lambda s: cv_k.conv2d_cuda(
                                 s[0], s[1], stride=st))):
-                got = fn(sets[0]).float()
+                outs[who] = fn(sets[0])
+                got = outs[who].float()
                 torch.cuda.synchronize()
                 err = (got - want).abs()
                 errs[who] = float(err.max())
@@ -209,12 +227,18 @@ def main(argv=None) -> None:
             r = {who: [t for k_, t in turns if k_ == who]
                  for who in ("other", "this")}
             r.update(max_abs_err=errs, calls=calls,
-                     plan=str(cv_k.plan_for(xp, w, stride=st)))
+                     plan=str(cv_k.plan_for(xp, w, stride=st)),
+                     routes={"other": "conv_launch" if other_plan is None
+                             else _other_plan(other_plan, xp, w, st).route,
+                             "this": cv_k.plan_for(xp, w, stride=st).route},
+                     bitwise=torch.equal(outs["other"], outs["this"]))
             name = f"{BATCH}x{H}x{H}x{C} -> {K} k{k} s{st} {dname}"
             results[name] = r
             for who in ("other", "this"):
                 totals[f"{dname} {who}"] += calls * sum(r[who]) / 2
-            print(f"{name} (x{calls}/forward, {r['plan']}): other ms "
+            print(f"{name} (x{calls}/forward, routes other "
+                  f"{r['routes']['other']} / this {r['routes']['this']}, "
+                  f"{r['plan']}, bitwise {r['bitwise']}): other ms "
                   f"{r['other'][0]:.4f} / {r['other'][1]:.4f}, this ms "
                   f"{r['this'][0]:.4f} / {r['this'][1]:.4f}", flush=True)
             del sets, xp, w, want

@@ -6,8 +6,10 @@ of a (B, S, H, D) tensor, zeros past S and D) placed in shared memory by
 the 128-byte swizzle, and the slices each ``wgmma`` descriptor reads back
 through the same swizzle, K-major or MN-major (the transpose bit); the
 visibility of a (query, key) pair and of a 64 x 64 tile
-(``csrc/attention_tma.cuh``); and the order in which an SM that frees takes
-the next CTA of a one-dimensional grid.
+(``csrc/attention_tma.cuh``); the order in which an SM that frees takes
+the next CTA of a one-dimensional grid; and the conv2d kernel's
+(``kernels/csrc/conv2d.cu``'s ``conv_wgmma``) TMA im2col walk and the
+128-byte lines it places.
 """
 import heapq
 
@@ -15,6 +17,7 @@ import numpy as np
 
 LINE = 128                   # bytes a swizzle line (64 bf16)
 BOX = 64 * LINE              # a TMA box: 64 lines
+PIXELS = 128                 # an im2col load's pixels: conv_wgmma's rows
 H100_SMS = 132
 
 
@@ -131,3 +134,40 @@ def makespan(jobs, sms=H100_SMS):
     for j in jobs:
         heapq.heappush(free, heapq.heappop(free) + j)
     return max(free)
+
+
+def walk(N, Hp, Wp, kh, kw, s, m0, n_pix=PIXELS):
+    """TMA's im2col walk from output pixel m0: each pixel's (n, h, w)
+    window corner, n = N and past for the zero rows."""
+    Ho, Wo = (Hp - kh) // s + 1, (Wp - kw) // s + 1
+    n, rem = divmod(m0, Ho * Wo)
+    h, w = (rem // Wo) * s, (rem % Wo) * s
+    out = []
+    for _ in range(n_pix):
+        out.append((n, h, w))
+        w += s
+        if w > Wp - kw:             # the bounding box's far column
+            w, h = 0, h + s
+            if h > Hp - kh:
+                h, n = 0, n + 1
+    return out
+
+
+def im2col(xp, kh, kw, s, m0, c, i, j, ch):
+    """The (128, ch) box of one load: tap (i, j), channels [c, c + ch)."""
+    N, Hp, Wp, _ = xp.shape
+    box = np.zeros((PIXELS, ch), xp.dtype)
+    for p, (n, h, w) in enumerate(walk(N, Hp, Wp, kh, kw, s, m0)):
+        if n < N:
+            box[p] = xp[n, h + i, w + j, c:c + ch]
+    return box
+
+
+def place_lines(box, esize):
+    """A box of 128-byte lines as TMA writes it to shared memory (128-byte
+    swizzle): a flat image of esize-byte slots."""
+    rows, per = box.shape
+    img = np.full(rows * LINE // esize, np.nan)
+    r, e = np.meshgrid(np.arange(rows), np.arange(per), indexing="ij")
+    img[swizzle(r * LINE + e * esize) // esize] = box
+    return img

@@ -5,15 +5,19 @@ The kernels (``kernels/csrc/conv2d.cu``) run only on a card; the plan that
 picks their route, column tile and R split is a function of shapes, dtype
 and operand addresses alone, and is held here:
 
-* every conv of ResNet-50, GoogLeNet and VGG-16 at 224 takes the
-  tensor-core route (``mma``) in both dtypes, except the three C = 3 stems;
-  any operand ``cp.async`` cannot stage in 16-byte chunks (C not a multiple
-  of 8 in bf16 or 4 in f32, Cout not a multiple of 8, an address off a
-  16-byte boundary) takes the CUDA cores (``cuda_core``), and forcing
-  ``mma`` on it raises;
+* every conv of ResNet-50, GoogLeNet and VGG-16 at 224 takes the tensor
+  cores in both dtypes, except the three C = 3 stems: the warpgroup route
+  (``wgmma``) where TMA reads x in whole 128-byte channel lines and the
+  shape is past the measured crossing (``wgmma_wins``), ``mma`` where
+  not; any operand ``cp.async`` cannot stage in 16-byte chunks (C not a
+  multiple of 8 in bf16 or 4 in f32, Cout not a multiple of 8, an address
+  off a 16-byte boundary) takes the CUDA cores (``cuda_core``), and
+  forcing ``mma`` on it raises, as forcing ``wgmma`` on what TMA cannot
+  read does;
 * the R ranges of a split cover every depth row exactly once, in order,
   none empty, each (but the last) whole depth steps;
-* the workspace is (splits, M, K) f32 when the plan splits, else nothing;
+* the workspace is (splits, M, K) f32 when the plan splits, else nothing,
+  and ``wgmma`` in f32 adds R * K f32 slots for the weights' bf16 halves;
 * the arithmetic: a torch emulation of what ``conv_mma`` computes (the same
   gather of A from the padded input by row base + tap offset, B the HWIO
   weight as an (R, K) matrix, f32 as three bf16 passes a_lo*b_hi +
@@ -54,11 +58,15 @@ def _dims(batch, H, C, K, k, s):
     return batch * Ho * Ho, K, k * k * C
 
 
-def _plan(M, K, R, bf16=True, C=64, x_off=0, w_off=0, **kw):
+def _plan(M, K, R, bf16=True, C=64, x_off=0, w_off=0, k=None, s=1, **kw):
+    """The plan for operands at 16-byte (or offset) addresses; with the
+    window ``k`` given, TMA's legality too (else ``wgmma`` is not open)."""
+    tma = k is not None and P.tma_legal(C, K, k, k, s, 4096 + x_off,
+                                        8192 + w_off, bf16=bf16)
     return P.plan(M, K, R, bf16=bf16,
                   is_aligned=P.aligned(C, K, 4096 + x_off, 8192 + w_off,
                                        bf16=bf16),
-                  n_sm=H100_SMS, **kw)
+                  tma=tma, n_sm=H100_SMS, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -73,21 +81,41 @@ def test_net_conv_shapes_are_the_op_tables():
                       "vgg16": (9, 13)}
 
 
+# each net's convs a forward at batch 64, by route (fp32 is the CNN
+# forward's dtype on the card: chip_smoke.py's CNN_CONV_ROUTES)
+ROUTES_AT_64 = {
+    ("resnet50", True): {"wgmma": 52, "cuda_core": 1},
+    ("resnet50", False): {"wgmma": 47, "mma": 5, "cuda_core": 1},
+    ("googlenet", True): {"wgmma": 33, "mma": 23, "cuda_core": 1},
+    ("googlenet", False): {"wgmma": 44, "mma": 12, "cuda_core": 1},
+    ("vgg16", True): {"wgmma": 12, "cuda_core": 1},
+    ("vgg16", False): {"wgmma": 12, "cuda_core": 1},
+}
+
+
 @pytest.mark.parametrize("bf16", (True, False))
 @pytest.mark.parametrize("name", NETS)
 def test_every_conv_but_the_stem_takes_mma(name, bf16):
+    """Each conv's route, at batch 1, 2 and 64: the tensor cores for all
+    but the C = 3 stem, ``wgmma`` where TMA reads the operands and the
+    crossing says so, ``mma`` elsewhere (the name predates ``wgmma``:
+    "mma" here is either tensor-core route)."""
     taken = Counter()
     for (H, C, K, k, s), n in _net_convs(name).items():
         for batch in (1, 2, 64):
             M, K_, R = _dims(batch, H, C, K, k, s)
-            p = _plan(M, K_, R, bf16=bf16, C=C)
-            assert p.route == ("cuda_core" if C == 3 else "mma"), (H, C, K)
+            p = _plan(M, K_, R, bf16=bf16, C=C, k=k, s=s)
+            tma = P.tma_legal(C, K, k, k, s, bf16=bf16)
+            want = ("cuda_core" if C == 3 else "wgmma"
+                    if tma and P.wgmma_wins(M, K_, R, bf16=bf16) else "mma")
+            assert p.route == want, (H, C, K, k, s, batch)
             if p.route == "mma":
                 assert (p.bm, p.bn) == (P.MMA_BM, P.mma_bn(K))
+            if p.route == "wgmma":
+                assert (p.bm, p.bn) == (
+                    P.WG_BM, P.wg_bn(M, K_, R, bf16, H100_SMS))
         taken[p.route] += n
-    assert taken == {"resnet50": {"mma": 52, "cuda_core": 1},
-                     "googlenet": {"mma": 56, "cuda_core": 1},
-                     "vgg16": {"mma": 12, "cuda_core": 1}}[name]
+    assert taken == Counter(ROUTES_AT_64[name, bf16])
 
 
 @pytest.mark.parametrize("K,bn", [(16, 64), (24, 64), (64, 64), (96, 128),
@@ -129,8 +157,13 @@ def test_forced_routes_and_bad_requests():
     # the CUDA-core kernel does not split R: a forced count is held to 1
     assert _plan(M, K, R, route="cuda_core", splits=7).splits == 1
     assert _plan(M, K, R, bn=64).bn == 64
+    assert _plan(M, K, R, k=3, route="wgmma", bn=128).bn == 128
     with pytest.raises(ValueError, match="unknown route"):
-        _plan(M, K, R, route="wgmma")
+        _plan(M, K, R, route="tma")
+    with pytest.raises(ValueError, match="wgmma route"):
+        _plan(M, K, R, route="wgmma")        # TMA's legality not given
+    with pytest.raises(ValueError, match="wgmma route's bn"):
+        _plan(M, K, R, k=3, route="wgmma", bn=32)
     with pytest.raises(ValueError, match="splits"):
         _plan(M, K, R, splits=0)
     with pytest.raises(ValueError, match="bn must be"):
@@ -139,6 +172,97 @@ def test_forced_routes_and_bad_requests():
         _plan(M, K, R, route="cuda_core", bn=128)
     with pytest.raises(ValueError, match="empty"):
         _plan(0, K, R)
+
+
+@pytest.mark.parametrize("bf16", (True, False))
+@pytest.mark.parametrize("C,K,k,s,x_off,w_off", [
+    (64, 64, 3, 1, 0, 0),      # a whole bf16 line
+    (32, 64, 3, 1, 0, 0),      # a whole f32 line, half a bf16 one
+    (96, 128, 1, 2, 0, 0),
+    (48, 64, 5, 1, 0, 0),      # GoogLeNet's 48: neither
+    (24, 64, 5, 1, 0, 0),
+    (3, 64, 7, 2, 0, 0),       # the stems
+    (64, 70, 3, 1, 0, 0),      # Cout not a multiple of 8
+    (64, 64, 3, 9, 0, 0),      # past TMA's traversal stride
+    (64, 64, 3, 8, 0, 0),
+    (64, 64, 3, 1, 16, 0),     # x a line later: still 16-byte aligned
+    (64, 64, 3, 1, 8, 0),      # x off 16 bytes
+    (64, 64, 3, 1, 0, 4),      # w off 16 bytes
+])
+def test_wgmma_takes_whole_tma_lines(C, K, k, s, x_off, w_off, bf16):
+    ok = P.tma_legal(C, K, k, k, s, 4096 + x_off, 8192 + w_off, bf16=bf16)
+    expected = (C % (64 if bf16 else 32) == 0 and K % 8 == 0 and s <= 8
+                and x_off % 16 == 0 and w_off % 16 == 0)
+    assert ok == expected
+    M, _, R = _dims(2, 28, C, K, k, s)
+    p = _plan(M, K, R, bf16=bf16, C=C, x_off=x_off, w_off=w_off, k=k, s=s)
+    if ok:
+        assert p.route == ("wgmma" if P.wgmma_wins(M, K, R, bf16=bf16)
+                           else "mma")
+    else:
+        assert p.route != "wgmma"
+        with pytest.raises(ValueError, match="wgmma route"):
+            _plan(M, K, R, bf16=bf16, C=C, x_off=x_off, w_off=w_off, k=k,
+                  s=s, route="wgmma")
+    # a line is whole in both dtypes or in f32 alone: a bf16-legal conv
+    # is f32-legal too
+    if bf16 and ok:
+        assert P.tma_legal(C, K, k, k, s, 4096 + x_off, 8192 + w_off,
+                           bf16=False)
+
+
+@pytest.mark.parametrize("K,M,R,bns", [  # (bf16, f32)
+    (64, 200_704, 576, (64, 64)),    # Cout <= 64: two 64-column CTAs
+    (48, 512, 4_608, (64, 64)),
+    (72, 512, 4_608, (128, 128)),    # 56 padded columns, 184 at 256
+    (136, 512, 4_608, (128, 128)),   # padding ties; 16 CTAs of half depth
+    (256, 200_704, 64, (128, 256)),  # ties: bf16's shallow 1x1 at 128
+    (512, 50_176, 128, (128, 256)),
+    (1_024, 12_544, 256, (128, 256)),
+    (256, 12_544, 1_024, (256, 256)),
+    (384, 12_544, 4_608, (128, 128)),  # 0 padded at 128, 128 at 256
+    (512, 3_136, 4_608, (256, 256)),   # ResNet-50's 7x7 3x3: split in two
+    (512, 3_136, 2_048, (128, 128)),   # its 2048 -> 512 1x1: 100 CTAs
+    (256, 12_544, 2_304, (256, 256)),  # its 14x14 3x3: one round either way
+    (2_048, 3_136, 512, (256, 256)),
+])
+def test_wgmma_column_tile(K, M, R, bns):
+    """The widths the sweep of ``chip_smoke.py --only conv2d`` found
+    fastest at ResNet-50's stages, and the tie-breaks between them."""
+    for bf16, bn in zip((True, False), bns):
+        assert P.wg_bn(M, K, R, bf16, H100_SMS) == bn, bf16
+
+
+@pytest.mark.parametrize("bf16", (True, False))
+@pytest.mark.parametrize("M,K,R", [
+    (3_136, 512, 4_608), (3_136, 2_048, 512), (12_544, 256, 2_304),
+    (200_704, 64, 64), (162, 72, 576), (49, 64, 6_272),
+])
+def test_wgmma_splits_and_scratch(M, K, R, bf16):
+    """wgmma's split: whole 128-byte steps, every depth row once, as
+    many ranges as fit beside the tiles one CTA an SM; its f32 scratch
+    holds the partials, then the weights' bf16 halves in f32."""
+    bk = P.WG_BK[bf16]
+    for splits in (None, 1, 2, 3, 7, 10_000):
+        p = P.plan(M, K, R, bf16=bf16, is_aligned=True, tma=True,
+                   n_sm=H100_SMS, route="wgmma", splits=splits)
+        ranges = p.ranges(R)
+        assert p.bm == P.WG_BM and p.bn in P.WG_BNS
+        assert ranges[0][0] == 0 and ranges[-1][1] == R
+        assert all(lo % bk == 0 and hi > lo for lo, hi in ranges)
+        assert p.rows * p.splits >= R > p.rows * (p.splits - 1)
+        if splits is None:
+            tiles = -(-M // P.WG_BM) * -(-K // p.bn)
+            slots = P.WG_CTAS[p.bn, bf16] * H100_SMS
+            assert tiles * p.splits <= max(tiles, slots)
+            assert p.splits == 1 or p.rows >= P.WG_SPLIT_ROWS
+        assert P.workspace_shape(p, M, K) == (
+            (p.splits, M, K) if p.splits > 1 else (0,))
+        assert P.weights_scratch(p, R, K, bf16=bf16) == (0 if bf16
+                                                         else R * K)
+    mma = P.plan(M, K, R, bf16=bf16, is_aligned=True, n_sm=H100_SMS)
+    assert mma.route == "mma"
+    assert P.weights_scratch(mma, R, K, bf16=bf16) == 0
 
 
 # ---------------------------------------------------------------------------
