@@ -9,8 +9,10 @@ Run from the root of a checkout, with no arguments:
 ``flash_attention.cu`` and runs only phase 1's flash-attention checks and
 timings, then exits 0 without the result line: a quick check of that
 kernel, never to be taken for a full run.  ``--only matmul`` does the same
-for ``matmul.cu``, and also times the tensor-core route at forced split
-counts.  ``--only decode_attention`` does
+for ``matmul.cu`` and ``matmul_wgmma.cu``, and also times the tensor-core
+route at forced split counts and each bf16 route over M at the prefill
+wave's four shapes (``stream_sweep``: the crossing the plan's stream
+route rests on).  ``--only decode_attention`` does
 the same for ``paged_attention.cu`` and ``flash_decode.cu`` (the four entry
 points of the decode template and flash decode's tma route), and also
 times the tma route's split counts at whisper's, hymba's and
@@ -61,12 +63,16 @@ Phases (each raises on failure; nothing is caught):
    The matmul is also held over its tensor-core tiles' edges (MM_EDGE_MS x
    MM_EDGE_KN), at forced split counts on each route, with bf16 operands
    whose rows are not 16-byte aligned (which must take the tensor cores,
-   staged: the MM_STAGED_* grid) and by two launches of
+   staged: the MM_STAGED_* grid), on the warpgroup routes in every
+   layout of its operands (``wgmma_grid``; ``stream_grid``: the stream
+   route's edges, forced shares and a graph replay) and by two launches of
    each route on the same inputs (bf16 on the tensor cores, f32 on the
    CUDA cores: bit for bit); it is
    timed over a decode step's 197 calls and a prefill wave's 196, each
-   shape on its own weight buffers past the L2 (``prefill_ms`` and its
-   peers in the JSON), and at the CNNs' fp32 fc.
+   shape on its own weight buffers past the L2 (``wave_ms`` and its
+   peers in the JSON: the wave's calls across its routes; those on the
+   stream route apart as the ``matmul_stream`` kernel), and at the CNNs'
+   fp32 fc.
    flash attention is also held in bf16 over its tensor-core tiles' edges
    (every mix of G in FA_GROUPS, Sq = Skv in FA_LENGTHS, window in
    FA_WINDOWS, D in FA_DIMS) and at a 2048-token prompt, and timed there
@@ -239,8 +245,11 @@ Phases (each raises on failure; nothing is caught):
    with ``--dense``; then the refill-heavy load (32 requests through 2 x
    4 slots, 24 refills) and the five lever runs again at a longer load
    (16 requests x 16 tokens through 4 slots, 12 refills).  Every request
-   must complete, every bf16 prefill matmul must take the tensor-core
-   route, every kernel's launch count must rise on the run that carries
+   must complete, every run's matmul launches must include each route its
+   waves and refills call for (decode on ``mm_mma``, a 4 x 32 wave on the
+   stream route and ``wgmma``, a 4 x 64 wave on ``wgmma``, refills on the
+   stream route; phase 1 holds the plan of each of qwen2-7b's products to
+   SERVING_ROUTES), every kernel's launch count must rise on the run that carries
    it (the counts are set to 0 just before each run and read just after;
    they count the launches issued eagerly and those recorded into a
    graph, not its replays), every engine must run one eager decode step,
@@ -417,6 +426,23 @@ WG_SPLIT_SHAPES = ((256, 3584, 512), (296, 1000, 520), (520, 4096, 264),
                    (2104, 1000, 2000))     # the last at 256 columns a CTA
 WG_SPLITS = (2, 3, 7, 10_000)
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
+# the stream route (mm_stream): M around its 64-row warpgroups, its 128-row
+# tile and its limits; K under a step, shorter than the ring (5 stages of
+# 64) and past a step; N past a 128-column tile, and wide enough for the
+# plan's route at 1040; forced shares (1 CTA, a few, one a unit or SM)
+STREAM_EDGE_MS = (17, 63, 64, 65, 127, 128, 129, 255)
+STREAM_EDGE_KN = ((40, 136), (200, 264), (1032, 2056))
+STREAM_CTAS = (1, 3, 7, 10_000)
+# --only matmul: each route over M at the prefill wave's four shapes
+STREAM_SWEEP_MS = (4, 16, 17, 32, 64, 128, 160, 255)
+# the route of each of qwen2-7b's products (q / o, k / v, w1 / w3, w2, the
+# LM head) on a card of 132 SMs, by rows: a decode step's, a refill's (one
+# slot's prompt of 32 or 64), a wave's (4 x 32); the sweep's fastest but
+# at 64 rows (w2 0.0575 ms on stream against 0.0640 on mma, PERF.md)
+SERVING_ROUTES = {4: ("mma",) * 5,
+                  32: ("mma", "mma", "stream", "mma", "stream"),
+                  64: ("mma", "mma", "stream", "mma", "stream"),
+                  128: ("stream", "wgmma", "stream", "stream", "wgmma")}
 
 # the decode template's split walk: contexts 1, 31, 32, 33 around the first
 # 32-row tile edge, and contexts of about DECODE_LONG (bytes-bound), each
@@ -745,8 +771,6 @@ def staged_grid(torch, rnd) -> int:
     from repro_torch.kernels.matmul import matmul as mm_k
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import ref as mm_ref
-    from repro_torch.kernels.matmul.plan import WG_MIN_M
-
     t0 = time.perf_counter()
     tol, n = TOL["bfloat16"], 0
     before = (mm_ops.matmul.staged, dict(mm_ops.matmul.routes))
@@ -759,12 +783,12 @@ def staged_grid(torch, rnd) -> int:
                 got = mm_ops.matmul(a, b)
                 staged = (K % 8 != 0 or a_off != 0, N % 8 != 0 or b_off != 0)
                 p = mm_k.plan_for(a, b)
-                # aligned operands at 256 rows and more: the wgmma route
-                route = "mma" if any(staged) or M < WG_MIN_M else "wgmma"
-                if p.route != route or p.staged != staged:
+                # aligned operands: a route of their rows' band
+                routes = ("mma",) if any(staged) else tma_routes(M)
+                if p.route not in routes or p.staged != staged:
                     fail(f"matmul staged {M}x{K}x{N} (A +{a_off} B +{b_off} "
-                         f"bytes): plan {p}, want {route} with staged "
-                         f"{staged}")
+                         f"bytes): plan {p}, want one of {routes} with "
+                         f"staged {staged}")
                 check_close(torch, f"matmul staged {M}x{K}x{N} A +{a_off} "
                             f"B +{b_off} ({p})", got, want, tol)
                 n += 1
@@ -777,12 +801,13 @@ def staged_grid(torch, rnd) -> int:
                                                   route="mma")):
                     fail(f"matmul staged {M}x{K}x{N} A +{a_off} B +{b_off}: "
                          "differs from the aligned launch on copies")
-            # forced splits, more than the K steps last
+            # forced splits, more than the K steps last (on mma: the
+            # aligned operands' route at 65 rows, stream, splits no K)
             M = 65
             a = staged_view(torch, rnd, (M, K), a_off)
             want = mm_ref.matmul(a, b)
             for splits in MM_STAGED_SPLITS:
-                q = mm_k.plan_for(a, b, splits=splits)
+                q = mm_k.plan_for(a, b, splits=splits, route="mma")
                 check_close(torch, f"matmul staged {M}x{K}x{N} A +{a_off} "
                             f"B +{b_off} ({q})", mm_k.launch(a, b, q), want,
                             tol)
@@ -808,6 +833,21 @@ def staged_grid(torch, rnd) -> int:
     return n
 
 
+def tma_routes(M: int) -> tuple:
+    """The bf16 routes a launch of M rows whose operands TMA reads in place
+    may take: ``mma`` at decode (16 rows and fewer), ``stream`` or ``mma``
+    below a full row tile, any of the three at one (128 rows), ``wgmma``
+    past it.  Which one within a band is the plan's measured crossing; the
+    serving shapes' own routes are held to SERVING_ROUTES."""
+    if M <= 16:
+        return ("mma",)
+    if M < 128:
+        return ("stream", "mma")
+    if M == 128:
+        return ("stream", "wgmma", "mma")
+    return ("wgmma",)
+
+
 def laid_out(rnd, M, K, N, a_t, b_t):
     """bf16 a (M, K) and b (K, N), each row-major or (``a_t`` / ``b_t``)
     the ``.t()`` view of a row-major matrix, as ``MatMul``'s backward
@@ -825,7 +865,7 @@ def wgmma_grid(torch, rnd) -> int:
     """The warpgroup route against ``ref.matmul`` at 3e-2 in every layout
     of A and B (row-major or a ``.t()`` view, read in place): the plan's
     route at every M of WG_EDGE_MS and (K, N) of WG_EDGE_KN (``wgmma``
-    from 256 rows, ``mma`` on copies below), ``wgmma`` forced at every M
+    from 129 rows, ``mma`` on copies below), ``wgmma`` forced at every M
     at the plan's width, each launched twice bit for bit and, where a
     view, set beside the launch on its row-major copies (logged: the same
     products in the same order); forced splits (WG_SPLITS) at
@@ -850,10 +890,11 @@ def wgmma_grid(torch, rnd) -> int:
                 p = mm_k.plan_for(a, b)
                 legal = all(mm_plan.tma_operand(tuple(t.shape), t.stride(),
                                                 t.data_ptr()) for t in (a, b))
-                route = "wgmma" if legal and M >= mm_plan.WG_MIN_M else "mma"
-                if p.route != route:
-                    fail(f"matmul wgmma grid {tag}: plan {p}, want {route}")
-                planned += route == "wgmma"
+                routes = tma_routes(M) if legal else ("mma",)
+                if p.route not in routes:
+                    fail(f"matmul wgmma grid {tag}: plan {p}, want one of "
+                         f"{routes}")
+                planned += p.route == "wgmma"
                 check_close(torch, f"matmul {tag} ({p})", mm_ops.matmul(a, b),
                             want, tol)
                 n += 1
@@ -905,6 +946,174 @@ def wgmma_grid(torch, rnd) -> int:
         f"row-major copies in {same} of {views} "
         f"({time.perf_counter() - t0:.1f} s)")
     return n
+
+
+def stream_grid(torch, rnd) -> int:
+    """The stream route against ``ref.matmul`` at 3e-2 in every layout of
+    A and B (row-major or a ``.t()`` view, read in place): the plan's route
+    at every M of STREAM_EDGE_MS and (K, N) of STREAM_EDGE_KN (``stream``
+    where TMA reads both operands, M reaches STREAM_MIN_M and N is wide,
+    else ``mma``), and ``stream`` forced wherever TMA reads both, each
+    launched twice bit for bit; in the serving layout also forced shares
+    (STREAM_CTAS, cut to the units and the SMs); one launch captured in a
+    CUDA graph, its replay equal to the eager launch, also on new inputs.
+    The wrapper must count one ``stream`` launch per planned one.
+    Returns the launches held to the plain version."""
+    from repro_torch.kernels.matmul import matmul as mm_k
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import plan as mm_plan
+    from repro_torch.kernels.matmul import ref as mm_ref
+
+    t0 = time.perf_counter()
+    tol, n, planned = TOL["bfloat16"], 0, 0
+    before = mm_ops.matmul.routes["stream"]
+    for K, N in STREAM_EDGE_KN:
+        for M in STREAM_EDGE_MS:
+            for a_t, b_t in LAYOUTS:
+                a, b = laid_out(rnd, M, K, N, a_t, b_t)
+                tag = f"{M}x{K}x{N} {layout_tag(a_t, b_t)}"
+                want = mm_ref.matmul(a, b)
+                legal = all(mm_plan.tma_operand(tuple(t.shape), t.stride(),
+                                                t.data_ptr()) for t in (a, b))
+                p = mm_k.plan_for(a, b)
+                if p.route not in (tma_routes(M) if legal else ("mma",)):
+                    fail(f"matmul stream grid {tag}: plan {p}")
+                planned += p.route == "stream"
+                check_close(torch, f"matmul {tag} ({p})", mm_ops.matmul(a, b),
+                            want, tol)
+                n += 1
+                if not legal:
+                    continue
+                serving = (a_t, b_t) == (False, True)
+                for ctas in (None,) + (STREAM_CTAS if serving else ()):
+                    q = mm_k.plan_for(a, b, route="stream", ctas=ctas)
+                    got = mm_k.launch(a, b, q)
+                    check_close(torch, f"matmul stream {tag} ({q})", got,
+                                want, tol)
+                    if not torch.equal(got, mm_k.launch(a, b, q)):
+                        fail(f"matmul stream {tag} ({q}): two launches on "
+                             "the same inputs differ")
+                    n += 1
+    counted = mm_ops.matmul.routes["stream"] - before
+    if counted != planned or planned == 0:
+        fail(f"matmul stream grid: the wrapper counted {counted} stream "
+             f"launches, the plan sent {planned}")
+    # a launch captured in a CUDA graph: its maps by value, its counters
+    # left at zero by every launch
+    a, b = laid_out(rnd, SLOTS * PROMPT, 3584, 3584, False, False)
+    p = mm_k.plan_for(a, b)
+    eager = mm_k.launch(a, b, p)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mm_k.launch(a, b, p)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            fail(f"matmul stream ({p}): a graph replay differs from its "
+                 "eager launch")
+    a.copy_(rnd(tuple(a.shape)))
+    graph.replay()
+    if not torch.equal(out, mm_k.launch(a, b, p)):
+        fail(f"matmul stream ({p}): a replay on new inputs differs from "
+             "an eager launch")
+    log(f"phase 1: matmul stream grid: {n} launches within {tol} of "
+        f"ref.matmul (M {STREAM_EDGE_MS}, (K, N) {STREAM_EDGE_KN}, A and B "
+        f"row-major or .t() views; forced ctas {STREAM_CTAS}), each bit for "
+        f"bit twice; {planned} planned on stream and counted; a graph "
+        f"replay equal to its eager launch "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return n
+
+
+def stream_sweep(torch, rnd, proj) -> dict:
+    """``--only matmul``: at the prefill wave's four shapes (``proj``'s
+    (K, N)), each M of STREAM_SWEEP_MS on the stream route, ``mm_mma``
+    and ``mm_wgmma`` forced and ``torch.matmul``, in turns (stream, mma,
+    wgmma, torch, torch, wgmma, mma, stream), the weights past the L2: the
+    evidence for the plan's crossings; then at M = 32 and SLOTS x
+    PROMPT the stream route at forced CTA counts (the plan's, and 16 to
+    132), for STREAM_MIN_STEPS; then every config's products (its head
+    too) that TMA reads in place, at a wave's rows (SLOTS x the prompt,
+    the image / meta prefix included) and a refill's (the prompt), on
+    each bf16 route forced, beside the plan's pick."""
+    from repro_torch.kernels.matmul import matmul as mm_k
+    from repro_torch.kernels.matmul import plan as mm_plan
+    from repro_torch.profiling.train_counts import block_products
+
+    out = {}
+    bf = torch.bfloat16
+    n_sm = mm_k._n_sm(0)
+    for K, N, _ in proj[:4]:
+        n_buf = max(1, min(16, int(256e6 // (K * N * 2)) + 1))
+        bs = [rnd((K, N), bf, 1 / math.sqrt(K)) for _ in range(n_buf)]
+        for M in STREAM_SWEEP_MS:
+            a = rnd((M, K), bf)
+            plans = {r: mm_k.plan_for(a, bs[0], route=r)
+                     for r in ("stream", "mma", "wgmma")}
+            fns = {r: (lambda p: lambda i: mm_k.launch(a, bs[i], p))(p)
+                   for r, p in plans.items()}
+            fns["torch"] = lambda i: torch.matmul(a, bs[i])
+            times = {k: [] for k in fns}
+            for k in list(fns) + list(fns)[::-1]:
+                times[k].append(time_ms(torch, fns[k], n_buf))
+            ms = {k: sum(v) / 2 for k, v in times.items()}
+            b_ms, by = bound(2 * (M * K + K * N + M * N), 2 * M * K * N,
+                             H100_BF16)
+            route = mm_k.plan_for(a, bs[0]).route
+            out[f"{M}x{K}x{N}"] = dict(ms, bound_ms=b_ms, route=route)
+            log(f"  matmul crossing {M}x{K}x{N} [plan {route}]: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                + f" ms; bound {b_ms:.4f} ({by}); stream "
+                f"{plans['stream'].ctas} CTAs")
+        for M in (32, SLOTS * PROMPT):
+            a = rnd((M, K), bf)
+            row = []
+            for ctas in (None, 16, 33, 66, 99, n_sm):
+                p = mm_k.plan_for(a, bs[0], route="stream", ctas=ctas)
+                t = time_ms(torch, lambda i: mm_k.launch(a, bs[i], p), n_buf)
+                row.append(f"{p.ctas}{' (plan)' if ctas is None else ''}: "
+                           f"{t:.4f}")
+                out[f"{M}x{K}x{N} ctas {p.ctas}"] = t
+            units = mm_plan.stream_units(M, N, K)
+            log(f"  matmul stream shares {M}x{K}x{N} ({units} units): ms "
+                "by CTAs " + ", ".join(row))
+        del bs
+        torch.cuda.empty_cache()
+    # every config's products TMA reads in place at a wave's rows and a
+    # refill's (the heads too), on each bf16 route forced, in turns: the
+    # plan's pick at each, beside the others
+    shapes = []
+    for arch in ("qwen2-7b", "qwen1.5-4b", "mistral-nemo-12b",
+                 "qwen1.5-110b", "qwen3-moe-30b-a3b", "dbrx-132b",
+                 "mamba2-130m"):
+        cfg = family_cfg(arch)
+        prefix = (cfg.n_img_tokens or 0) + (cfg.n_meta_tokens or 0)
+        prods = set(block_products(cfg)) | {(cfg.d_model, cfg.vocab)}
+        for M in (SLOTS * (PROMPT + prefix), PROMPT + prefix):
+            shapes += [(arch, M, K, N) for K, N in sorted(prods)
+                       if (arch, M, K, N) not in shapes and N % 8 == 0
+                       and K % 8 == 0 and M < mm_plan.WG_MIN_M
+                       and (M, K, N) not in
+                       {(128, k, n) for k, n, _ in proj[:4]}]
+    for arch, M, K, N in shapes:
+        n_buf = max(1, min(16, int(256e6 // (K * N * 2)) + 1))
+        a = rnd((M, K), bf)
+        bs = [rnd((K, N), bf, 1 / math.sqrt(K)) for _ in range(n_buf)]
+        fns = {r: (lambda p: lambda i: mm_k.launch(a, bs[i], p))(
+            mm_k.plan_for(a, bs[0], route=r))
+            for r in ("stream", "mma", "wgmma")}
+        times = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            times[k].append(time_ms(torch, fns[k], n_buf))
+        ms = {k: sum(v) / 2 for k, v in times.items()}
+        route = mm_k.plan_for(a, bs[0]).route
+        out[f"{arch} {M}x{K}x{N}"] = dict(ms, route=route)
+        log(f"  matmul routes {arch} {M}x{K}x{N} [plan {route}]: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + " ms")
+        del a, bs
+        torch.cuda.empty_cache()
+    return out
 
 
 def staged_products():
@@ -1015,17 +1224,26 @@ def phase_matmul(torch, cfg, sweep=False):
     bf = torch.bfloat16
     out = {}
 
-    # -- correctness at the main path's widths, bf16 and fp32, plus ragged
-    # shapes that no 16-byte route can take
-    worst = 0.0
-    for M in (SLOTS, SLOTS * PROMPT):
-        for K, N, _ in proj:
+    # -- correctness at the main path's widths, bf16 and fp32: a decode
+    # step's rows, a refill's (a prompt of 32 or 64 rows: the long lever
+    # runs') and a wave's, each bf16 plan held to SERVING_ROUTES; plus
+    # ragged shapes that no 16-byte route can take
+    worst, stream_worst = 0.0, 0.0
+    n_sm = mm_k._n_sm(0)
+    for M in (SLOTS, PROMPT, 2 * PROMPT, SLOTS * PROMPT):
+        for (K, N, _), route in zip(proj, SERVING_ROUTES[M]):
             for dt in (bf, torch.float32):
                 a, b = operands(M, K, N, dt)
                 e = check_close(torch, f"matmul {M}x{K}x{N} {dt}",
                                 mm_ops.matmul(a, b), mm_ref.matmul(a, b),
                                 tol(dt))
-                if dt == bf:
+                p = mm_k.plan_for(a, b)
+                if dt == bf and p.route != route and n_sm == 132:
+                    fail(f"matmul {M}x{K}x{N}: plan {p}, want {route} "
+                         "(SERVING_ROUTES)")
+                if dt == bf and p.route == "stream":
+                    stream_worst = max(stream_worst, e)
+                elif dt == bf and p.route == "mma":
                     worst = max(worst, e)
                 del a, b
     for M, K, N in ((37, 1000, 517), (5, 3583, 130), (129, 100, 70)):
@@ -1065,6 +1283,7 @@ def phase_matmul(torch, cfg, sweep=False):
     # warpgroup route in every layout
     n_staged = staged_grid(torch, rnd)
     n_wgmma = wgmma_grid(torch, lambda shape: rnd(shape, bf))
+    n_stream = stream_grid(torch, lambda shape: rnd(shape, bf))
     # every route twice on the same inputs (bf16 on the tensor cores, f32
     # on the CUDA cores): bit for bit
     for route, M, K, N, dt in (("mma", SLOTS, d, d, bf), ("mma", 64, d, d, bf),
@@ -1080,12 +1299,16 @@ def phase_matmul(torch, cfg, sweep=False):
         if not torch.equal(mm_k.launch(a, b, p), mm_k.launch(a, b, p)):
             fail(f"matmul {route} {M}x{K}x{N} {dt} ({p}): two launches on "
                  "the same inputs differ")
-    log(f"phase 1: matmul matches its plain version at {2 * len(proj)} "
-        f"main-path shapes x 2 dtypes (bf16 max abs err {worst:.3g}), 3 "
+    held = ("held to SERVING_ROUTES" if n_sm == 132 else
+            f"not held to SERVING_ROUTES, a table for 132 SMs ({n_sm} here)")
+    log(f"phase 1: matmul matches its plain version at {4 * len(proj)} "
+        f"main-path shapes x 2 dtypes (bf16 max abs err {worst:.3g} on "
+        f"mma, {stream_worst:.3g} on stream; each bf16 plan {held}), 3 "
         f"ragged ones, {len(MM_EDGE_MS) * len(MM_EDGE_KN)} tile-edge shapes "
         f"x 2 dtypes (bf16 {edge_worst:.3g}), {n_forced} forced splits, "
         f"{n_staged} staged launches on the tensor cores, {n_wgmma} on "
-        "the warpgroup route; each route is bitwise repeatable")
+        f"the warpgroup route, {n_stream} on the stream route; each route "
+        "is bitwise repeatable")
 
     def b_buffers(K, N, dt):
         """Distinct weight buffers, together past the 50 MB L2."""
@@ -1119,11 +1342,17 @@ def phase_matmul(torch, cfg, sweep=False):
             f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
             f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f}"
             f" ({r['bound_by']})")
-    # -- one prefill wave: 196 calls at M = slots x prompt
-    wave = {}
+    # -- one prefill wave: 196 calls at M = slots x prompt; its products on
+    # the stream route apart too
+    wave, streamed, n_streamed, wave_routes = {}, {}, 0, {}
     for K, N, calls in proj[:-1]:
         r = timed(SLOTS * PROMPT, K, N)
         add(wave, r, calls)
+        route = r["plan"].route
+        wave_routes[route] = wave_routes.get(route, 0) + calls
+        if route == "stream":
+            add(streamed, r, calls)
+            n_streamed += calls
         log(f"  matmul bf16 {SLOTS * PROMPT}x{K}x{N} (x{calls}/wave, "
             f"{r['plan']}): kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
@@ -1133,10 +1362,14 @@ def phase_matmul(torch, cfg, sweep=False):
     log(f"  matmul decode step ({n_step} calls at M={SLOTS}): kernel_ms "
         f"{step['ms']:.3f} plain_ms {step['plain_ms']:.3f} library_ms "
         f"{step['library_ms']:.3f} bound_ms {step['bound_ms']:.3f}")
-    log(f"  matmul prefill wave ({n_wave} calls at M={SLOTS * PROMPT}): "
+    log(f"  matmul prefill wave ({n_wave} calls at M={SLOTS * PROMPT}, by "
+        f"route {wave_routes}): "
         f"kernel_ms {wave['ms']:.3f} plain_ms {wave['plain_ms']:.3f} "
         f"library_ms {wave['library_ms']:.3f} bound_ms "
-        f"{wave['bound_ms']:.3f}")
+        f"{wave['bound_ms']:.3f}; of it on the stream route "
+        f"({n_streamed} calls): kernel_ms {streamed['ms']:.3f} plain_ms "
+        f"{streamed['plain_ms']:.3f} library_ms "
+        f"{streamed['library_ms']:.3f} bound_ms {streamed['bound_ms']:.3f}")
     # -- the CNNs' fc at the paper's batch, fp32 (ResNet-50's)
     r = timed(CNN_BATCH, 2048, 1000, torch.float32)
     log(f"  matmul fp32 {CNN_BATCH}x2048x1000 (ResNet-50 fc, {r['plan']}): "
@@ -1160,16 +1393,24 @@ def phase_matmul(torch, cfg, sweep=False):
                     f"{plan.splits}): ms by splits " + ", ".join(row))
                 del a, bs
         out["matmul_staged_ab"] = staged_ab(torch)
+        out["matmul_stream_sweep"] = stream_sweep(torch, rnd, proj)
     out["matmul"] = dict(
         shape=f"one decode step: {n_step} calls at M={SLOTS} (28 x q,k,v,o,"
-              f"w1,w3,w2 + LM head), bf16; prefill: one wave's {n_wave} "
-              f"calls at M={SLOTS * PROMPT}",
+              f"w1,w3,w2 + LM head), bf16; wave_*: one prefill wave's "
+              f"{n_wave} calls at M={SLOTS * PROMPT} across its routes "
+              f"{wave_routes}",
         max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"],
         library_ms=step["library_ms"], bound_ms=step["bound_ms"],
-        bound_by="bytes", prefill_ms=wave["ms"],
-        prefill_plain_ms=wave["plain_ms"],
-        prefill_library_ms=wave["library_ms"],
-        prefill_bound_ms=wave["bound_ms"])
+        bound_by="bytes", wave_ms=wave["ms"],
+        wave_plain_ms=wave["plain_ms"],
+        wave_library_ms=wave["library_ms"],
+        wave_bound_ms=wave["bound_ms"], wave_routes=wave_routes)
+    out["matmul_stream"] = dict(
+        shape=f"a prefill wave's {n_streamed} calls on the stream route at "
+              f"M={SLOTS * PROMPT} (28 x q,o,w1,w3,w2), bf16",
+        max_abs_err=stream_worst, ms=streamed["ms"],
+        plain_ms=streamed["plain_ms"], library_ms=streamed["library_ms"],
+        bound_ms=streamed["bound_ms"], bound_by="bytes")
     return out
 
 
@@ -2573,7 +2814,8 @@ class TraceIncomplete(Exception):
 
 
 # the port's kernels a trace_check counts, by kind
-TRACE_KINDS = {"matmul": ("mm_mma", "mm_wgmma", "mm_skinny", "mm_tiled"),
+TRACE_KINDS = {"matmul": ("mm_mma", "mm_wgmma", "mm_stream", "mm_skinny",
+                          "mm_tiled"),
                "flash attention": ("fa_kernel", "fa_mma_kernel",
                                    "fa_wgmma_kernel"),
                "decode attention": ("decode::kernel", "fd_tma::kernel")}
@@ -3134,9 +3376,11 @@ def phase_cnn_card_vs_cpu(torch):
 def serve_run(torch, cfg, wrappers, name, argv, n_req, gen, lever=None,
               after=None):
     """One serve CLI run with every count set to 0 just before it and read
-    just after; every request must complete.  ``after(engines)``, when
-    given, runs on the fleet's engines once the checks pass.  Returns the
-    run's record."""
+    just after; every request must complete; the run's matmul launches
+    are counted by route (``phase_serve`` holds them to the waves' and
+    refills' routes).  ``after(engines)``,
+    when given, runs on the fleet's engines once the checks pass.  Returns
+    the run's record."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.matmul import ops as mm_ops
@@ -3267,11 +3511,21 @@ def phase_serve(torch, cfg, wrappers):
             fail(f"serve {name}: flash_attention launched {n} times, by "
                  f"route {r['fa_routes']}: every serving prefill of 32 or 64 "
                  "rows must take the mma route")
-    # every prefill wave (M = slots x prompt > 16, bf16) on the tensor cores
-    for name, r in runs.items():
-        if r["routes"]["mma"] == 0 or r["routes"]["tiled"] != 0:
-            fail(f"serve {name}: matmul launches by route {r['routes']}: the "
-                 f"bf16 prefill matmuls did not all take mm_mma")
+    # every bf16 matmul on the tensor cores (SERVING_ROUTES, held in
+    # phase 1): decode on mma; a wave of 4 x 32 rows on stream (q / o,
+    # w1 / w3, w2) and wgmma (k / v), of 4 x 64 on wgmma; a refill's
+    # w1 / w3 (a column tile an SM) on stream, the rest of it on mma
+    for name, argv in loads:
+        r = runs[name]["routes"]
+        rows = SLOTS * flag(argv, "--prompt-len")
+        want = {"mma", "wgmma"} | ({"stream"} if rows == 128 else set())
+        if flag(argv, "--requests") > \
+                flag(argv, "--batch") * flag(argv, "--partitions"):
+            want.add("stream")            # refills
+        if r["tiled"] or r["skinny"] or any(r[k] == 0 for k in want):
+            fail(f"serve {name}: matmul launches by route {r}: want decode "
+                 f"on mma, its {SLOTS} x {rows // SLOTS}-row waves and its "
+                 f"refills on {sorted(want - {'mma'})}")
     for name, k in (("int8+sparse", "paged_decode_quant"),
                     ("sparse+prefix", "paged_decode_sparse")):
         for run in (name, f"long {name}"):
@@ -4217,7 +4471,8 @@ def phase_ssm_serve(torch, wrappers):
     with ``serve_run``'s gates; each must launch the matmul (hymba also
     flash attention and ``paged_decode``, or ``flash_decode`` on the
     slab), and every matmul must take the tensor cores, hymba's in_proj and
-    head staged (their rows are not 16 bytes).  Each
+    head staged (their rows are not 16 bytes), every plan on the route its
+    shape calls for.  Each
     logs the replayed decode step's device ms, wall ms, idle share and
     bytes bound (``step_measure``: the weights, mamba2's tied embedding
     included, and every slot's SSM state read and written)."""
@@ -4248,8 +4503,8 @@ def phase_ssm_serve(torch, wrappers):
         if routes["skinny"] + routes["tiled"] or \
                 (cfg.family == "ssm") != (staged == 0):
             fail(f"serve {name}: matmul routes {routes}, {staged} staged "
-                 "(every matmul on mm_mma, hymba's in_proj and head staged, "
-                 "none of mamba2's)")
+                 "(every matmul on the tensor cores, hymba's in_proj and "
+                 "head staged, none of mamba2's)")
         m = measured
         log(f"phase 3 [{name}]: {cfg.name} d={cfg.d_model} "
             f"layers={cfg.n_layers}: replayed decode step "
@@ -4719,8 +4974,8 @@ def phase_encdec_serve(torch, wrappers):
     routes = run["routes"]
     if routes["tiled"] or routes["skinny"] or run["staged"] != 4:
         fail(f"serve {ENCDEC_ARCH}: matmul routes {routes}, {run['staged']} "
-             "staged (want every matmul on mm_mma, the 4 issued heads "
-             "staged)")
+             "staged (want every matmul on the tensor cores, the 4 issued "
+             "heads staged)")
     m = measured
     log(f"phase 3 [{ENCDEC_ARCH}]: {cfg.name} d={cfg.d_model} "
         f"layers={cfg.enc_layers}+{cfg.n_layers}: replayed decode step "
@@ -4889,8 +5144,8 @@ def in_process_fleet(torch, cfg, api, params, specs, n_req, seed):
 
 def launches_of(report: dict) -> dict:
     """A worker's kernel launch counts from its metrics snapshot, by
-    wrapper (``matmul_wgmma``: the matmul's launches on the ``wgmma``
-    route, counted in ``matmul`` too)."""
+    wrapper (``matmul_wgmma`` / ``matmul_stream``: the matmul's launches on
+    the ``wgmma`` / ``stream`` route, counted in ``matmul`` too)."""
     return {k.split(".")[1]: int(v) for k, v in report.items()
             if k.startswith("kernel.")}
 
@@ -6435,7 +6690,7 @@ def phase_train_family_kernels(torch):
                 fail(f"{name}: two launches on the same inputs differ")
             p = mm_ops.plan_for(x, y)
             # TMA reads both in place (whisper's forward against its tied
-            # table's view) from 256 rows: wgmma; else mma, one staged
+            # table's view) from WG_MIN_M rows: wgmma; else mma, one staged
             legal = all(tma_operand(tuple(t.shape), t.stride(),
                                     t.data_ptr()) for t in (x, y))
             if (p.route, legal and x.shape[0] >= WG_MIN_M) not in (
@@ -7029,6 +7284,10 @@ def main() -> None:
             # TMA) on the warpgroup tensor cores
             "matmul_wgmma": ("matmul_wgmma.cu",
                              "src/repro/kernels/matmul/matmul.py:49"),
+            # the prefill waves' and refills' wide products (17-255 rows)
+            # on the same tensor cores, a persistent stream-K walk
+            "matmul_stream": ("matmul_wgmma.cu",
+                              "src/repro/kernels/matmul/matmul.py:49"),
             # the reverse pass of the reference's training step: autodiff of
             # its XLA chunked attention (the Pallas kernel has no backward)
             "flash_attention_backward": (
@@ -7079,24 +7338,27 @@ def main() -> None:
         modes=["causal", "bidirectional"],
         bidirectional=encdec_stats["flash_attention"])
 
-    def wgmma_of(run, r):
-        """A run's matmul launches on the ``wgmma`` route: its route
-        counts, or a worker's own count of them."""
-        if "routes" in r:
-            return r["routes"]["wgmma"]
-        if "matmul_wgmma" in r["launches"]:
-            return r["launches"]["matmul_wgmma"]
-        if r["launches"].get("matmul"):
-            fail(f"kernels line: run {run} has matmul launches but no "
-                 "count of their routes")
-        return 0
+    def route_of(route):
+        def count(run, r):
+            """A run's matmul launches on ``route``: its route counts, or
+            a worker's own count of them."""
+            if "routes" in r:
+                return r["routes"][route]
+            if f"matmul_{route}" in r["launches"]:
+                return r["launches"][f"matmul_{route}"]
+            if r["launches"].get("matmul"):
+                fail(f"kernels line: run {run} has matmul launches but no "
+                     "count of their routes")
+            return 0
+        return count
 
-    # each source's own launches: matmul.cu's are the matmul wrapper's
-    # less those on the wgmma route (matmul_wgmma.cu's)
+    # each kernel's own launches: matmul.cu's are the matmul wrapper's
+    # less those on the wgmma and stream routes (matmul_wgmma.cu's)
     launches_of_run = {
         "matmul": lambda run, r: r["launches"].get("matmul", 0)
-        - wgmma_of(run, r),
-        "matmul_wgmma": wgmma_of}
+        - route_of("wgmma")(run, r) - route_of("stream")(run, r),
+        "matmul_wgmma": route_of("wgmma"),
+        "matmul_stream": route_of("stream")}
     kernels = []
     for name, (src, replaces) in meta.items():
         s = stats[name]
@@ -7107,6 +7369,8 @@ def main() -> None:
         if name == "matmul_wgmma" and not any(
                 run.startswith("train") for run in by_run):
             fail(f"matmul_wgmma: no launch on the training path {by_run}")
+        if name == "matmul_stream" and not by_run.get("baseline"):
+            fail(f"matmul_stream: no launch on the serving path {by_run}")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{src}",
                         "replaces": replaces,
@@ -7118,9 +7382,10 @@ def main() -> None:
                         "library_ms": s["library_ms"], "shape": s["shape"],
                         **{key: s[key] for key in (
                             "long_ms", "long_library_ms", "long_bound_ms",
-                            "splits", "long_splits", "prefill_ms",
-                            "prefill_plain_ms", "prefill_library_ms",
-                            "prefill_bound_ms", "route_ms", "route_bound_ms",
+                            "splits", "long_splits", "wave_ms",
+                            "wave_plain_ms", "wave_library_ms",
+                            "wave_bound_ms", "wave_routes", "route_ms",
+                            "route_bound_ms",
                             "library_tf32_ms", "bf16_ms", "bf16_plain_ms",
                             "bf16_library_ms", "bf16_bound_ms",
                             "bf16_bound_by",

@@ -5,12 +5,20 @@ Replaces ``repro/kernels/matmul/matmul.py::matmul_pallas``.  Unlike the
 Pallas kernel it takes any M, K, N and any bf16 addresses: ragged edges
 are masked in the kernel, and an operand whose rows are not 16-byte
 aligned is staged through its windows.  The route (bf16 on the tensor
-cores: ``wgmma`` at training's sizes, ``mma`` otherwise; f32 on the CUDA
-cores), tile, K split and staging come from ``plan.plan``, a function of
-the shapes, dtype, layout and alignment alone; where the plan splits K,
-the f32 workspace of (splits, M, N) is allocated here.  ``wgmma`` reads
-each operand where it lies, a row-major matrix or the ``.t()`` view of
-one; the other routes read contiguous operands, so a view is copied first.
+cores: ``wgmma`` at training's sizes, ``stream`` at the prefill waves',
+``mma`` otherwise; f32 on the CUDA cores), tile, K split,
+shares and staging come from ``plan.plan``, a function of the shapes,
+dtype, layout and alignment alone; where the plan splits K, the f32
+workspace of (splits, M, N) is allocated here, and so is the stream
+route's (a partial slot a CTA).  ``wgmma`` and ``stream`` read each
+operand where it lies, a row-major matrix or the ``.t()`` view of one;
+the other routes read contiguous operands, so a view is copied first.
+The stream route's tile counters (``plan.STREAM_TILES``) are a static
+array of its CUDA module, zeroed on each card when the module is loaded
+there, and every launch leaves them at zero: a launch needs no reset of
+its own, eagerly or replayed in a CUDA graph, and the first may be a
+capture.  A card's launches share them, so the stream route's launches
+on one card are issued one after another on one stream.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from . import plan as mm_plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"mm_run": [_P, _P, _P, _P] + [_I] * 8 + [_P]}
-WG_SIGNATURES = {"mm_wgmma_run": [_P, _P, _P, _P] + [_I] * 10 + [_P]}
+WG_SIGNATURES = {"mm_wgmma_run": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+                 "mm_stream_run": [_P] * 4 + [_I] * 8 + [_P]}
 
 
 @lru_cache(maxsize=None)
@@ -40,10 +49,12 @@ def _tma(t: torch.Tensor):
 
 
 def plan_for(a: torch.Tensor, b: torch.Tensor, *, route: Optional[str] = None,
-             splits: Optional[int] = None) -> mm_plan.Plan:
-    """The launch plan of ``a @ b`` on a's card (``route`` / ``splits``
-    force a choice, as in ``plan.plan``).  ``mma``'s alignment is that of
-    the contiguous operands it reads: a view's copy is aligned."""
+             splits: Optional[int] = None,
+             ctas: Optional[int] = None) -> mm_plan.Plan:
+    """The launch plan of ``a @ b`` on a's card (``route`` / ``splits`` /
+    ``ctas`` force a choice, as in ``plan.plan``).  ``mma``'s
+    alignment is that of the contiguous operands it reads: a view's copy
+    is aligned."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     M, K = a.shape
@@ -56,7 +67,8 @@ def plan_for(a: torch.Tensor, b: torch.Tensor, *, route: Optional[str] = None,
         M, N, K, bf16=bf16,
         is_aligned=mm_plan.aligned(N, K, ptr(a), ptr(b)),
         tma=bf16 and _tma(a) is not None and _tma(b) is not None,
-        n_sm=_n_sm(a.device.index or 0), route=route, splits=splits)
+        n_sm=_n_sm(a.device.index or 0), route=route, splits=splits,
+        ctas=ctas)
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, p: mm_plan.Plan) -> torch.Tensor:
@@ -65,7 +77,7 @@ def launch(a: torch.Tensor, b: torch.Tensor, p: mm_plan.Plan) -> torch.Tensor:
     view); the other routes read contiguous copies of views."""
     if a.dtype != b.dtype:
         raise TypeError(f"matmul: dtypes differ ({a.dtype}, {b.dtype})")
-    if p.route == "wgmma":
+    if p.route in ("wgmma", "stream"):
         return _launch_wgmma(a, b, p)
     a, b = a.contiguous(), b.contiguous()
     _build.check_inputs("matmul", a, b)
@@ -92,7 +104,7 @@ def _launch_wgmma(a: torch.Tensor, b: torch.Tensor,
     ta, tb = _tma(a), _tma(b)
     if a.dtype != torch.bfloat16 or ta is None or tb is None:
         raise ValueError(
-            f"matmul: the wgmma route takes bf16 operands TMA reads in "
+            f"matmul: the {p.route} route takes bf16 operands TMA reads in "
             f"place (row-major or a .t() view, 16-byte aligned, lines a "
             f"multiple of 16 bytes apart); got {a.dtype} strides "
             f"{a.stride()} / {b.stride()}")
@@ -102,6 +114,13 @@ def _launch_wgmma(a: torch.Tensor, b: torch.Tensor,
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     ws = torch.empty(mm_plan.workspace_shape(p, M, N), dtype=torch.float32,
                      device=a.device)
+    if p.route == "stream":
+        err = lib.mm_stream_run(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                ws.data_ptr(), M, N, K, ta[1], tb[1],
+                                int(ta[0]), int(not tb[0]), p.ctas,
+                                _build.stream_of(a))
+        _build.check(lib, err, f"mm_stream_run ({p})")
+        return c
     # A read M-major where it is a .t() view; B N-major where row-major
     err = lib.mm_wgmma_run(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                            ws.data_ptr() if p.splits > 1 else None, M, N, K,
@@ -112,8 +131,9 @@ def _launch_wgmma(a: torch.Tensor, b: torch.Tensor,
 
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
-                route: Optional[str] = None,
-                splits: Optional[int] = None) -> torch.Tensor:
+                route: Optional[str] = None, splits: Optional[int] = None,
+                ctas: Optional[int] = None) -> torch.Tensor:
     """a: (M, K) @ b: (K, N) -> (M, N), both CUDA, one dtype, by the plan
-    for these operands (or the forced ``route`` / ``splits``)."""
-    return launch(a, b, plan_for(a, b, route=route, splits=splits))
+    for these operands (or the forced ``route`` / ``splits`` / ``ctas``)."""
+    return launch(a, b, plan_for(a, b, route=route, splits=splits,
+                                 ctas=ctas))

@@ -5,8 +5,8 @@ launches the CUDA kernel its plan picks, adds one to ``matmul.launches``,
 one to that route's count in ``matmul.routes`` and, where the plan stages
 an operand through its windows (rows not 16-byte aligned), one to
 ``matmul.staged``.  Either operand may be a row-major matrix or the
-``.t()`` view of one: the ``wgmma`` route reads it in place, the others
-read a contiguous copy.  Where grad is enabled and an operand requires it
+``.t()`` view of one: the ``wgmma`` and ``stream`` routes read it in
+place, the others read a contiguous copy.  Where grad is enabled and an operand requires it
 (training), the call goes through ``MatMul``, an autograd Function whose
 forward is the same launch and whose backward is two more products
 through this wrapper, dA = dC B^T and dB = A^T dC (each counted; the

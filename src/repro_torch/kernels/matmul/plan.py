@@ -1,18 +1,33 @@
 """The route, tile and split plan of the matmul kernels (``csrc/matmul.cu``,
 ``csrc/matmul_wgmma.cu``).
 
-Four kernels compute ``C = A @ B``:
+Five kernels compute ``C = A @ B``:
 
 * ``wgmma``: ``mm_wgmma<BN, A_MN, B_MN>`` (``csrc/matmul_wgmma.cu``),
   bf16 on Hopper's warpgroup tensor cores, fed by TMA: training's
-  products.  It takes a launch with M >= WG_MIN_M (a loss chunk's 256
-  rows and up) whose operands TMA can read in place (``tma_operand``):
-  each a row-major matrix or the ``.t()`` view of one, its base 16-byte
-  aligned and its lines a multiple of 16 bytes apart.  A CTA owns 128 x
-  BN outputs, BN 256 unless 128 fills more SMs (``_wg_bn``).
+  products, and the serving waves' where it is the fastest route.  It
+  takes a launch with M >= WG_MIN_M (past one row tile), or a wave of
+  WG_WAVE_M rows that ``_wave_on_wgmma`` gives it, whose operands TMA can
+  read in place (``tma_operand``): each a row-major matrix or the ``.t()``
+  view of one, its base 16-byte aligned and its lines a multiple of 16
+  bytes apart.  A CTA owns 128 x BN outputs, BN 256 unless 128 fills more
+  SMs (``_wg_bn``).
+* ``stream``: ``mm_stream<A_MN, B_MN>`` (``csrc/matmul_wgmma.cu``), bf16
+  on the same warpgroup tensor cores and TMA ring, for the bytes-bound
+  products of the serving prefill waves and refills (``stream_takes``:
+  M from STREAM_MIN_M to one row tile, K from STREAM_MIN_K, enough column
+  tiles of STREAM_BN, operands TMA-legal).  The crossings of the three
+  tensor-core routes are measured ones: ``chip_smoke.py --only
+  matmul``'s sweep of every config's products on each route.  A persistent grid
+  of ``ctas`` CTAs, one an SM, walks the flattened (tile, K step) units
+  in equal contiguous shares
+  (``Plan.shares``: stream-K); a tile whose K steps two or more shares
+  hold is summed in the kernel, in share order, by the first of them,
+  from f32 partials in a workspace of one slot a CTA.
 * ``mma``: ``mm_mma<BM, A_VEC, B_VEC>``, bf16 on the tensor cores
-  (``mma.sync`` m16n8k16): every other bf16 product (decode, prefill
-  waves, refills, misaligned operands).  It reads contiguous operands:
+  (``mma.sync`` m16n8k16): every other bf16 product (decode, short or
+  narrow products, most of a refill's, products TMA cannot read in
+  place, misaligned operands).  It reads contiguous operands:
   the wrapper copies a transposed view first.  An operand whose rows
   start on 16-byte boundaries (A: K % 8 == 0 and A 16-byte aligned; B: N
   % 8 == 0 and B so) is staged by 16-byte ``cp.async``; any other is
@@ -44,7 +59,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-ROUTES = ("mma", "skinny", "tiled", "wgmma")
+ROUTES = ("mma", "skinny", "tiled", "wgmma", "stream")
 ROUTE_CODES = {r: i for i, r in enumerate(ROUTES[:3])}   # mm_run's `route`
 
 # mm_mma<BM>: CTA tile BM x MMA_BN, K step MMA_BK[BM]
@@ -55,10 +70,33 @@ MMA_MIN_STEPS = 4        # fewest K steps a split may own
 ALIGN = 16               # bytes: cp.async's chunk, the rows' alignment
 
 # mm_wgmma<BN>: CTA tile WG_BM x BN, K step WG_BK; M from which it is the
-# route (operands TMA-legal)
+# route (operands TMA-legal): past one row tile, where the sweep had it
+# beat ``mma`` at every shape and ``stream`` at all but a tie (160 and 255
+# rows); a wave of WG_WAVE_M rows it takes where ``_wave_on_wgmma`` says
+# (weights of WG_WAVE_KN elements or more, or a product ``stream`` does
+# not take)
 WG_BM, WG_BNS, WG_BK = 128, (128, 256), 64
-WG_MIN_M = 256
+WG_MIN_M = 129
+WG_WAVE_M = 128
+WG_WAVE_KN = 1 << 27
 WG_MIN_STEPS = 4
+
+# mm_stream: WG_BM x STREAM_BN tiles, K steps of WG_BK; the launches it
+# takes (bf16, operands TMA-legal; ``stream_takes``): M from STREAM_MIN_M
+# (decode, M <= 16, stays on mm_mma<16>) to one row tile, K from
+# STREAM_MIN_K (a shorter K leaves too few units for one CTA an SM); from
+# STREAM_WIDE_M rows at least STREAM_MIN_TILES column tiles, below it (a
+# refill, where mm_mma's 64-row tile is fast) a column tile an SM: fewer
+# tiles are each shared by more CTAs, and the sum of their partials costs
+# more than mm_mma loses; the fewest K steps a CTA's share holds, so that
+# a share's weight bytes outweigh its partial's round trip; the tiles'
+# counters of the kernel's module (SK_TILES, one a tile)
+STREAM_MIN_M, STREAM_WIDE_M = 17, 65
+STREAM_MIN_K = 1024
+STREAM_BN = 128
+STREAM_MIN_TILES = 16
+STREAM_MIN_STEPS = 8
+STREAM_TILES = 4096
 
 # the CUDA-core kernels, as they were planned before the tensor-core route
 SK_MAXM, SK_STRIPE, SK_MIN_ROWS = 16, 256, 64
@@ -75,12 +113,20 @@ class Plan:
     # mma: whether (A, B) go through their windows (rows not 16-byte
     # aligned)
     staged: Tuple[bool, bool] = (False, False)
-    bn: int = MMA_BN    # columns a CTA covers (mma / wgmma)
+    bn: int = MMA_BN    # columns a CTA covers (mma / wgmma / stream)
+    ctas: int = 0       # stream: the persistent grid, one CTA an SM
+    units: int = 0      # stream: (tile, K step) units, tiles column-major
 
     def ranges(self, K: int):
         """The K rows ``[lo, hi)`` of each split, in order."""
         return [(z * self.rows, min(K, (z + 1) * self.rows))
                 for z in range(self.splits)]
+
+    def shares(self):
+        """stream: the units ``[lo, hi)`` each CTA walks, in CTA order."""
+        return [(c * self.units // self.ctas,
+                 (c + 1) * self.units // self.ctas)
+                for c in range(self.ctas)]
 
 
 def aligned(N: int, K: int, a_ptr: int, b_ptr: int) -> Tuple[bool, bool]:
@@ -116,10 +162,63 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _route(M: int, bf16: bool, tma: bool) -> str:
+def _route(M: int, N: int, K: int, bf16: bool, tma: bool, n_sm: int) -> str:
     if bf16:
-        return "wgmma" if tma and M >= WG_MIN_M else "mma"
+        if tma and (M >= WG_MIN_M or (M >= WG_WAVE_M and
+                                      _wave_on_wgmma(M, N, K, n_sm))):
+            return "wgmma"
+        if tma and stream_takes(M, N, K, n_sm):
+            return "stream"
+        return "mma"
     return "skinny" if M <= SK_MAXM else "tiled"
+
+
+def _wave_on_wgmma(M: int, N: int, K: int, n_sm: int) -> bool:
+    """Whether a wave of a full row tile takes ``wgmma``: where its weights
+    hold WG_WAVE_KN elements or more (the heads, qwen1.5-110b's MLP: on so
+    long a walk wgmma's 256-column tile, reading A half as often, beat
+    stream's shares by 2-24 %), and where ``stream`` does not take it (the
+    narrow k / v products, mamba2's K < STREAM_MIN_K: wgmma's instruction
+    beat mma.sync's on the same grid by 9-27 %) unless wgmma splits K more
+    ways than ``mma`` would (its 256-column tile doubling the partials'
+    round trip: qwen1.5-110b's 8192->1024, 23 % slower)."""
+    if K * N >= WG_WAVE_KN:
+        return True
+    if stream_takes(M, N, K, n_sm):
+        return False
+    return (_wg_splits(M, N, K, _wg_bn(M, N, K, n_sm), n_sm)
+            <= _mma_splits(M, N, K, mma_bm(M), n_sm))
+
+
+def stream_takes(M: int, N: int, K: int, n_sm: int) -> bool:
+    """Whether a bf16 launch whose operands TMA reads in place takes the
+    stream route on a card of ``n_sm`` SMs (the limits above)."""
+    if not STREAM_MIN_M <= M < WG_MIN_M or K < STREAM_MIN_K or \
+            stream_tiles(M, N) > STREAM_TILES:
+        return False
+    cols = _ceil(N, STREAM_BN)
+    return cols >= (STREAM_MIN_TILES if M >= STREAM_WIDE_M else n_sm)
+
+
+def stream_tiles(M: int, N: int) -> int:
+    return _ceil(M, WG_BM) * _ceil(N, STREAM_BN)
+
+
+def stream_units(M: int, N: int, K: int) -> int:
+    """mm_stream's (tile, K step) units."""
+    return stream_tiles(M, N) * _ceil(K, WG_BK)
+
+
+def _stream_ctas(units: int, n_sm: int) -> int:
+    """One CTA an SM, fewer where a share would hold under
+    STREAM_MIN_STEPS K steps."""
+    return max(1, min(n_sm, units // STREAM_MIN_STEPS))
+
+
+def stream_slot(M: int) -> int:
+    """Floats a workspace slot of mm_stream holds: the f32 fragments of
+    the warps whose 16 rows lie below M, STREAM_BN / 2 a thread."""
+    return STREAM_BN // 2 * 32 * _ceil(min(M, WG_BM), 16)
 
 
 def mma_bm(M: int) -> int:
@@ -167,27 +266,30 @@ def _cuda_core_splits(M: int, N: int, K: int, n_sm: int) -> int:
 
 def plan(M: int, N: int, K: int, *, bf16: bool,
          is_aligned: Tuple[bool, bool], n_sm: int, tma: bool = False,
-         route: Optional[str] = None,
-         splits: Optional[int] = None) -> Plan:
+         route: Optional[str] = None, splits: Optional[int] = None,
+         ctas: Optional[int] = None) -> Plan:
     """The launch of ``(M, K) @ (K, N)``: the route for this dtype, its row
     tile, its K split on a card with ``n_sm`` SMs and, on ``mma``, which
     operands are staged through their windows (``is_aligned``: A's and
     B's, from ``aligned``, of the contiguous operands ``mma`` reads).
     ``tma``: whether TMA can read both operands in place
-    (``tma_operand``); bf16 at M >= WG_MIN_M then takes ``wgmma``.
+    (``tma_operand``); bf16 then takes ``wgmma`` at M >= WG_MIN_M and at
+    a wave of WG_WAVE_M rows where ``_wave_on_wgmma``, ``stream`` where
+    ``stream_takes``.
     ``route`` and ``splits`` force a choice (the card's checks and A/Bs
-    use them); a forced route the
-    operands cannot take raises (``mma`` and ``wgmma`` take bf16 only,
-    ``wgmma`` TMA-legal operands only, ``skinny`` and ``tiled`` f32
-    only), and forced splits are rounded to whole K steps, so the plan
-    may hold fewer."""
+    use them), on ``stream`` ``ctas``; a forced route the
+    operands cannot take raises (``mma``, ``wgmma`` and ``stream`` take
+    bf16 only, ``wgmma`` and ``stream`` TMA-legal operands only,
+    ``skinny`` and ``tiled`` f32 only; ``stream`` splits no K range),
+    forced splits are rounded to whole K steps, so the plan may hold
+    fewer, and forced ctas are cut to the units and the SMs."""
     if min(M, N, K) < 1:
         raise ValueError(f"matmul plan: empty shape {(M, N, K)}")
     if route is None:
-        route = _route(M, bf16, tma)
+        route = _route(M, N, K, bf16, tma, n_sm)
     elif route not in ROUTES:
         raise ValueError(f"matmul plan: unknown route {route!r}")
-    elif route in ("mma", "wgmma") and not bf16:
+    elif route in ("mma", "wgmma", "stream") and not bf16:
         raise ValueError(f"matmul plan: the {route} route takes bf16 "
                          "operands")
     elif route in ("skinny", "tiled") and bf16:
@@ -196,11 +298,25 @@ def plan(M: int, N: int, K: int, *, bf16: bool,
     elif route == "skinny" and M > SK_MAXM:
         raise ValueError(f"matmul plan: the skinny route takes M <= "
                          f"{SK_MAXM}, got {M}")
-    elif route == "wgmma" and not tma:
-        raise ValueError("matmul plan: the wgmma route reads its operands "
-                         "in place by TMA: each a row-major matrix or the "
-                         ".t() view of one, 16-byte aligned, its lines a "
-                         "multiple of 16 bytes apart")
+    elif route in ("wgmma", "stream") and not tma:
+        raise ValueError(f"matmul plan: the {route} route reads its "
+                         "operands in place by TMA: each a row-major matrix "
+                         "or the .t() view of one, 16-byte aligned, its "
+                         "lines a multiple of 16 bytes apart")
+    if route == "stream":
+        if splits not in (None, 1):
+            raise ValueError("matmul plan: the stream route splits no K "
+                             "range (its shares are forced by ctas)")
+        if stream_tiles(M, N) > STREAM_TILES:
+            raise ValueError(f"matmul plan: {stream_tiles(M, N)} tiles, "
+                             f"more than the {STREAM_TILES} counters of "
+                             "the stream route")
+        units = stream_units(M, N, K)
+        grid = _stream_ctas(units, n_sm) if ctas is None else ctas
+        if grid < 1:
+            raise ValueError(f"matmul plan: ctas must be >= 1, got {grid}")
+        return Plan(route, WG_BM, 1, K, bn=STREAM_BN,
+                    ctas=min(grid, units, n_sm), units=units)
     staged, width = (False, False), MMA_BN
     if route == "wgmma":
         bm, step = WG_BM, WG_BK
@@ -222,5 +338,8 @@ def plan(M: int, N: int, K: int, *, bf16: bool,
 
 
 def workspace_shape(p: Plan, M: int, N: int) -> Tuple[int, ...]:
-    """The f32 partial sums of a split launch; nothing when it is one."""
+    """The f32 partial sums of a split launch; nothing when it is one.
+    stream: one slot a CTA (``stream_slot``)."""
+    if p.route == "stream":
+        return (p.ctas, stream_slot(M))
     return (p.splits, M, N) if p.splits > 1 else (0,)

@@ -56,8 +56,8 @@ SLOTS, PROMPT, STEPS, WARM, REPLAYS = 4, 32, 8, 2, 20
 GEN = 1 + WARM + 3 * STEPS + 1   # every slot stays active to the end
 MODES = ("eager", "graph")
 # the __global__ functions of kernels/csrc, as the profiler names them
-PORT_KERNEL = re.compile(r"\b(mm_mma|mm_wgmma|mm_skinny|mm_tiled|"
-                         r"split_reduce|"
+PORT_KERNEL = re.compile(r"\b(mm_mma|mm_wgmma|mm_stream|mm_skinny|"
+                         r"mm_tiled|split_reduce|"
                          r"fa_kernel|fa_mma_kernel|fa_wgmma_kernel|"
                          r"fa_bwd_delta(?:_wgmma)?|"
                          r"fa_bwd_dkdv(?:_wgmma)?|fa_bwd_dq(?:_wgmma)?|"

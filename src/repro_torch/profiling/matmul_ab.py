@@ -13,8 +13,10 @@ them, else the earlier ``mm_splits`` (OTHER's own split) and
 ``mm_launch``.
 
 At qwen2-7b's widths, bf16: the five shapes of a decode step (M = 4 slots:
-wq / wo, wk / wv, w1 / w3, w2, the LM head) and the four of a prefill wave
-(M = 128, 4 slots x 32 prompt tokens), then the CNNs' fp32 fc at the
+wq / wo, wk / wv, w1 / w3, w2, the LM head), the four of a prefill wave
+(M = 128, 4 slots x 32 prompt tokens) and of a slot refill (M = 32, one
+prompt; and M = 64, the lever runs' longer prompt), then the CNNs' fp32 fc
+at the
 paper's batch (64 x 2048 x 1000, ResNet-50's), then the bf16 products
 whose rows are not 16 bytes (``STAGED``): hymba-1.5b's SSM in_proj (N =
 3257) at a decode step's M = 4, a 4 x 160-row wave's 640 and a training
@@ -25,8 +27,9 @@ timed launches cycle over distinct weight buffers, together past the 50
 MB L2, as on the serving path where each layer's weights are read once a
 step.  Both versions are held against the plain version (3e-2 bf16, 2e-4
 fp32), compared with each other bit for bit (``bitwise``; expected where
-both run the same kernel, not across a route change) and timed with CUDA
-events in the order other, this, this, other.  Where OTHER has the
+both run the same kernel, not across a route change: this checkout's plan
+may send a wave's products to the ``stream`` or ``wgmma`` route) and timed with
+CUDA events in the order other, this, this, other.  Where OTHER has the
 warpgroup route too (``matmul_wgmma.cu``'s ``mm_wgmma_run``), it is
 compiled beside it and qwen2-7b's four training products at a
 microbatch's 4096 rows (``WGMMA``) are run on both, each as ``MatMul``
@@ -77,8 +80,9 @@ def _shapes():
             (d, cfg.n_kv_heads * cfg.head_dim, 2 * L),
             (d, cfg.d_ff, 2 * L), (cfg.d_ff, d, L), (d, cfg.vocab, 1)]
     out = [("decode", SLOTS, K, N, torch.bfloat16, c) for K, N, c in proj]
-    out += [("prefill", SLOTS * PROMPT, K, N, torch.bfloat16, c)
-            for K, N, c in proj[:-1]]
+    for tag, M in (("prefill", SLOTS * PROMPT), ("refill", PROMPT),
+                   ("refill 64", 2 * PROMPT)):
+        out += [(tag, M, K, N, torch.bfloat16, c) for K, N, c in proj[:-1]]
     out.append(("cnn fc", CNN_BATCH, 2048, 1000, torch.float32, 0))
     for arch, what, K, N, ms in STAGED:
         c = get_config(arch)
@@ -134,9 +138,9 @@ def _other_wgmma(root: Path):
     lib = ctypes.CDLL(str(out))
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
-    for fn, argtypes in mm_k.WG_SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+    fn = "mm_wgmma_run"
+    getattr(lib, fn).argtypes = mm_k.WG_SIGNATURES[fn]
+    getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -305,7 +309,7 @@ def main(argv=None) -> None:
     wg_lib = _other_wgmma(Path(args[0]))
     if wg_lib is not None:
         results.update(_wgmma_cases(wg_lib, g, dev))
-    for tag in ("decode", "prefill"):
+    for tag in ("decode", "prefill", "refill", "refill 64"):
         n = sum(c for t, *_, c in _shapes() if t == tag)
         print(f"{tag} total ({n} calls): other ms "
               f"{totals[(tag, 'other')]:.3f}, this ms "
@@ -316,7 +320,8 @@ def main(argv=None) -> None:
                       "cases": results,
                       "totals": {f"{t} {w}": v for (t, w), v in
                                  totals.items()
-                                 if t in ("decode", "prefill")}}),
+                                 if t in ("decode", "prefill", "refill",
+                                          "refill 64")}}),
           flush=True)
 
 

@@ -2,7 +2,7 @@
 replays, in turns, in one process.
 
   PYTHONPATH=src python -m repro_torch.profiling.prefill_profile \
-      [--arch qwen2-7b]
+      [--arch qwen2-7b] [--ops-only]
 
 Builds the architecture (qwen2-7b by default; any the port serves) at its
 published width (bf16, random weights from seed 0)
@@ -55,7 +55,8 @@ Every fleet must generate the same tokens.  The loads (``LOADS``):
   evicted, run eagerly again and captured again.
 
 After the last graph run the memory its held graphs keep is measured by
-dropping them (device memory reserved before and after).  A card is
+dropping them (device memory reserved before and after).  ``--ops-only``
+stops after the two ops (no ``capture_ab``, no fleets).  A card is
 required; without one it raises.
 """
 from __future__ import annotations
@@ -241,10 +242,11 @@ def fleet_ab(cfg, api, params, loads=None) -> dict:
     return out
 
 
-def run(arch: str = "qwen2-7b") -> dict:
+def run(arch: str = "qwen2-7b", ops_only: bool = False) -> dict:
     """The A/B above; returns {op: {mode: {wall_ms, wall_min_ms,
     wall_max_ms, device_ms, idle, kernels}, replay_device_ms}} plus the
-    graphs' ``capture_s`` and the A/B's ``peak_gb``."""
+    graphs' ``capture_s`` and the A/B's ``peak_gb`` (and, unless
+    ``ops_only``, ``capture_ab`` and ``fleets``)."""
     device = resolve("cuda")
     cfg = get_config(arch)
     api = mapi.build(cfg, device)
@@ -276,6 +278,8 @@ def run(arch: str = "qwen2-7b") -> dict:
     out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     out["card"] = torch.cuda.get_device_name(device)
     out["arch"] = cfg.name
+    if ops_only:
+        return out
     out["capture_ab"] = capture_ab(pg._entries[keys["refill"]],
                                    ops["eager"]["refill"], device)
     del engines, ops, pg
@@ -325,10 +329,11 @@ def report(out: dict) -> None:
               f"{out[op]['replay_device_ms']:.3f} ms each (CUDA events)")
     print(f"  captures {out['capture_s']:.3f} s in all; peak memory "
           f"{out['peak_gb']:.2f} GB")
-    for way, r in out["capture_ab"].items():
+    for way, r in out.get("capture_ab", {}).items():
         print(f"  refill capture by {way}: median {r['capture_s']:.4f} s; "
               f"the eager refill after it {r['next_ms']:.3f} ms wall")
-    report_fleets(out["fleets"])
+    if "fleets" in out:
+        report_fleets(out["fleets"])
     for op in OPS:
         for mode in MODES:
             events = out["tables"][op][mode]
@@ -342,7 +347,10 @@ def report(out: dict) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-7b")
-    report(run(ap.parse_args(argv).arch))
+    ap.add_argument("--ops-only", action="store_true",
+                    help="time the refill and the wave only")
+    args = ap.parse_args(argv)
+    report(run(args.arch, args.ops_only))
 
 
 if __name__ == "__main__":

@@ -283,8 +283,9 @@ def _process_metrics(device, boot: dict):
     seconds by part (``boot``: process start to ``worker_main``, the CUDA
     context, the engine build, and their sum, process start to ``Hello``),
     peak device memory, and the kernel wrappers' launch counts (and
-    ``kernel.matmul_wgmma.launches``: those of the matmul's on the
-    ``wgmma`` route, counted in ``kernel.matmul.launches`` too)."""
+    ``kernel.matmul_wgmma.launches`` / ``kernel.matmul_stream.launches``:
+    those of the matmul's on the ``wgmma`` / ``stream`` route, counted in
+    ``kernel.matmul.launches`` too)."""
     import torch
 
     from repro_torch.kernels.counts import snapshot
@@ -307,8 +308,8 @@ def _process_metrics(device, boot: dict):
         out += [(f"kernel.{name}.launches", float(n))
                 for name, (n, _) in zip(wrappers, counts)]
         routes = counts[list(wrappers).index("matmul")][1]
-        out.append(("kernel.matmul_wgmma.launches",
-                    float(routes.get("wgmma", 0))))
+        out += [(f"kernel.matmul_{r}.launches", float(routes.get(r, 0)))
+                for r in ("wgmma", "stream")]
         if device.type == "cuda":
             out.append(("worker.peak_memory_bytes",
                         float(torch.cuda.max_memory_allocated(device))))

@@ -461,8 +461,10 @@ def test_real_worker_reports_its_boot_by_part():
     assert all(s >= 0.0 for s in parts) and m["worker.build_seconds"] > 0.0
     assert m["worker.boot_seconds"] == pytest.approx(sum(parts), abs=1e-9)
     assert m["kernel.matmul.launches"] >= 0.0
-    # those on the wgmma route, counted in the matmul's too
+    # those on the wgmma and stream routes, counted in the matmul's too
     assert 0.0 <= m["kernel.matmul_wgmma.launches"] <= \
+        m["kernel.matmul.launches"]
+    assert 0.0 <= m["kernel.matmul_stream.launches"] <= \
         m["kernel.matmul.launches"]
     assert "worker.peak_memory_bytes" not in m
     here.send(P.encode(P.Shutdown()))

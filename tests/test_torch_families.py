@@ -178,6 +178,28 @@ def test_published_shapes_pass_the_kernel_plans(arch):
             assert p.route == "mma", (name, M, K, N)
             assert p.staged == (False, name in staged), (name, M, K, N)
             assert 1 <= p.splits and (p.splits - 1) * p.rows < K
+            # where TMA reads both in place: the warpgroup routes' limits
+            if name in staged:
+                continue
+            q = mm_plan.plan(M, N, K, bf16=True, n_sm=132, tma=True,
+                             is_aligned=mm_plan.aligned(N, K, 0, 0))
+            if M >= mm_plan.WG_MIN_M:
+                assert q.route == "wgmma" and q.bn in mm_plan.WG_BNS
+            elif q.route == "wgmma":
+                assert M == mm_plan.WG_WAVE_M and q.bn in mm_plan.WG_BNS
+                assert K * N >= mm_plan.WG_WAVE_KN or not \
+                    mm_plan.stream_takes(M, N, K, 132)
+            elif q.route == "stream":
+                assert mm_plan.STREAM_MIN_M <= M < mm_plan.WG_MIN_M
+                assert K >= mm_plan.STREAM_MIN_K
+                assert -(-N // mm_plan.STREAM_BN) >= (
+                    mm_plan.STREAM_MIN_TILES if M >= mm_plan.STREAM_WIDE_M
+                    else 132)
+                assert mm_plan.stream_tiles(M, N) <= mm_plan.STREAM_TILES
+                assert 1 <= q.ctas <= 132 and q.units == \
+                    mm_plan.stream_units(M, N, K)
+            else:
+                assert q.route == "mma" and q == p, (name, M, K, N, q)
     head = mm_plan.plan(4, cfg.vocab, cfg.d_model, bf16=True, n_sm=132,
                         is_aligned=mm_plan.aligned(cfg.vocab, cfg.d_model,
                                                    0, 0))

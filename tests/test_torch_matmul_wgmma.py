@@ -7,8 +7,11 @@ on a card (``tests/test_torch_matmul_wgmma_card.py``, ``chip_smoke.py
   ``MatMul`` issues it (forward; dA = dC B^T and dB = A^T dC with the
   transposes as views; a tied table as its ``.T`` view): ``wgmma`` where
   M >= 256 and TMA can read both operands in place, else ``mm_mma``
-  (staged where a row is off 16 bytes); serving's decode, wave and refill
-  shapes keep ``mm_mma``, the waves of 256 rows and more move;
+  (staged where a row is off 16 bytes); serving's decode shapes keep
+  ``mm_mma``, and so do a refill's but its products of a column tile an
+  SM; the waves of 65-255 rows take the ``stream`` route where K and N are
+  wide (``tests/test_torch_matmul_stream.py``), those of 256 rows and more
+  move;
 * TMA legality (``plan.tma_operand``) of row-major operands, ``.t()``
   views, offset views, sliced lines and odd N / K;
 * a numpy model of the kernel's coordinates: the band walk over tiles,
@@ -154,21 +157,60 @@ def test_qwen2_7b_training_products_all_take_wgmma(n_sm):
     assert plans[("dB", d, LOSS_CHUNK, cfg.vocab)] == (256, 1)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("M", (1, 4, 32, 64, 128))
-def test_serving_shapes_keep_mm_mma(arch, M, n_sm):
-    """Decode (M = 4 slots), refills (32, 64) and qwen2-7b's prefill wave
-    (128 rows) stay on ``mm_mma`` whatever the operands' layout: the tied
-    head's view is copied first, as ``_head`` used to copy it."""
-    cfg = get_config(arch)
+def _serving_shapes(cfg):
     shapes = [(K, N, False) for K, N in set(block_products(cfg))]
     shapes.append((cfg.d_model, cfg.vocab, bool(cfg.tie_embeddings)))
-    for K, N, tied in shapes:
+    return shapes
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("M", (1, 4, 16, 32, 64))
+def test_serving_shapes_keep_mm_mma(arch, M, n_sm):
+    """Decode (M = 4 slots, up to 16) stays on ``mm_mma`` whatever the
+    operands' layout (the tied head's view is copied first, as ``_head``
+    used to copy it), and so do refills (32, 64) but their products of
+    K >= 1024 and a column tile an SM, which take ``stream``."""
+    cfg = get_config(arch)
+    for K, N, tied in _serving_shapes(cfg):
         a = _meta((M, K))
         b = _meta((N, K)).T if tied else _meta((K, N))
         p = mm_k.plan_for(a, b)
+        legal = K % 8 == 0 and (tied or N % 8 == 0)
+        if M > 16 and legal and K >= 1024 and -(-N // 128) >= H100_SMS:
+            assert p.route == "stream", (K, N, tied, p)
+            continue
         assert p.route == "mma" and p.bm == P.mma_bm(M)
         assert p.staged == (K % 8 != 0, N % 8 != 0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("M", (65, 96, 128, 160, 255))
+def test_serving_waves_take_the_stream_route(arch, M, n_sm):
+    """Prefill waves of 65-128 rows (qwen2-7b's 4 x 32) take ``stream``
+    where TMA reads both operands in place (the tied head as the table's
+    .T view), K >= 1024 and N holds 16 column tiles; the short and narrow
+    ones keep ``mm_mma`` below 128 rows, the misaligned ones staged on it.
+    At 128 rows (one full row tile) weights of 2^27 elements and more take
+    ``wgmma``, and so do the narrow legal products but where wgmma would
+    split K more ways than mma (qwen1.5-110b's k / v); from 129 rows every
+    legal product takes ``wgmma``."""
+    cfg = get_config(arch)
+    for K, N, tied in _serving_shapes(cfg):
+        a = _meta((M, K))
+        b = _meta((N, K)).T if tied else _meta((K, N))
+        p = mm_k.plan_for(a, b)
+        legal = K % 8 == 0 and (tied or N % 8 == 0)
+        big = M == 128 and K * N >= 1 << 27
+        if legal and (M >= 129 or big):
+            assert p.route == "wgmma" and p.bn in P.WG_BNS, (K, N, p)
+        elif legal and K >= 1024 and -(-N // 128) >= 16:
+            assert p.route == "stream" and p.ctas >= 1, (K, N, tied, p)
+        elif legal and M == 128 and (arch, K, N) != ("qwen1.5-110b", 8192,
+                                                      1024):
+            assert p.route == "wgmma" and p.bm == P.WG_BM, (K, N, p)
+        else:
+            assert p.route == "mma" and p.bm == P.mma_bm(M), (K, N, p)
+            assert p.staged == (K % 8 != 0, N % 8 != 0)
 
 
 @pytest.mark.parametrize("arch,rows", [("internvl2-26b", 4 * 288),
@@ -440,7 +482,8 @@ def test_split_and_width_rules():
     p = wg(256, 64, 2048)                    # 2 tiles; K // (2 M) = 4
     assert (p.bn, p.splits) == (256, 4)
     assert P.workspace_shape(p, 256, 64) == (4, 256, 64)
-    assert wg(255, 3584, 3584).route == "mma"     # below WG_MIN_M
+    assert wg(255, 3584, 3584).route == "wgmma"   # from WG_MIN_M: a
+    assert wg(255, 512, 3584).route == "wgmma"    # wave's, wide or not
 
 
 # ---------------------------------------------------------------------------

@@ -267,7 +267,7 @@ def test_decode_path_wrappers_are_counted():
                      "paged_decode_quant", "paged_decode_sparse",
                      "flash_decode"]
     snap = counts.snapshot(WRAPPERS)
-    assert set(snap[0][1]) == {"mma", "skinny", "tiled", "wgmma"}
+    assert set(snap[0][1]) == {"mma", "skinny", "tiled", "wgmma", "stream"}
 
 
 def test_block_count_accumulates_in_place():
